@@ -1,0 +1,62 @@
+"""Carry parameters across from the JAX package, as numpy arrays.
+
+:func:`load_npz` reads the ``params/...`` keys of a checkpoint written by
+``repro/train/checkpoint.py`` into a nested dict of numpy arrays;
+:func:`from_jax_params` turns such a tree (layers stacked on axis 0, as in
+the npz) into the port's parameters (a list of per-layer dicts of tensors).
+Residue preparation then runs in the port (``Model.prepare_params``).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+__all__ = ["load_npz", "from_jax_params"]
+
+
+def load_npz(path: str) -> dict[str, Any]:
+    """``params/a/b/c`` npz keys -> ``{"a": {"b": {"c": array}}}``."""
+    tree: dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            if parts[0] != "params":
+                continue
+            node = tree
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(z[key])
+    if not tree:
+        raise ValueError(f"{path} holds no params/... keys")
+    return tree
+
+
+def _to_torch(node, device):
+    if isinstance(node, dict):
+        return {k: _to_torch(v, device) for k, v in node.items()}
+    return torch.as_tensor(np.asarray(node)).to(device)
+
+
+def _layer(node, i: int):
+    if isinstance(node, dict):
+        return {k: _layer(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def from_jax_params(np_tree: dict[str, Any], cfg: ArchConfig,
+                    device: torch.device | str) -> dict[str, Any]:
+    """The reference's parameter tree (numpy, layers stacked on axis 0) ->
+    the port's parameters on ``device``."""
+    layers = np_tree["layers"]
+    n = len(np.asarray(layers["attn_norm"]["scale"]))
+    if n != cfg.n_layers:
+        raise ValueError(f"tree holds {n} layers, config says "
+                         f"{cfg.n_layers}")
+    out = {k: _to_torch(v, device) for k, v in np_tree.items()
+           if k != "layers"}
+    out["layers"] = [_to_torch(_layer(layers, i), device) for i in range(n)]
+    return out

@@ -1,0 +1,51 @@
+"""Shared building blocks: RMSNorm, RoPE, embedding (port of models/layers.py)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.quant.quant import true_divide
+
+__all__ = ["rmsnorm", "init_rmsnorm", "rope", "init_embedding", "embed"]
+
+
+def init_rmsnorm(d: int, device="cuda") -> dict[str, torch.Tensor]:
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params: dict[str, torch.Tensor], x: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """f32 variance; normalize and multiply in the input dtype."""
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * params["scale"].to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, *,
+         theta: float = 1e4) -> torch.Tensor:
+    """Rotary embedding.  x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** true_divide(
+        -torch.arange(0, half, dtype=torch.float32, device=x.device), half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs   # (B, S, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   device="cuda") -> dict[str, torch.Tensor]:
+    return {"table": torch.randn(vocab, d, generator=gen, device=device)
+            * 0.02}
+
+
+def embed(params: dict[str, torch.Tensor], tokens: torch.Tensor,
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the f32 table, cast after the gather (same values as casting
+    the whole table first, without a table-sized temporary)."""
+    return params["table"][tokens].to(compute_dtype)
