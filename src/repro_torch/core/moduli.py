@@ -2,9 +2,10 @@
 
 The port's copy of the parts of ``repro/core/moduli.py`` the serving path
 needs: :class:`ModuliSet` (forward conversion, centering, mixed-radix
-reverse conversion), :func:`special_set`, :class:`PackedFormat` (the
-byte-packed 2-channel KV page codec) and the sets ``P21``, ``KV8`` and
-``KV4``.  Redundant (witness) channels wait for the fault-tolerance slice.
+reverse conversion, and with trailing redundant "witness" channels the
+syndrome check and single-fault correction), :func:`special_set`,
+:class:`PackedFormat` (the byte-packed 2-channel KV page codec) and the
+sets ``P21``, ``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
 
 Residues are stored **centered**: ``r in [-floor(m/2), floor(m/2)]``; an
 even modulus centers ``m/2`` to ``+m/2`` (``r > m//2 -> r - m``).  Every
@@ -23,7 +24,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set", "P21",
-           "KV8", "KV4"]
+           "KV8", "KV4", "P21R2", "KV8R2"]
 
 
 def _egcd(a: int, b: int) -> tuple[int, int, int]:
@@ -43,12 +44,19 @@ def modinv(a: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModuliSet:
-    """A pairwise-coprime moduli set with its conversions."""
+    """A pairwise-coprime moduli set with its conversions.
+
+    The trailing ``redundant`` moduli are witness channels: they do not
+    extend the range (``M`` and ``half_range`` are taken over the
+    information moduli only) and make a corrupted channel detectable and,
+    with ``redundant >= 2``, correctable at decode time.
+    """
 
     moduli: tuple[int, ...]
+    redundant: int = 0
 
     @staticmethod
-    def make(moduli: Sequence[int]) -> "ModuliSet":
+    def make(moduli: Sequence[int], *, redundant: int = 0) -> "ModuliSet":
         mods = tuple(int(m) for m in moduli)
         for m in mods:
             if m < 2:
@@ -60,20 +68,56 @@ class ModuliSet:
                     raise ValueError(
                         f"moduli must be pairwise coprime, got {mods[i]}, "
                         f"{mods[j]}")
-        return ModuliSet(mods)
+        if not 0 <= redundant < len(mods):
+            raise ValueError(f"redundant={redundant} needs 0 <= r < "
+                             f"{len(mods)} (one information channel must "
+                             "remain)")
+        if redundant >= 2:
+            # single-fault correction: a wrong-channel projection differs
+            # from the true value by a multiple of M_total / (m_i * m_j),
+            # which must clear the legitimate range
+            m_info = math.prod(mods[: len(mods) - redundant])
+            m_total = math.prod(mods)
+            for i in range(len(mods)):
+                for j in range(i + 1, len(mods)):
+                    if m_total // (mods[i] * mods[j]) < m_info:
+                        raise ValueError(
+                            f"redundant moduli {mods[len(mods) - redundant:]}"
+                            f" are too small for single-fault correction: "
+                            f"M_total/({mods[i]}*{mods[j]}) < M_info")
+        return ModuliSet(mods, redundant)
 
     @property
     def num_channels(self) -> int:
         return len(self.moduli)
 
+    @property
+    def num_info(self) -> int:
+        """Number of information (non-redundant) channels."""
+        return len(self.moduli) - self.redundant
+
+    @property
+    def info_moduli(self) -> tuple[int, ...]:
+        return self.moduli[: self.num_info]
+
+    @property
+    def redundant_moduli(self) -> tuple[int, ...]:
+        return self.moduli[self.num_info:]
+
+    @functools.cached_property
+    def info(self) -> "ModuliSet":
+        """The information channels alone (``self`` without redundancy)."""
+        return self if self.redundant == 0 else ModuliSet(self.info_moduli)
+
     @functools.cached_property
     def M(self) -> int:
-        """Dynamic range: the product of the moduli (exact Python int)."""
-        return math.prod(self.moduli)
+        """Dynamic range: the product of the information moduli."""
+        return math.prod(self.info_moduli)
 
     @functools.cached_property
     def half_range(self) -> int:
-        """Max |X| representable in the signed (centered) interpretation."""
+        """Max |X| representable in the signed (centered) interpretation:
+        the legitimate range of a redundant set."""
         return (self.M - 1) // 2
 
     # ---- forward conversion ------------------------------------------------
@@ -119,7 +163,10 @@ class ModuliSet:
         reconstructs in wrapping int32; here every intermediate is an exact
         int64 (digits times prefix products stay below M), and the final
         cast to int32 wraps modulo 2**32 exactly as the reference does.
+        A redundant set decodes its information channels only.
         """
+        if self.redundant:
+            return self.info.from_residues(residues[: self.num_info])
         C = self.num_channels
         vs = [r.to(torch.int64) for r in self.canon(residues.to(torch.int64))]
         digits = []
@@ -146,9 +193,137 @@ class ModuliSet:
         val = val - gt.to(torch.int64) * self.M
         return val.to(torch.int32)
 
+    # ---- redundancy: syndromes and single-fault correction ----------------
+    def _info_bad(self, res: torch.Tensor, x: torch.Tensor
+                  ) -> list[torch.Tensor]:
+        """Per witness channel: does the stored residue disagree with the
+        information decode ``x``?  (``res`` canonical.)"""
+        ni = self.num_info
+        return [torch.remainder(res[ni + j] - torch.remainder(x, m), m) != 0
+                for j, m in enumerate(self.redundant_moduli)]
+
+    def syndromes(self, residues: torch.Tensor) -> torch.Tensor:
+        """Per-witness consistency syndromes ``(r, ...)`` int32: zero
+        everywhere exactly when the witnesses agree with the decode."""
+        if self.redundant == 0:
+            raise ValueError("syndromes() needs a redundant ModuliSet")
+        res = self.canon(residues.to(torch.int32))
+        x = self.info.from_residues(res[: self.num_info])
+        return torch.stack(
+            [torch.remainder(res[self.num_info + j] - torch.remainder(x, m),
+                             m) for j, m in enumerate(self.redundant_moduli)],
+            dim=0).to(torch.int32)
+
+    @functools.cached_property
+    def _projection_tables(self) -> tuple[list[list[int]], list[int]]:
+        """CRT tables of the leave-one-information-channel-out sets: per
+        dropped channel ``c``, the weights ``B_j = (M_c/m_j) *
+        inv(M_c/m_j, m_j)`` (0 at ``j == c``) and the product ``M_c``."""
+        weights, prods = [], []
+        for c in range(self.num_info):
+            mc = math.prod(m for j, m in enumerate(self.moduli) if j != c)
+            row = [0 if j == c else (mc // m) * modinv(mc // m, m)
+                   for j, m in enumerate(self.moduli)]
+            if (self.num_channels - 1) * max(self.moduli) * mc >= 1 << 62:
+                raise ValueError(f"projection of {self.moduli} overflows "
+                                 "int64")
+            weights.append(row)
+            prods.append(mc)
+        return weights, prods
+
+    @functools.cached_property
+    def _device_tables(self) -> dict:
+        """:attr:`_projection_tables` as tensors, by device."""
+        return {}
+
+    def _project_info(self, res: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Leave-one-information-channel-out projections of canonical
+        residues.  Returns ``(best, n_legit)``: the sum of the projections
+        inside the legitimate range and how many landed there.
+
+        The reference decodes each projection by MRC in wrapping int32;
+        here all of them come from one vectorized CRT in exact int64 (the
+        sums stay far below 2**63), centered and then wrapped to int32 the
+        same way, so the values are identical with a handful of tensor ops
+        instead of one MRC per dropped channel.
+        """
+        ni, lead = self.num_info, (1,) * (res.dim() - 1)
+        dev = res.device
+        tables = self._device_tables.get(dev)
+        if tables is None:      # one host-to-device copy per device, ever
+            weights, prods = self._projection_tables
+            tables = (torch.tensor(weights, dtype=torch.int64, device=dev),
+                      torch.tensor(prods, dtype=torch.int64, device=dev))
+            self._device_tables[dev] = tables
+        w, mc = tables[0], tables[1].view(ni, *lead)
+        acc = torch.zeros((ni, *res.shape[1:]), dtype=torch.int64, device=dev)
+        for j in range(self.num_channels):
+            acc += res[j].to(torch.int64) * w[:, j].view(ni, *lead)
+        p = torch.remainder(acc, mc)
+        p = torch.where(p > (mc - 1) // 2, p - mc, p).to(torch.int32)
+        legit = p.abs() <= self.half_range
+        n_legit = legit.to(torch.int32).sum(dim=0)
+        best = torch.where(legit, p, 0).sum(dim=0, dtype=torch.int32)
+        return best, n_legit
+
+    def corrected_decode(self, residues: torch.Tensor) -> torch.Tensor:
+        """Reverse conversion with in-line single-fault correction.
+
+        Equals :meth:`from_residues` on consistent residues.  When every
+        syndrome fires (an information channel is corrupted) and
+        ``redundant >= 2``, the value is rebuilt from the unique projection
+        inside the legitimate range.  The reference runs the projections
+        under ``lax.cond``; here they always run and ``torch.where``
+        selects, so the decode never reads the device from the host.
+        """
+        if self.redundant == 0:
+            return self.from_residues(residues)
+        res = self.canon(residues.to(torch.int32))
+        x = self.info.from_residues(res[: self.num_info])
+        if self.redundant < 2:
+            return x
+        info_fault = functools.reduce(torch.logical_and,
+                                      self._info_bad(res, x))
+        best, n_legit = self._project_info(res)
+        return torch.where(info_fault & (n_legit == 1), best, x)
+
+    def correct(self, residues: torch.Tensor):
+        """Detect and repair single-channel faults.
+
+        Returns ``(fixed, detected, corrected)``: centered ``(C, ...)``
+        residues and elementwise bool masks.  No nonzero syndrome: nothing
+        to do; exactly one: that witness is rewritten from the information
+        decode; two or more: an information channel is faulty and the whole
+        vector is re-encoded from the unique legitimate projection (left
+        untouched when there is none).  ``redundant == 1`` detects only.
+        """
+        if self.redundant == 0:
+            raise ValueError("correct() needs a redundant ModuliSet")
+        res = self.canon(residues.to(torch.int32))
+        ni = self.num_info
+        x = self.info.from_residues(res[:ni])
+        syn = self._info_bad(res, x)
+        n_nz = functools.reduce(torch.add, [s.to(torch.int32) for s in syn])
+        detected = n_nz > 0
+        rows = list(res)
+        corrected = torch.zeros_like(detected)
+        if self.redundant >= 2:
+            red_fault = n_nz == 1
+            for j, m in enumerate(self.redundant_moduli):
+                rows[ni + j] = torch.where(red_fault & syn[j],
+                                           torch.remainder(x, m), res[ni + j])
+            best, n_legit = self._project_info(res)
+            fix = (n_nz >= 2) & (n_legit == 1)
+            rows = [torch.where(fix, torch.remainder(best, m), r)
+                    for m, r in zip(self.moduli, rows)]
+            corrected = red_fault | fix
+        return self.center(torch.stack(rows, dim=0)), detected, corrected
+
     def packed(self) -> "PackedFormat":
-        """The byte-packed storage format of this (two-channel) set."""
-        return PackedFormat.for_moduli(self.moduli)
+        """The byte-packed storage format of this set's two information
+        channels."""
+        return PackedFormat.for_moduli(self.info_moduli)
 
 
 def special_set(n: int) -> ModuliSet:
@@ -244,3 +419,8 @@ P21 = special_set(7)
 # KV8 = {15, 16}: one byte per value; KV4 = {3, 4}: one nibble per value.
 KV8 = ModuliSet.make((15, 16))
 KV4 = ModuliSet.make((3, 4))
+# Two witness channels each: P21R2 keeps P21's range with every centered
+# residue in int8, KV8R2 is the rns8r page format (lane 0 the packed KV8
+# byte, lanes 1..2 the witnesses, 17 * 19 = 323 > 240).
+P21R2 = ModuliSet.make((127, 128, 129, 131, 133), redundant=2)
+KV8R2 = ModuliSet.make((15, 16, 17, 19), redundant=2)

@@ -37,9 +37,12 @@ _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, tab, kv_len, o, m, l, B, H, Kv,
-    # hd, ps, n_pmax, scale, q_dtype, kv_mode, m0, m1, crt_inv, stream
+    # hd, ps, n_pmax, row_stride, scale, q_dtype, kv_mode, m0, m1, crt_inv,
+    # k_wit, v_wit, wit_lane_stride, n_red, red_moduli (host int[n_red]),
+    # syn, stream
     "paged_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _L, _F, _I, _I, _I, _I, _I, _P, _P, _L,
+                         _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

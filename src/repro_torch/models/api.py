@@ -10,7 +10,9 @@ The returned :class:`Model` bundles the dense-family functions:
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
   float tree (identity for ``bns``; idempotent on prepared trees);
 * ``prefill(params, tokens, s_max=None, logits_at=None)``;
-* ``decode_paged(params, token, kv, block_tab, pos, page_size=...)``.
+* ``decode_paged(params, token, kv, block_tab, pos, page_size=...,
+  with_syndrome=False)``; with the syndrome it also returns the
+  ``(B, L)`` count of KV elements whose witnesses disagree (rns8r pages).
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -23,6 +25,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.moduli import ModuliSet
 from repro_torch.models import transformer as tf_mod
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant import residency
@@ -55,14 +58,24 @@ class Model:
 
 def build_model(cfg: ArchConfig, *, system: str = "bns",
                 device: torch.device | str = "cuda",
-                rns_bits: int = 4) -> Model:
+                rns_bits: int = 4,
+                rns_mset: ModuliSet | None = None) -> Model:
+    """``rns_mset`` (``system="rns"`` only) picks the resident planes' moduli
+    set, P21 by default; a redundant set such as ``P21R2`` carries witness
+    planes that every residue matmul checks and corrects at its decode."""
     if system not in ("bns", "rns"):
         raise ValueError(f"system must be 'bns' or 'rns', got {system!r}")
+    if rns_mset is not None and system != "rns":
+        raise ValueError(f"rns_mset= is only meaningful for system='rns', "
+                         f"got system={system!r}")
     dev = resolve_device(device)
     cd = getattr(torch, cfg.compute_dtype)
     dense_kw: dict[str, Any] = {"system": system, "compute_dtype": cd}
+    prep_kw: dict[str, Any] = {"system": system, "bits": rns_bits}
     if system == "rns":
         dense_kw["bits"] = rns_bits
+        if rns_mset is not None:
+            dense_kw["mset"] = prep_kw["mset"] = rns_mset
 
     def prepare_tree(node, name=None):
         if isinstance(node, list):
@@ -70,15 +83,13 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         if not isinstance(node, dict):
             return node
         if set(node) == {"w"}:
-            return residency.prepare_dense(node, system=system,
-                                           bits=rns_bits)
+            return residency.prepare_dense(node, **prep_kw)
         out = {k: prepare_tree(v, k) for k, v in node.items()}
         if name == "embed" and "logits_w" not in out:
             # tied-embedding logits matmul; the f32 table stays for the
             # embedding gather
             out["logits_w"] = residency.prepare_weight(
-                out["table"].to(torch.float32).T, system=system,
-                bits=rns_bits)
+                out["table"].to(torch.float32).T, **prep_kw)
         return out
 
     def prepare_params(params):
@@ -106,11 +117,12 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
 
     @torch.no_grad()
     def decode_paged(params, token, kv, block_tab, pos, *, page_size,
-                     cache_dtype=torch.bfloat16):
+                     cache_dtype=torch.bfloat16, with_syndrome=False):
         token = torch.as_tensor(token, device=dev).long()
         return tf_mod.lm_decode_paged(
             params, cfg, token, kv, block_tab, pos, page_size=page_size,
-            dense_kw=dense_kw, cache_dtype=cache_dtype)
+            dense_kw=dense_kw, cache_dtype=cache_dtype,
+            with_syndrome=with_syndrome)
 
     return Model(cfg=cfg, device=dev, init=init,
                  prepare_params=prepare_params, prefill=prefill,

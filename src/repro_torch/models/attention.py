@@ -87,7 +87,7 @@ def paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",
                            block_tab: torch.Tensor, pos: torch.Tensor, *,
                            page_size: int, n_heads, n_kv, head_dim,
                            qk_norm=False, rope_theta=1e4, dense_kw=None,
-                           cache_dtype=torch.bfloat16):
+                           cache_dtype=torch.bfloat16, with_syndrome=False):
     """One decode step over one layer's paged pool.
 
     x: (B, 1, D); pos: (B,) int32 per-slot positions.  The new token's K/V
@@ -95,6 +95,8 @@ def paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",
     same bytes prefill-scattered ones would) and written into page
     ``block_tab[b, pos // ps]`` at offset ``pos % ps``; attention then
     walks the slot's page list with ``kv_len = pos + 1``.
+    ``with_syndrome=True`` (rns8r pages) also returns the layer's (B,)
+    in-kernel syndrome count: ``(out, kv_layer, syn)``.
     """
     dense_kw = dense_kw or {}
     B = x.shape[0]
@@ -110,6 +112,11 @@ def paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",
     kv_layer = nxkv.append_token(kv_layer, k[:, 0].to(cache_dtype),
                                  v[:, 0].to(cache_dtype), pages, offs)
     o = nxattn.paged_decode(q[:, 0], kv_layer, block_tab, pos + 1,
-                            page_size=page_size)
+                            page_size=page_size, syndrome=with_syndrome)
+    if with_syndrome:
+        o, syn = o
     out = o.to(q.dtype).reshape(B, 1, n_heads * head_dim)
-    return linear.dense(params["wo"], out, **dense_kw), kv_layer
+    out = linear.dense(params["wo"], out, **dense_kw)
+    if with_syndrome:
+        return out, kv_layer, syn
+    return out, kv_layer

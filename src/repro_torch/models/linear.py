@@ -5,8 +5,9 @@
 * ``system="rns"``: the weight is a residue-resident
   :class:`~repro_torch.numerics.tensor.ResidueTensor` (``quant/residency``);
   only the activation is quantized (int4, per token) and forward-converted
-  per call, the residue matmul kernel consumes the resident P21 planes, and
-  the exact int32 product is dequantized (:func:`_qmatmul_resident`).
+  per call, the residue matmul kernel consumes the resident planes (P21, or
+  a redundant set whose witness channels the decode checks), and the exact
+  int32 product is dequantized (:func:`_qmatmul_resident`).
 
 Prepared weights are inference-only; the per-call quantizing path for float
 weights under ``rns`` waits for the training slice.

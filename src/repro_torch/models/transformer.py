@@ -116,11 +116,13 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
                     kv: "kvp.PagedKV", block_tab: torch.Tensor,
                     pos: torch.Tensor, *, page_size: int, dense_kw=None,
-                    cache_dtype=torch.bfloat16):
+                    cache_dtype=torch.bfloat16, with_syndrome=False):
     """One decode step against the paged pool (updated in place).
 
     token: (B, 1) int; pos: (B,) int32 per-slot positions.  Returns
-    ``(logits (B, vocab), kv)``.
+    ``(logits (B, vocab), kv)``; with ``with_syndrome=True`` (rns8r pools)
+    also the per-(slot, layer) in-kernel syndrome map ``(B, L)`` int32,
+    which stays on the device.
     """
     _check_family(cfg)
     dense_kw = dense_kw or {}
@@ -128,13 +130,23 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     x = embed(params["embed"], token, cd)
     akw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
                qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-               dense_kw=dense_kw, cache_dtype=cache_dtype)
+               dense_kw=dense_kw, cache_dtype=cache_dtype,
+               with_syndrome=with_syndrome)
+    syns = []
     for i, lp in enumerate(params["layers"]):
         lay = kvp.layer_slice(kv, i)
-        h, lay = attn_mod.paged_decode_attention(
+        att = attn_mod.paged_decode_attention(
             lp["attn"], rmsnorm(lp["attn_norm"], x), lay, block_tab, pos,
             page_size=page_size, **akw)
+        if with_syndrome:
+            h, lay, syn = att
+            syns.append(syn)
+        else:
+            h, lay = att
         kv = kvp.layer_update(kv, i, lay)
         x = x + h
         x = x + _mlp_block(lp, x, dense_kw)
-    return _logits(params, cfg, x, dense_kw)[:, 0], kv
+    logits = _logits(params, cfg, x, dense_kw)[:, 0]
+    if with_syndrome:
+        return logits, kv, torch.stack(syns, dim=1)
+    return logits, kv

@@ -8,8 +8,7 @@
 * :func:`encode_rns_planes` / :func:`encode_packed_planes` -- the plane
   encoders (elementwise, so encode-then-slice equals slice-then-encode).
 
-The sharded and redundancy-verifying paths of the reference wait for the
-multi-GPU and fault slices.
+The sharded paths of the reference wait for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -65,16 +64,38 @@ def encode_rns_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
 
 
 def encode_packed_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
-    """Integer values (..., K, N) -> bit-packed planes (..., 1, K, N/vpb)."""
-    return mset.packed().encode(w).unsqueeze(-3)
+    """Integer values (..., K, N) -> bit-packed planes (..., 1 + r, K, N/vpb).
+
+    Lane 0 packs the two information residues; a redundant set appends its
+    ``r`` witness lanes (canonical residues, uint8, one value per byte).
+    """
+    fmt = mset.packed()
+    lane0 = fmt.encode(w)
+    if mset.redundant == 0:
+        return lane0.unsqueeze(-3)
+    if fmt.values_per_byte != 1:
+        raise ValueError(f"redundant rns_pack needs one value per byte, got "
+                         f"vpb={fmt.values_per_byte} for {mset.moduli}")
+    w32 = w.to(torch.int32)
+    red = [torch.remainder(w32, m).to(torch.uint8)
+           for m in mset.redundant_moduli]
+    return torch.stack([lane0, *red], dim=-3)
 
 
 def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
-            max_abs_a: int, max_abs_b: int) -> torch.Tensor:
+            max_abs_a: int, max_abs_b: int,
+            verify: bool = True) -> torch.Tensor:
     """(M, K) integer activation x (C, K, N) planes -> exact (M, N) int32.
 
     Segment boundaries follow the reference exactly (``seg_len`` rounded up
     to 128), so the result is bit-identical even where a bound is tight.
+
+    ``verify``: a redundant set's witness channels ride through the kernel
+    (channels are independent) and each segment decodes with
+    :meth:`ModuliSet.corrected_decode`, so a corrupted weight-plane channel
+    never reaches the value domain.  The check runs when ``verify`` is set
+    and the set has two or more witness channels (enough to locate one
+    fault); ``False`` decodes the information channels unchecked.
     """
     M, K = a.shape
     C, K2, N = b_res.shape
@@ -85,6 +106,8 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
         raise ValueError(f"activation on {a.device}, planes on "
                          f"{b_res.device}")
     impl = get_impl("rns_matmul", a.device)
+    decode = mset.corrected_decode if (verify and mset.redundant >= 2) \
+        else mset.from_residues
     a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
     segs = segment_count(K, max_abs_a, max_abs_b, mset)
     seg_len = _round_up((K + segs - 1) // segs, 128)
@@ -93,6 +116,6 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
     for s in range(segs):
         lo, hi = s * seg_len, min((s + 1) * seg_len, K)
         out_res = impl(a_res[:, :, lo:hi], b_res[:, lo:hi, :], mset.moduli)
-        part = mset.from_residues(out_res)
+        part = decode(out_res)
         total = part if total is None else total + part
     return total

@@ -41,9 +41,14 @@ class ResidueTensor:
         if self.planes.dim() < 3:
             raise ValueError(f"planes need >= 3 dims (*stack, C, K, N), got "
                              f"shape {tuple(self.planes.shape)}")
-        lanes = 1 if self.layout == "rns_pack" else self.mset.num_channels
+        lanes = self.mset.num_channels
         if self.layout == "rns_pack":
-            self.mset.packed()   # raises unless the set is packable
+            fmt = self.mset.packed()   # raises unless the set is packable
+            lanes = 1 + self.mset.redundant
+            if self.mset.redundant and fmt.values_per_byte != 1:
+                raise ValueError(
+                    "redundant rns_pack needs one value per byte, got "
+                    f"vpb={fmt.values_per_byte} for {self.mset.moduli}")
         if self.planes.shape[self.channel_axis] != lanes:
             raise ValueError(
                 f"{self.layout} planes need {lanes} channel lane(s) at axis "

@@ -17,13 +17,14 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.convert import from_jax_params, load_npz
-from repro_torch.core.moduli import P21
+from repro_torch.core.moduli import P21, P21R2
 from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import rns_matmul as rm
 from repro_torch.models.api import build_model
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.numerics.attention import merge_decode_partials
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.testing.faults import FaultSpec, inject_faults
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +110,93 @@ def test_reduced_checkpoint_card_matches_cpu(gen):
     np.testing.assert_allclose(res["cuda"].prefill_logits,
                                res["cpu"].prefill_logits, rtol=0, atol=1e-4)
     np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+
+
+def test_rns_matmul_kernel_p21r2_bit_exact(gen):
+    """Five channels, the witnesses 131 and 133 centered into int8."""
+    a = torch.randint(-66, 67, (5, 9, 700), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-66, 67, (5, 700, 70), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    assert torch.equal(rm.rns_matmul_cuda(a, b, P21R2.moduli),
+                       rm.rns_matmul_ref(a, b, P21R2.moduli))
+
+
+@pytest.mark.parametrize("H,Kv,q_dtype", [
+    (4, 4, torch.float32), (8, 2, torch.bfloat16), (16, 4, torch.bfloat16)])
+def test_paged_decode_syndrome_kernel(gen, H, Kv, q_dtype):
+    """The syndrome mode reads lane 0 and the witness lanes of an rns8r
+    pool in place (strided); syn equals the plain version bit for bit on a
+    clean pool and with planted faults, and the syndrome-free mode reads
+    the same strided lane 0."""
+    B, ps, n_pmax, hd = 3, 8, 4, 32
+    f = kvp.KV_FORMATS["rns8r"]
+    pool = kvp.make_paged_kv(1, 1 + B * n_pmax, ps, Kv, hd, fmt=f,
+                             device="cuda")
+    dense = torch.randn(2, 1, B, n_pmax * ps, Kv, hd, generator=gen,
+                        device="cuda").bfloat16()
+    tab = (1 + torch.randperm(B * n_pmax, generator=gen, device="cuda")
+           ).reshape(B, n_pmax).to(torch.int32)
+    kvp.scatter_prefill(pool, dense[0], dense[1], tab, ps)
+    unnamed = int(tab[2, 3])
+    tab[2, 3] = 0                                   # a dump-page entry
+    kv_len = torch.tensor([5, 32, 17], dtype=torch.int32, device="cuda")
+    lay = kvp.layer_slice(pool, 0)
+    lane0 = (lay.k.planes.select(-3, 0), lay.v.planes.select(-3, 0),
+             lay.k.scale, lay.v.scale, tab, kv_len, ps, f.pack)
+    wit = (lay.k.planes.narrow(-3, 1, 2), lay.v.planes.narrow(-3, 1, 2),
+           f.mset.redundant_moduli)
+    assert not lane0[0].is_contiguous()
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(q_dtype)
+
+    def check():
+        out = fa.paged_decode_cuda(q, *lane0, *wit)
+        ref = fa.paged_decode_ref(q, *lane0, *wit)
+        torch.testing.assert_close(merge_decode_partials(*out[:3]),
+                                   merge_decode_partials(*ref[:3]),
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(out[3], ref[3])
+        plain = fa.paged_decode_cuda(q, *lane0)
+        torch.testing.assert_close(merge_decode_partials(*plain),
+                                   merge_decode_partials(*out[:3]),
+                                   rtol=0, atol=0)
+        return out[3].sum(dim=(1, 2)).tolist()
+
+    assert check() == [0, 0, 0]
+    tab_h = tab.cpu()
+    k, v = lay.k.planes, lay.v.planes
+    k[int(tab_h[0, 0]), 1, 1, 0, 3] ^= 0x01    # witness, slot 0 row 1 < 5
+    v[int(tab_h[1, 2]), 3, 0, Kv - 1, 7] ^= 0x10  # packed byte, row 19 < 32
+    v[int(tab_h[1, 3]), 7, 2, 0, 0] ^= 0x02    # witness, row 31 < 32
+    k[int(tab_h[0, 1]), 0, 0, 0, 0] ^= 0x01    # row 8 past kv_len 5
+    k[unnamed, 0, 0, 0, 0] ^= 0x04             # a page no table names
+    assert check() == [1, 2, 0]
+
+
+def test_redundant_serving_card_matches_cpu(gen):
+    """P21R2 weights, rns8r pages, policy="strict" on the reduced
+    checkpoint: the card's tokens equal the CPU's with zero syndromes, and
+    an injected packed-byte flip is repaired to the same tokens."""
+    cfg = get_config("qwen3-8b").reduced()
+    tree = load_npz(CKPT)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 10))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", rns_mset=P21R2, device=dev)
+        eng = ServingEngine(model, from_jax_params(tree, cfg, dev), batch=3,
+                            s_max=19, page_size=8, kv_format="rns8r",
+                            device=dev, policy="strict")
+        res[dev] = eng.generate({"tokens": prompts}, max_new=8)
+        assert eng.stats.faults.syndromes == 0
+    np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+    fault = FaultSpec(kind="kv", which="k", channel=0, at=(0, 1, 0, 0, 0),
+                      bit=0x20)
+    model = build_model(cfg, system="rns", rns_mset=P21R2, device="cuda")
+    eng = ServingEngine(model, from_jax_params(tree, cfg, "cuda"), batch=3,
+                        s_max=19, page_size=8, kv_format="rns8r",
+                        device="cuda", policy="strict")
+    with inject_faults(eng, [fault], after_steps=3):
+        out = eng.generate({"tokens": prompts}, max_new=8)
+    np.testing.assert_array_equal(out.tokens, res["cpu"].tokens)
+    f = eng.stats.faults
+    assert (f.syndromes, f.corrected, f.recomputes) == (1, 1, 0)

@@ -114,6 +114,11 @@ def test_launch_counters_stay_zero_on_cpu():
     nxattn.paged_decode(torch.randn(2, 4, 16), kvp.layer_slice(pool, 0),
                         torch.tensor([[1], [2]], dtype=torch.int32),
                         torch.tensor([3, 4], dtype=torch.int32), page_size=4)
+    pool = kvp.make_paged_kv(1, 3, 4, 2, 16, fmt="rns8r", device="cpu")
+    nxattn.paged_decode(torch.randn(2, 4, 16), kvp.layer_slice(pool, 0),
+                        torch.tensor([[1], [2]], dtype=torch.int32),
+                        torch.tensor([3, 4], dtype=torch.int32), page_size=4,
+                        syndrome=True)
     cfg = get_config("qwen3-8b").reduced()
     model = build_model(cfg, system="rns", device="cpu")
     eng = ServingEngine(model, model.init(0), batch=2, s_max=12,
@@ -122,4 +127,5 @@ def test_launch_counters_stay_zero_on_cpu():
                        max_new=3)
     assert res.tokens.shape == (2, 3)
     assert kernels.launch_counts() == {"rns_matmul": 0, "flash_attention": 0,
-                                       "paged_decode": 0}
+                                       "paged_decode": 0,
+                                       "paged_decode_syndrome": 0}
