@@ -12,9 +12,11 @@ Phases (each prints its lines; any failure raises and the exit code is not
    PyTorch version at the main path's shapes (rns_matmul bit for bit on
    the P21 planes of [serve] and the P21R2 planes of [serve-r]; the
    attention kernels within stated tolerances; the paged decode's syndrome
-   mode bit for bit on a clean pool and on planted faults) and time kernel,
-   plain version and a library yardstick the port never calls, beside the
-   bound.
+   mode bit for bit on a clean pool and on planted faults; the SD-RNS
+   matmul's two schedules digit for digit on a column slice and, decoded,
+   equal to rns_matmul's residues at the full shapes; the SD adder bit for
+   bit in each kind, and through ``nx.add``) and time kernel, plain version
+   and a library yardstick the port never calls, beside the bound.
 3. small   -- the quantizers give the same bits on the card as on the CPU,
    and the committed reduced qwen3-8b checkpoint served on the card and on
    the CPU (plain versions) gives prefill logits that agree.
@@ -30,12 +32,19 @@ Phases (each prints its lines; any failure raises and the exit code is not
    information channel, (b) a sticky KV fault with ``quarantine_after=2``.
    The tokens must equal the clean run's.
 
+7. serve-sd -- qwen3-8b at full width with the depth cut to 8 of 36 layers
+   (21 B of digit planes per weight) under ``system="sdrns"``: P21 digit
+   planes, rns8 pages, batch 2, 16-token prompts, 8 new tokens, greedy,
+   after its twin under ``system="rns"``.  Prefill logits and tokens must
+   equal the twin's bit for bit; launch counts are exact.
+
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result JSON.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -55,6 +64,15 @@ FLUSH_BYTES = 256 << 20      # > the 50 MB L2: every timed launch starts cold
 LAYER_MATMULS = [((4096, 4096), 2), ((4096, 1024), 2), ((4096, 12288), 2),
                  ((12288, 4096), 1)]
 LOGITS = (4096, 151936)
+KERNELS = ("rns_matmul", "flash_attention", "paged_decode",
+           "paged_decode_syndrome", "sdrns_matmul", "sdrns_matvec", "sd_add")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# [serve-sd]: qwen3-8b at full width, depth cut to 8 of 36 layers for time
+# and memory (21 B of digit planes per weight: 4.05 GB a layer, 13.07 GB
+# for the tied logits weight)
+SD_LAYERS, SD_BATCH, SD_PROMPT, SD_NEW = 8, 2, 16, 8
+SD_COLS = 256                # columns of the plain version's SD check
+SD_ADD_SHAPE = (4096, 4096)  # the weight whose digit planes B8 adds
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -358,6 +376,185 @@ def check_paged_decode_syndrome(torch, timer, gen):
                    f"gathered dequantized pages and counts no syndromes")
 
 
+def _digits(torch, gen, *shape):
+    return torch.randint(-1, 2, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _sd_residues(torch, dig, mset, block=1 << 24):
+    """Centred residues (int8) of SD digit planes (C, R, N, n), channel by
+    channel and row block by row block (the int32 digit sums of a whole
+    logits plane would take 52 GB)."""
+    from repro_torch.core import sdrns
+
+    C, R, N, n = dig.shape
+    out = torch.empty((C, R, N), dtype=torch.int8, device=dig.device)
+    rows = max(1, block // (N * n))
+    for c, (kind, width) in enumerate(mset.kinds):
+        for r0 in range(0, R, rows):
+            out[c, r0:r0 + rows] = sdrns.decode_residue(
+                dig[c, r0:r0 + rows], kind, width)
+    return out
+
+
+def check_sdrns_matmul(torch, timer, gen):
+    """B6 (M = 32, the prefill projections) and B7 (M = 2, every decode
+    projection and the logits) at the main path's shapes, on random digit
+    vectors: digit for digit against the plain version on the first
+    SD_COLS columns (the plain version materializes the (n, M, K, N, n)
+    partial products), and at the full shapes each output digit vector,
+    decoded mod m_c and centred, equal to B1's centred residue on the same
+    integers.  Timed with B1 and a bf16 bmm over the C channels beside it;
+    no PyTorch call computes SD digit vectors, so library_ms is null."""
+    from repro_torch.core import sdrns
+    from repro_torch.core.moduli import P21
+    from repro_torch.kernels.rns_matmul import rns_matmul_cuda
+    from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
+                                                  sdrns_matmul_ref,
+                                                  sdrns_matvec_cuda)
+
+    mset, C, n = P21, P21.num_channels, 7
+    ws = [sdrns.WRAP_SIGNS[k] for k, _ in mset.kinds]
+    B, P = SD_BATCH, SD_PROMPT
+    shapes = [(B * P, K, N) for (K, N), _ in LAYER_MATMULS]
+    shapes += [(B, K, N) for (K, N), _ in LAYER_MATMULS]
+    shapes.append((B, *LOGITS))
+    per = {}
+    for M, K, N in shapes:
+        matvec = M <= 8
+        name = "sdrns_matvec" if matvec else "sdrns_matmul"
+        kern = sdrns_matvec_cuda if matvec else sdrns_matmul_cuda
+        a = _digits(torch, gen, C, M, K, n)
+        b = _digits(torch, gen, C, K, N, n)
+        out = kern(a, b, ws)
+        ref = sdrns_matmul_ref(a, b[:, :, :SD_COLS], ws)
+        err = int((out[:, :, :SD_COLS].to(torch.int32)
+                   - ref.to(torch.int32)).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name} M={M} K={K} N={N}: digits differ "
+                                 f"from the plain version")
+        a_res, b_res = _sd_residues(torch, a, mset), _sd_residues(torch, b,
+                                                                  mset)
+        rns = rns_matmul_cuda(a_res, b_res, mset.moduli)
+        dec = torch.stack([sdrns.decode_residue(out[c], kind, w)
+                           for c, (kind, w) in enumerate(mset.kinds)])
+        if not torch.equal(dec, rns):
+            raise AssertionError(f"{name} M={M} K={K} N={N}: decoded digits "
+                                 f"differ from rns_matmul's residues")
+        del out, ref, rns, dec
+        ms = timer(lambda: kern(a, b, ws), 3)
+        bs = b[:, :, :SD_COLS]
+        plain = timer(lambda: sdrns_matmul_ref(a, bs, ws), 1)
+        rns_ms = timer(lambda: rns_matmul_cuda(a_res, b_res, mset.moduli), 5)
+        ab, bb = a_res.to(torch.bfloat16), b_res.to(torch.bfloat16)
+        bmm = timer(lambda: torch.bmm(ab, bb), 5)
+        nbytes = C * n * (M * K + K * N + M * N)
+        bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+        per[(M, K, N)] = dict(ms=ms, plain_ms=plain, rns_ms=rns_ms,
+                              bmm_ms=bmm, bound_ms=bms, bound_by=by, err=err)
+        print(f"[kernels] {name} C={C} M={M} K={K} N={N} n={n}: digits "
+              f"equal the plain version on {SD_COLS} columns, decoded "
+              f"residues equal rns_matmul's at full N; kernel_ms={ms:.3f} "
+              f"plain_ms({SD_COLS} cols)={plain:.3f} bound_ms={bms:.4f} "
+              f"({by}); yardsticks rns_matmul_ms={rns_ms:.4f} "
+              f"bf16_bmm_ms={bmm:.4f}", flush=True)
+        del a, b, a_res, b_res, ab, bb, bs
+        torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "rns_ms", "bmm_ms", "bound_ms")
+    L = SD_LAYERS
+    step = [((B, K, N), L * k) for (K, N), k in LAYER_MATMULS]
+    step.append(((B, *LOGITS), 1))
+    tot = {k: sum(per[s][k] * m for s, m in step) for k in keys}
+    layer = {k: sum(per[(B, K, N)][k] * m for (K, N), m in LAYER_MATMULS)
+             for k in keys}
+    print(f"[kernels] sdrns_matvec one decode step ({7 * L + 1} launches, "
+          f"M={B}, {L} layers + logits): kernel_ms={tot['ms']:.3f} "
+          f"(per layer {layer['ms']:.3f}, logits "
+          f"{per[(B, *LOGITS)]['ms']:.3f}) plain_ms({SD_COLS} cols)="
+          f"{tot['plain_ms']:.3f} bound_ms={tot['bound_ms']:.4f}; "
+          f"yardsticks rns_matmul_ms={tot['rns_ms']:.3f} bf16_bmm_ms="
+          f"{tot['bmm_ms']:.3f}", flush=True)
+    pre = per[(B * P, *LAYER_MATMULS[2][0])]        # gate / up (4096, 12288)
+    common = dict(library_ms=None, max_abs_err=0)
+    matmul = dict(common, ms=pre["ms"], plain_ms=pre["plain_ms"],
+                  bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
+                  yardstick_rns_matmul_ms=pre["rns_ms"],
+                  yardstick_bf16_bmm_ms=pre["bmm_ms"],
+                  at=f"prefill projection M={B * P} K, N="
+                     f"{LAYER_MATMULS[2][0]}, P21 "
+                     f"digits; plain_ms on the first {SD_COLS} columns; no "
+                     f"PyTorch call computes SD digit vectors")
+    matvec = dict(common, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                  bound_ms=tot["bound_ms"], bound_by="bytes",
+                  ms_per_layer=layer["ms"],
+                  yardstick_rns_matmul_ms=tot["rns_ms"],
+                  yardstick_bf16_bmm_ms=tot["bmm_ms"],
+                  at=f"one decode step, {L} layers x (q,k,v,o,gate,up,down) "
+                     f"+ logits, M={B}, P21 digits; plain_ms on the first "
+                     f"{SD_COLS} columns of each shape; no PyTorch call "
+                     f"computes SD digit vectors")
+    return matmul, matvec
+
+
+def check_sd_add(torch, timer):
+    """B8 bit for bit for each kind on the digit planes of two (4096, 4096)
+    sd weights (3 x 16.8 M vectors), timed; then nx.add on the two weights
+    (scales dropped: ring ops are defined on the codes), with the launch
+    counters reset just before and read just after, and its decoded sum
+    equal to (a + b) mod M, centred."""
+    from repro_torch import kernels
+    from repro_torch.kernels.sd_add import KINDS, sd_add_cuda, sd_add_ref
+    from repro_torch.numerics import api as nx
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    spec = nx.EncodeSpec(layout="sd", qbits=4)
+    wa, wb = (dataclasses.replace(nx.encode(torch.randn(
+        *SD_ADD_SHAPE, generator=g, device="cuda"), spec), scale=None)
+        for _ in range(2))
+    n = wa.digit_width
+    x, y = wa.planes.reshape(-1, n), wb.planes.reshape(-1, n)
+    res = {}
+    for kind in KINDS:
+        out = sd_add_cuda(x, y, kind)
+        if not torch.equal(out, sd_add_ref(x, y, kind)):
+            raise AssertionError(f"sd_add[{kind}]: differs from the plain "
+                                 f"version")
+        del out
+        ms = timer(lambda: sd_add_cuda(x, y, kind), 10)
+        plain = timer(lambda: sd_add_ref(x, y, kind), 3)
+        yard = timer(lambda: torch.add(x, y), 10)
+        out_n = n + 1 if kind == "plain" else n
+        bms, by = bound_ms(x.shape[0] * (2 * n + out_n), 0, "int8")
+        res[kind] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                         yardstick_int8_add_ms=yard)
+        print(f"[kernels] sd_add[{kind}] {x.shape[0]} vectors of {n} "
+              f"digits: bit-exact; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bms:.4f} ({by}); yardstick int8 torch.add_ms="
+              f"{yard:.4f}", flush=True)
+    kernels.reset_launch_counts()
+    s = nx.add(wa, wb)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    M = wa.mset.M
+    want = torch.remainder(wa.to_int() + wb.to_int(), M)
+    want = torch.where(want > M // 2, want - M, want)
+    if not torch.equal(s.to_int(), want):
+        raise AssertionError("nx.add: decoded sum differs from (a + b) mod M")
+    if counts != dict(NO_LAUNCHES, sd_add=wa.mset.num_channels):
+        raise AssertionError(f"nx.add launch counts {counts}")
+    print(f"[kernels] nx.add on two sd-resident {SD_ADD_SHAPE} weights: "
+          f"decoded sum equals (a + b) mod M centred; launches "
+          f"{json.dumps(counts)}", flush=True)
+    r = res["pow2p1"]
+    return dict(r, library_ms=None, max_abs_err=0,
+                launches=counts["sd_add"],
+                per_kind={k: v["ms"] for k, v in res.items()},
+                at=f"{x.shape[0]} digit vectors (the P21 planes of a "
+                   f"{SD_ADD_SHAPE} weight), kind pow2p1 (per_kind: the four "
+                   f"kinds); launches from nx.add on two sd-resident "
+                   f"weights; no PyTorch call computes SD sums")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: small input, card against CPU
 # ---------------------------------------------------------------------------
@@ -457,10 +654,9 @@ def serve_full_width(torch):
           flush=True)
     print(f"[serve] launches {json.dumps(counts)}", flush=True)
     per_step = 7 * cfg.n_layers + 1
-    want = {"rns_matmul": per_step * (1 + steps),
-            "flash_attention": cfg.n_layers,
-            "paged_decode": cfg.n_layers * steps,
-            "paged_decode_syndrome": 0}
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=cfg.n_layers,
+                paged_decode=cfg.n_layers * steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if res.tokens.shape != (B, max_new):
@@ -520,9 +716,9 @@ def serve_redundant(torch):
     print(f"[serve-r] launches {json.dumps(counts)}; faults "
           f"{json.dumps(dataclasses.asdict(f))}", flush=True)
     per_step = 7 * cfg.n_layers + 1
-    want = {"rns_matmul": per_step * (1 + steps),
-            "flash_attention": cfg.n_layers, "paged_decode": 0,
-            "paged_decode_syndrome": cfg.n_layers * steps}
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=cfg.n_layers,
+                paged_decode_syndrome=cfg.n_layers * steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if any(dataclasses.asdict(f).values()):
@@ -577,6 +773,91 @@ def serve_redundant(torch):
     return counts
 
 
+def serve_sd(torch, smi):
+    """Phase 7: qwen3-8b at full width, depth cut to SD_LAYERS of 36, under
+    system="sdrns" (P21 digit planes, kernels B6 and B7) with rns8 pages,
+    after its twin under system="rns" (P21 residue planes, kernel B1) on
+    the same weights and prompts.  Both compute the same exact integer
+    products, so the prefill logits and every token must be equal bit for
+    bit."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.serving.engine import ServingEngine
+
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, n_layers=SD_LAYERS)
+    B, plen, max_new = SD_BATCH, SD_PROMPT, SD_NEW
+    kw = dict(batch=B, s_max=plen + max_new + 1, page_size=64,
+              kv_format="rns8", device="cuda")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    print(f"[serve-sd] cut: depth {SD_LAYERS} of {full.n_layers}, for time "
+          f"and memory (full width: d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv} heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}); {smi}", flush=True)
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    twin = ServingEngine(model, model.init(SEED), **kw).generate(
+        {"tokens": prompts}, max_new=max_new)
+    torch.cuda.synchronize()
+    print(f"[serve-sd] twin system=rns (P21 residue planes) in "
+          f"{time.perf_counter() - t0:.2f}s: prefill_s="
+          f"{twin.stats.prefill_s:.3f} decode_s={twin.stats.decode_s:.3f}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="sdrns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = ServingEngine(model, params, **kw)
+    del params
+    kernels.reset_launch_counts()
+    res = engine.generate({"tokens": prompts}, max_new=max_new)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    st = res.stats
+    L = cfg.n_layers
+    print(f"[serve-sd] qwen3-8b L={L} d={cfg.d_model} system=sdrns (P21 "
+          f"digit planes) kv=rns8 B={B} prompt={plen} new={max_new}: "
+          f"init_s={t_init:.2f} prefill_s={st.prefill_s:.3f} decode_s="
+          f"{st.decode_s:.3f} decode_tok_s={B * steps / st.decode_s:.2f} "
+          f"step_ms={1e3 * st.decode_s / steps:.1f}", flush=True)
+    print(f"[serve-sd] resident weight bytes={rb} kv pool bytes="
+          f"{engine.pool.pool_bytes()} max_memory_allocated={peak}",
+          flush=True)
+    print(f"[serve-sd] launches {json.dumps(counts)}", flush=True)
+    want = dict(NO_LAUNCHES, sdrns_matmul=7 * L,
+                sdrns_matvec=1 + steps * (7 * L + 1), flash_attention=L,
+                paged_decode=L * steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    same_logits = np.array_equal(res.prefill_logits, twin.prefill_logits)
+    same_tokens = np.array_equal(res.tokens, twin.tokens)
+    print(f"[serve-sd] against the rns twin: prefill logits bit-identical "
+          f"{same_logits}, tokens identical {same_tokens} "
+          f"({res.tokens.size} tokens)", flush=True)
+    if not (same_logits and same_tokens):
+        raise AssertionError("sdrns serve differs from its rns twin")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError("tokens misshapen or out of [0, vocab)")
+    if not np.isfinite(res.prefill_logits).all():
+        raise AssertionError("prefill logits not finite")
+    print(f"[serve-sd] seq0 tokens {res.tokens[0].tolist()}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -610,12 +891,17 @@ def main() -> int:
     fa = check_flash_attention(torch, timer, gen)
     pd = check_paged_decode(torch, timer, gen)
     ps = check_paged_decode_syndrome(torch, timer, gen)
+    sdm, sdv = check_sdrns_matmul(torch, timer, gen)
+    sda = check_sd_add(torch, timer)
     del timer
     torch.cuda.empty_cache()
     check_small(torch)
     counts = serve_full_width(torch)
     torch.cuda.empty_cache()
     counts_r = serve_redundant(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_sd = serve_sd(torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -627,18 +913,28 @@ def main() -> int:
          "src/repro/kernels/flash_attn.py:385", pd["rns8"]),
         ("paged_decode_syndrome", src_dir + "flash_attn.cu",
          "src/repro/kernels/flash_attn.py:385 (red_moduli)", ps),
+        ("sdrns_matmul", src_dir + "sdrns_matmul.cu",
+         "src/repro/kernels/sdrns_matmul.py:109", sdm),
+        ("sdrns_matvec", src_dir + "sdrns_matmul.cu",
+         "src/repro/kernels/sdrns_matmul.py:154", sdv),
+        ("sd_add", src_dir + "sd_add.cu", "src/repro/kernels/sd_add.py:68",
+         sda),
     ]
-    # launches: B1-B3 from [serve], the syndrome mode from [serve-r] (the
-    # path each is measured on); [serve-r]'s own counts are beside them
+    # launches: B1-B3 from [serve], the syndrome mode from [serve-r], B6
+    # and B7 from [serve-sd], B8 from nx.add (the path each is measured
+    # on); the other serves' counts are beside them
     launched = dict(counts, paged_decode_syndrome=counts_r[
-        "paged_decode_syndrome"])
+        "paged_decode_syndrome"], sdrns_matmul=counts_sd["sdrns_matmul"],
+        sdrns_matvec=counts_sd["sdrns_matvec"], sd_add=sda["launches"])
+    fixed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "at")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launched[name], "launches_serve_r": counts_r[name],
-         "max_abs_err": r["max_abs_err"],
-         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "at": r["at"]} for name, source, rep, r in entries]}
+         "launches_serve_sd": counts_sd[name],
+         **{k: r[k] for k in fixed},
+         **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
+        for name, source, rep, r in entries]}
     # B1 on the P21R2 planes of [serve-r] (C = 5), held and timed as above
     line["kernels"][0]["p21r2"] = dict(
         {k: rm_r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -3,9 +3,10 @@
 The port's copy of the parts of ``repro/core/moduli.py`` the serving path
 needs: :class:`ModuliSet` (forward conversion, centering, mixed-radix
 reverse conversion, and with trailing redundant "witness" channels the
-syndrome check and single-fault correction), :func:`special_set`,
+syndrome check and single-fault correction; ``kinds``, the per-modulus
+tags the signed-digit layouts dispatch on), :func:`special_set`,
 :class:`PackedFormat` (the byte-packed 2-channel KV page codec) and the
-sets ``P21``, ``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
+sets ``P16``, ``P21``, ``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
 
 Residues are stored **centered**: ``r in [-floor(m/2), floor(m/2)]``; an
 even modulus centers ``m/2`` to ``+m/2`` (``r > m//2 -> r - m``).  Every
@@ -23,8 +24,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set", "P21",
-           "KV8", "KV4", "P21R2", "KV8R2"]
+__all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set", "P16",
+           "P21", "KV8", "KV4", "P21R2", "KV8R2"]
 
 
 def _egcd(a: int, b: int) -> tuple[int, int, int]:
@@ -103,6 +104,24 @@ class ModuliSet:
     @property
     def redundant_moduli(self) -> tuple[int, ...]:
         return self.moduli[self.num_info:]
+
+    @functools.cached_property
+    def kinds(self) -> tuple[tuple[str, int], ...]:
+        """Per-modulus tag ``(kind, n)``: ``"pow2m1"`` for 2^n - 1,
+        ``"pow2"`` for 2^n, ``"pow2p1"`` for 2^n + 1, else
+        ``("generic", 0)``."""
+        out = []
+        for m in self.moduli:
+            nb = m.bit_length()
+            if m == (1 << nb) - 1:
+                out.append(("pow2m1", nb))
+            elif m == 1 << (nb - 1):
+                out.append(("pow2", nb - 1))
+            elif m == (1 << (nb - 1)) + 1:
+                out.append(("pow2p1", nb - 1))
+            else:
+                out.append(("generic", 0))
+        return tuple(out)
 
     @functools.cached_property
     def info(self) -> "ModuliSet":
@@ -414,6 +433,7 @@ class PackedFormat:
         return r1 + m1 * t
 
 
+P16 = special_set(5)
 P21 = special_set(7)
 # Packable 2-channel sets for residue-domain KV pages (numerics/kv_pages.py):
 # KV8 = {15, 16}: one byte per value; KV4 = {3, 4}: one nibble per value.

@@ -33,6 +33,12 @@ _SIGNATURES = {
     # a, b, out, moduli (host int[C]), C, M, N, K, a_sc, lda, b_sc, ldb,
     # stream
     "rns_matmul_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+    # a, b, out, wrap_signs (host int[C]), C, M, N, K, n, a_cs, lda, b_cs,
+    # ldb, matvec, stream
+    "sdrns_matmul_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                        _I, _P],
+    # x, y, out, B, n, kind (1 pow2m1, 0 pow2, -1 pow2p1, 2 plain), stream
+    "sd_add_s8": [_P, _P, _P, _L, _I, _I, _P],
     # q, k, v, kv_len, o, B, Sq, T, H, Kv, hd, causal, scale, dtype, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],

@@ -4,6 +4,10 @@ Example (one H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --system rns --kv-format rns8 --batch 8 --prompt-len 256 --max-new 64
 
+``--system sdrns`` serves on P21 signed-digit weight planes, 21 B per
+weight: at full width only a cut depth fits one card (``chip_smoke.py``
+cuts qwen3-8b to 8 of 36 layers through the Python API).
+
 Weights are random, made from ``--seed``.  ``--device cpu`` runs the plain
 PyTorch versions of the kernels (use ``--reduced`` there).
 """
@@ -23,7 +27,7 @@ from repro_torch.serving.engine import ServingEngine
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--system", default="bns", choices=("bns", "rns"))
+    ap.add_argument("--system", default="bns", choices=("bns", "rns", "sdrns"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

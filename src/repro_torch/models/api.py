@@ -3,10 +3,11 @@
 The returned :class:`Model` bundles the dense-family functions:
 
 * ``init(seed)`` -- random parameters on the model's device.  Under
-  ``system="rns"`` each layer is made residue-resident right after it is
-  made, so only one layer's float weights exist at a time (at qwen3-8b's
-  full width that keeps the peak near the resident size, ~26 GB, instead of
-  ~58 GB for all float weights followed by their planes);
+  ``system="rns"`` and ``"sdrns"`` each layer is made residue-resident
+  right after it is made, so only one layer's float weights exist at a time
+  (at qwen3-8b's full width under ``rns`` that keeps the peak near the
+  resident size, ~26 GB, instead of ~58 GB for all float weights followed
+  by their planes);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
   float tree (identity for ``bns``; idempotent on prepared trees);
 * ``prefill(params, tokens, s_max=None, logits_at=None)``;
@@ -60,11 +61,18 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
                 device: torch.device | str = "cuda",
                 rns_bits: int = 4,
                 rns_mset: ModuliSet | None = None) -> Model:
-    """``rns_mset`` (``system="rns"`` only) picks the resident planes' moduli
+    """``system``: ``"bns"`` (bf16 matmuls), ``"rns"`` (int4 codes on
+    residue planes) or ``"sdrns"`` (int4 codes on P21 signed-digit planes,
+    the fused SD-RNS kernels; the same integer products as ``rns``).
+
+    ``rns_mset`` (``system="rns"`` only) picks the resident planes' moduli
     set, P21 by default; a redundant set such as ``P21R2`` carries witness
-    planes that every residue matmul checks and corrects at its decode."""
-    if system not in ("bns", "rns"):
-        raise ValueError(f"system must be 'bns' or 'rns', got {system!r}")
+    planes that every residue matmul checks and corrects at its decode.
+    Signed-digit planes cannot carry redundant channels, so ``sdrns``
+    refuses it, as the reference does."""
+    if system not in ("bns", "rns", "sdrns"):
+        raise ValueError(f"system must be 'bns', 'rns' or 'sdrns', got "
+                         f"{system!r}")
     if rns_mset is not None and system != "rns":
         raise ValueError(f"rns_mset= is only meaningful for system='rns', "
                          f"got system={system!r}")
@@ -72,7 +80,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
     cd = getattr(torch, cfg.compute_dtype)
     dense_kw: dict[str, Any] = {"system": system, "compute_dtype": cd}
     prep_kw: dict[str, Any] = {"system": system, "bits": rns_bits}
-    if system == "rns":
+    if system != "bns":
         dense_kw["bits"] = rns_bits
         if rns_mset is not None:
             dense_kw["mset"] = prep_kw["mset"] = rns_mset
@@ -104,7 +112,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         with torch.no_grad():
             params = tf_mod.init_lm(
                 gen, cfg, device=dev,
-                prepare_layer=prepare_tree if system == "rns" else None)
+                prepare_layer=None if system == "bns" else prepare_tree)
             return prepare_params(params)
 
     @torch.no_grad()

@@ -8,6 +8,9 @@
   per call, the residue matmul kernel consumes the resident planes (P21, or
   a redundant set whose witness channels the decode checks), and the exact
   int32 product is dequantized (:func:`_qmatmul_resident`).
+* ``system="sdrns"``: the same, over resident SD digit planes (layout
+  ``"sd"``), through the fused signed-digit matmul kernels; the int32
+  product equals ``rns``'s bit for bit.
 
 Prepared weights are inference-only; the per-call quantizing path for float
 weights under ``rns`` waits for the training slice.
@@ -21,6 +24,7 @@ import torch
 from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import api as nx
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.quant import residency
 from repro_torch.quant.quant import qmax_for_bits, quantize_symmetric
 
 __all__ = ["dense", "init_dense"]
@@ -35,7 +39,7 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int,
 
 def _check_resident(w: ResidueTensor, bits: int, mset: ModuliSet,
                     system: str) -> None:
-    if system != "rns" or w.layout != "rns":
+    if residency.prepared_kind(w) != system:
         raise ValueError(f"params are residue-resident (layout "
                          f"{w.layout!r}) but dense() was called with "
                          f"system {system!r}")
@@ -71,7 +75,8 @@ def dense(params: dict[str, Any], x: torch.Tensor, *, system: str = "bns",
         return y2.reshape(*lead, y2.shape[-1]).to(compute_dtype)
     if system == "bns":
         return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
-    if system == "rns":
-        raise ValueError("system='rns' needs residue-resident weights: run "
-                         "the parameters through Model.prepare_params first")
+    if system in residency.SYSTEM_LAYOUT:
+        raise ValueError(f"system={system!r} needs residue-resident weights:"
+                         " run the parameters through Model.prepare_params "
+                         "first")
     raise ValueError(f"unknown system {system!r}")

@@ -62,14 +62,16 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, *, device="cuda",
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
             dense_kw: dict[str, Any]) -> torch.Tensor:
-    """Tied-embedding logits in the compute dtype.  Under ``rns`` they run
-    through the resident ``embed.logits_w`` planes like every other weight."""
+    """Tied-embedding logits in the compute dtype.  Under ``rns`` and
+    ``sdrns`` they run through the resident ``embed.logits_w`` planes like
+    every other weight."""
     x = rmsnorm(params["final_norm"], x)
-    if dense_kw.get("system", "bns") == "rns":
+    system = dense_kw.get("system", "bns")
+    if system in ("rns", "sdrns"):
         w = params["embed"].get("logits_w")
         if w is None:
-            raise ValueError("system='rns' needs the resident logits weight "
-                             "embed.logits_w (Model.prepare_params)")
+            raise ValueError(f"system={system!r} needs the resident logits "
+                             "weight embed.logits_w (Model.prepare_params)")
         return linear.dense({"w": w}, x, **dense_kw).to(x.dtype)
     return torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
 

@@ -1,10 +1,15 @@
-"""The typed numerics surface for layout ``"rns"``: encode / matmul / decode.
+"""The typed numerics surface: encode / matmul / add / decode.
 
-    spec = EncodeSpec(layout="rns", mset=P21, qbits=4)
+    spec = EncodeSpec(layout="rns", mset=P21, qbits=4)   # or layout="sd"
     t = encode(w, spec)            # quantize + forward-convert, paid once
     y = matmul(qx, t)              # exact int32 product of the integers
+    s = add(t, u)                  # carry-free SD addition (sd layouts)
     v = decode(t)                  # reverse conversion (times the scale)
     t, det, cor = scrub(t)         # repair a redundant set's faulty channels
+
+Layouts: ``"rns"`` (centered residue planes, the channel-wise matmul),
+``"sd"`` (SD digit planes, the fused signed-digit matmul; decode shapes go
+to its matvec schedule) and ``"sd_matvec"`` (the matvec schedule pinned).
 
 The kernel implementation follows the tensors' device (numerics/registry).
 """
@@ -19,15 +24,19 @@ from repro_torch.numerics import runners
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant.quant import qmax_for_bits, quantize_symmetric
 
-__all__ = ["EncodeSpec", "encode", "decode", "scrub", "matmul"]
+__all__ = ["EncodeSpec", "encode", "decode", "scrub", "matmul", "add"]
+
+ENCODE_LAYOUTS = ("rns", "sd", "sd_matvec")
 
 
 @dataclasses.dataclass(frozen=True)
 class EncodeSpec:
     """Static recipe for a forward conversion.
 
-    layout: ``"rns"``, channel planes for the matmul kernel (the packed
-      KV page storage is written by ``numerics/kv_pages``).
+    layout: ``"rns"`` (residue planes), ``"sd"`` or ``"sd_matvec"`` (SD
+      digit planes; they need a special 2^n-1 / 2^n / 2^n+1 set without
+      redundant channels).  The packed KV page storage is written by
+      ``numerics/kv_pages``.
     qbits: quantization width of float inputs, and the magnitude bound of
       the encoded integers (it drives K-segmentation in :func:`matmul`).
     """
@@ -37,9 +46,14 @@ class EncodeSpec:
     qbits: int | None = None
 
     def __post_init__(self):
-        if self.layout != "rns":
-            raise ValueError(f"encode writes layout 'rns', got "
-                             f"{self.layout!r}")
+        if self.layout not in ENCODE_LAYOUTS:
+            raise ValueError(f"encode writes the layouts {ENCODE_LAYOUTS}, "
+                             f"got {self.layout!r}")
+        if self.layout != "rns" and self.mset.redundant:
+            raise ValueError(
+                "signed-digit layouts cannot carry redundant channels "
+                "(redundant moduli are generic, not special); use "
+                "layout='rns' for fault-tolerant residency")
 
     @property
     def bound(self) -> int | None:
@@ -61,9 +75,13 @@ def encode(w: torch.Tensor, spec: EncodeSpec | None = None) -> ResidueTensor:
         if spec.qbits is None:
             raise ValueError("float input needs EncodeSpec.qbits")
         w, scale = quantize_symmetric(w, spec.qbits, axis=-2)
-    return ResidueTensor(planes=runners.encode_rns_planes(w, spec.mset),
-                         scale=scale, mset=spec.mset, layout=spec.layout,
-                         qbits=spec.qbits, max_abs=spec.bound)
+    if spec.layout == "rns":
+        planes = runners.encode_rns_planes(w, spec.mset)
+    else:
+        planes = runners.encode_sd_planes(w, spec.mset)
+    return ResidueTensor(planes=planes, scale=scale, mset=spec.mset,
+                         layout=spec.layout, qbits=spec.qbits,
+                         max_abs=spec.bound)
 
 
 def decode(t: ResidueTensor, *, check: bool = False) -> torch.Tensor:
@@ -123,14 +141,16 @@ def matmul(a: torch.Tensor, t: ResidueTensor, *,
 
     ``max_abs_a`` bounds |a| (defaults to the tensor's own bound).  Only
     ``a`` is forward-converted per call; the planes are consumed as they
-    are, a redundant set's witness planes checked at the decode
-    (``runners.rns_run``).  Returns (M, N) int32.
+    are: ``rns`` through ``runners.rns_run`` (a redundant set's witness
+    planes checked at the decode), the sd layouts through
+    ``runners.sdrns_run``.  Returns (M, N) int32.
     """
     if not isinstance(t, ResidueTensor):
         raise TypeError(f"matmul expects a ResidueTensor operand, got "
                         f"{type(t)}; encode the weight first")
-    if t.layout != "rns":
-        raise ValueError(f"matmul needs layout 'rns', got {t.layout!r}")
+    if t.layout not in ENCODE_LAYOUTS:
+        raise ValueError(f"matmul needs one of the layouts {ENCODE_LAYOUTS}"
+                         f", got {t.layout!r}")
     if t.stack_shape:
         raise ValueError(f"matmul takes a 2-D encoded weight, got stacked "
                          f"value shape {t.shape}")
@@ -141,5 +161,40 @@ def matmul(a: torch.Tensor, t: ResidueTensor, *,
         raise ValueError("tensor has no magnitude bound (encode with "
                          "qbits=); the bound drives K-segmentation")
     maa = t.max_abs if max_abs_a is None else max_abs_a
+    if t.is_sd:
+        return runners.sdrns_run(a, t.planes, mset=t.mset, max_abs_a=maa,
+                                 max_abs_b=t.max_abs,
+                                 force_matvec=t.layout == "sd_matvec")
     return runners.rns_run(a, t.planes, mset=t.mset, max_abs_a=maa,
                            max_abs_b=t.max_abs)
+
+
+def add(x, y, *, kind: str | None = None):
+    """Carry-free SD addition of typed tensors or raw digit arrays.
+
+    * Two :class:`ResidueTensor` operands of one moduli set and layout
+      family: per channel, the modular carry-free adder (kernel B8) for the
+      sd layouts, centered plane addition for ``rns``.  Returns a
+      ResidueTensor.
+    * Raw ``(..., n)`` int8 digit tensors with ``kind=`` (``"plain"`` |
+      ``"pow2m1"`` | ``"pow2"`` | ``"pow2p1"``): the batched kernel
+      directly, ``(..., n + 1)`` out for ``"plain"``.
+    """
+    if isinstance(x, ResidueTensor) or isinstance(y, ResidueTensor):
+        if not (isinstance(x, ResidueTensor)
+                and isinstance(y, ResidueTensor)):
+            raise TypeError("cannot add a ResidueTensor to a raw array")
+        x._check_ring_op(y)
+        if kind is not None:
+            raise ValueError("kind= is only for raw digit arrays; typed "
+                             "tensors carry their own channel kinds")
+        if not x.is_sd:
+            return x + y
+        planes = x._per_channel(
+            lambda k, a, b: runners.sd_add_run(a, b, kind=k),
+            x.planes, y.planes)
+        return dataclasses.replace(x, planes=planes)
+    if kind is None:
+        raise ValueError("raw digit arrays need kind= "
+                         "('plain' | 'pow2m1' | 'pow2' | 'pow2p1')")
+    return runners.sd_add_run(x, y, kind=kind)

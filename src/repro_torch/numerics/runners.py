@@ -5,8 +5,17 @@
   per-segment reverse conversion.  Segments are strided views of the
   operands, so nothing is padded or copied per call (the reference pads
   both operands into fresh tile-aligned buffers on every call).
-* :func:`encode_rns_planes` / :func:`encode_packed_planes` -- the plane
-  encoders (elementwise, so encode-then-slice equals slice-then-encode).
+* :func:`sdrns_run` -- the signed-digit sibling over pre-encoded digit
+  planes: decode shapes (M <= :data:`DECODE_M`, or the ``sd_matvec`` tag)
+  go to the matvec schedule (kernel B7), the rest to the tiled matmul (B6).
+  Segments follow the dynamic range alone: the kernels materialize no
+  partial-product stack, so the reference's VMEM cap on the segment length
+  does not apply (one segment per matmul at int4 on P21 for K <= 21398; the
+  int32 totals are the same, each segment decoding exactly).
+* :func:`sd_add_run` -- batched carry-free SD addition (kernel B8).
+* :func:`encode_rns_planes` / :func:`encode_packed_planes` /
+  :func:`encode_sd_planes` -- the plane encoders (elementwise, so
+  encode-then-slice equals slice-then-encode).
 
 The sharded paths of the reference wait for the multi-GPU slice.
 """
@@ -14,15 +23,33 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import sd, sdrns
 from repro_torch.core.moduli import ModuliSet
 from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+from repro_torch.kernels.sd_add import sd_add_cuda, sd_add_ref
+from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
+                                              sdrns_matmul_ref,
+                                              sdrns_matvec_cuda)
 from repro_torch.numerics.registry import get_impl, register_impl
+from repro_torch.numerics.tensor import _digit_width
 
-__all__ = ["segment_count", "encode_rns_planes", "encode_packed_planes",
-           "rns_run"]
+__all__ = ["DECODE_M", "segment_count", "encode_rns_planes",
+           "encode_packed_planes", "encode_sd_planes", "rns_run", "sdrns_run",
+           "sd_add_run"]
 
 register_impl("rns_matmul", "cuda", rns_matmul_cuda)
 register_impl("rns_matmul", "ref", rns_matmul_ref)
+register_impl("sdrns_matmul", "cuda", sdrns_matmul_cuda)
+register_impl("sdrns_matmul", "ref", sdrns_matmul_ref)
+register_impl("sdrns_matvec", "cuda", sdrns_matvec_cuda)
+register_impl("sdrns_matvec", "ref", sdrns_matmul_ref)
+register_impl("sd_add", "cuda", sd_add_cuda)
+register_impl("sd_add", "ref", sd_add_ref)
+
+# At or below this M the sd path takes the matvec schedule (kernel B7).
+DECODE_M = 8
+# int32 elements of the transient an sd plane encode holds per column block
+_ENCODE_BLOCK = 1 << 26
 
 
 def _round_up(v: int, k: int) -> int:
@@ -119,3 +146,76 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
         part = decode(out_res)
         total = part if total is None else total + part
     return total
+
+
+def encode_sd_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
+    """Integer values (..., K, N) -> SD digit planes (..., C, K, N, n) int8.
+
+    Centered residues per channel, each an n-digit SD vector.  Written
+    channel by channel and column block by column block into the int8
+    planes: the transient is one block's int32 digits, not the whole
+    ``(C, K, N, n)`` (52 GB as int32 for qwen3-8b's tied logits weight).
+    """
+    n = _digit_width(mset)
+    w = w.to(torch.int32)
+    K, N = w.shape[-2:]
+    out = torch.empty((*w.shape[:-2], mset.num_channels, K, N, n),
+                      dtype=torch.int8, device=w.device)
+    rows = max(1, w[..., 0].numel())
+    cols = max(1, _ENCODE_BLOCK // (rows * n))
+    for c, m in enumerate(mset.moduli):
+        for j0 in range(0, N, cols):
+            r = torch.remainder(w[..., j0:j0 + cols], m)
+            r = torch.where(r > m // 2, r - m, r)
+            out.select(-4, c)[..., j0:j0 + cols, :].copy_(sd.from_int(r, n))
+    return out
+
+
+def sdrns_run(a: torch.Tensor, b_dig: torch.Tensor, *, mset: ModuliSet,
+              max_abs_a: int, max_abs_b: int,
+              force_matvec: bool = False) -> torch.Tensor:
+    """(M, K) integer activation x (C, K, N, n) digit planes -> exact (M, N)
+    int32.
+
+    The activation's centered residues become SD digits, each K segment's
+    digit product decodes exactly (``sdrns_decode``), and the segments sum.
+    ``force_matvec`` (the ``sd_matvec`` layout) pins the matvec schedule;
+    it takes M in row blocks of :data:`DECODE_M`.
+    """
+    n = _digit_width(mset)
+    M, K = a.shape
+    C, K2, N, n2 = b_dig.shape
+    if (K, n) != (K2, n2) or C != mset.num_channels:
+        raise ValueError(f"shape mismatch: {tuple(a.shape)} x "
+                         f"{tuple(b_dig.shape)} on {mset.moduli}")
+    if a.device != b_dig.device:
+        raise ValueError(f"activation on {a.device}, planes on "
+                         f"{b_dig.device}")
+    matvec = force_matvec or M <= DECODE_M
+    impl = get_impl("sdrns_matvec" if matvec else "sdrns_matmul", a.device)
+    ws = [sdrns.WRAP_SIGNS[kind] for kind, _ in mset.kinds]
+    a_dig = sd.from_int(mset.to_residues(a.to(torch.int32)), n)
+    segs = segment_count(K, max_abs_a, max_abs_b, mset)
+    seg_len = (K + segs - 1) // segs
+    segs = (K + seg_len - 1) // seg_len
+    rows = DECODE_M if matvec else M
+    total = None
+    for s in range(segs):
+        lo, hi = s * seg_len, min((s + 1) * seg_len, K)
+        outs = [impl(a_dig[:, r:r + rows, lo:hi], b_dig[:, lo:hi], ws)
+                for r in range(0, M, rows)]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        part = sdrns.sdrns_decode(out, mset)
+        total = part if total is None else total + part
+    return total
+
+
+def sd_add_run(x: torch.Tensor, y: torch.Tensor, *, kind: str
+               ) -> torch.Tensor:
+    """Batched carry-free SD addition of (..., n) int8 digit tensors;
+    (..., n + 1) out for ``kind="plain"``."""
+    if x.shape != y.shape:
+        raise ValueError(f"shape mismatch: {tuple(x.shape)} and "
+                         f"{tuple(y.shape)}")
+    return get_impl("sd_add", x.device)(x.to(torch.int8), y.to(torch.int8),
+                                        kind)

@@ -1,11 +1,12 @@
 """Residue-resident weight preparation: quantize once, convert once.
 
 :func:`prepare_weight` turns a float ``(..., K, N)`` weight into an int4
-:class:`~repro_torch.numerics.tensor.ResidueTensor` of residue planes (P21
-by default, witness planes included for a redundant set) with a
-per-output-channel scale, bit-identical to the reference's
-``repro/quant/residency.py::prepare_weight``.  The float weight is not
-kept: prepared weights are inference-only.
+:class:`~repro_torch.numerics.tensor.ResidueTensor` with a
+per-output-channel scale: residue planes under ``system="rns"`` (P21 by
+default, witness planes included for a redundant set), SD digit planes
+(layout ``"sd"``) under ``system="sdrns"``; bit-identical to the
+reference's ``repro/quant/residency.py::prepare_weight``.  The float
+weight is not kept: prepared weights are inference-only.
 """
 from __future__ import annotations
 
@@ -17,7 +18,18 @@ from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import api as nx
 from repro_torch.numerics.tensor import ResidueTensor
 
-__all__ = ["prepare_weight", "prepare_dense", "map_resident"]
+__all__ = ["SYSTEM_LAYOUT", "prepared_kind", "prepare_weight",
+           "prepare_dense", "map_resident"]
+
+# model-level number system -> ResidueTensor layout tag (and back)
+SYSTEM_LAYOUT = {"rns": "rns", "sdrns": "sd"}
+_LAYOUT_SYSTEM = {"rns": "rns", "sd": "sdrns", "sd_matvec": "sdrns"}
+
+
+def prepared_kind(w: ResidueTensor) -> str | None:
+    """The system a resident weight was prepared for (``None`` for a
+    storage-only layout)."""
+    return _LAYOUT_SYSTEM.get(w.layout)
 
 
 def prepare_weight(w: torch.Tensor, *, system: str, bits: int = 4,
@@ -27,20 +39,24 @@ def prepare_weight(w: torch.Tensor, *, system: str, bits: int = 4,
     Symmetric quantization per output channel (reduction over K, axis -2);
     leading stack axes are preserved.
     """
-    if system != "rns":
-        raise ValueError(f"prepare_weight: system must be 'rns', got "
-                         f"{system!r}")
+    if system not in SYSTEM_LAYOUT:
+        raise ValueError(f"prepare_weight: system must be 'rns' or "
+                         f"'sdrns', got {system!r}")
     if isinstance(w, ResidueTensor):
-        if w.qbits != bits or w.mset.moduli != mset.moduli:
+        have = prepared_kind(w)
+        if have != system or w.qbits != bits or \
+                w.mset.moduli != mset.moduli:
             raise ValueError(
-                f"weight already residue-resident as (bits={w.qbits}, "
-                f"moduli={w.mset.moduli}); cannot re-prepare for "
-                f"(bits={bits}, moduli={mset.moduli})")
+                f"weight already residue-resident as (system={have!r}, "
+                f"bits={w.qbits}, moduli={w.mset.moduli}); cannot "
+                f"re-prepare for (system={system!r}, bits={bits}, "
+                f"moduli={mset.moduli}): the float weight was dropped")
         return w
     if w.dim() < 2:
         raise ValueError(f"dense weight must be at least 2-D, got "
                          f"{tuple(w.shape)}")
-    spec = nx.EncodeSpec(layout="rns", mset=mset, qbits=bits)
+    spec = nx.EncodeSpec(layout=SYSTEM_LAYOUT[system], mset=mset,
+                         qbits=bits)
     return nx.encode(w.to(torch.float32), spec)
 
 

@@ -20,6 +20,8 @@ from repro_torch.convert import from_jax_params, load_npz
 from repro_torch.core.moduli import P21, P21R2
 from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import rns_matmul as rm
+from repro_torch.kernels import sd_add as sda
+from repro_torch.kernels import sdrns_matmul as sdm
 from repro_torch.models.api import build_model
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.numerics.attention import merge_decode_partials
@@ -200,3 +202,66 @@ def test_redundant_serving_card_matches_cpu(gen):
     np.testing.assert_array_equal(out.tokens, res["cpu"].tokens)
     f = eng.stats.faults
     assert (f.syndromes, f.corrected, f.recomputes) == (1, 1, 0)
+
+
+def _digits(gen, *shape):
+    return torch.randint(-1, 2, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("M,K,N,n", [(3, 129, 40, 7), (33, 64, 40, 7),
+                                     (8, 300, 130, 5), (1, 1, 7, 7),
+                                     (20, 1000, 33, 7), (9, 2, 300, 7)])
+def test_sdrns_matmul_kernels_digit_exact(gen, M, K, N, n):
+    """B6 (and B7 where M <= 8) give the plain version's digit vectors on
+    random digits, whole and on a K segment view; ragged K exercises the
+    zero leaves of the K tree."""
+    a = _digits(gen, 3, M, K, n)
+    b = _digits(gen, 3, K, N, n)
+    ws = (1, 0, -1)
+    for lo, hi in ((0, K), (K // 3, K)):
+        av, bv = a[:, :, lo:hi], b[:, lo:hi]
+        ref = sdm.sdrns_matmul_ref(av, bv, ws)
+        assert torch.equal(sdm.sdrns_matmul_cuda(av, bv, ws), ref)
+        if M <= sdm.MATVEC_MAX_M:
+            assert torch.equal(sdm.sdrns_matvec_cuda(av, bv, ws), ref)
+
+
+@pytest.mark.parametrize("n", [1, 5, 7, 16])
+@pytest.mark.parametrize("kind", ["pow2m1", "pow2", "pow2p1", "plain"])
+def test_sd_add_kernel_bit_exact(gen, n, kind):
+    x = _digits(gen, 7, 300, n)
+    y = _digits(gen, 7, 300, n)
+    assert torch.equal(sda.sd_add_cuda(x, y, kind), sda.sd_add_ref(x, y, kind))
+
+
+def test_sdrns_serving_card_matches_cpu(gen):
+    """The reduced checkpoint under system="sdrns" (P21 digit planes, rns8
+    pages): the card's tokens equal the CPU's and the rns serve's, and the
+    card ran the SD kernels."""
+    from repro_torch import kernels
+
+    cfg = get_config("qwen3-8b").reduced()
+    tree = load_npz(CKPT)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 10))
+    res = {}
+    for dev, system in (("cuda", "sdrns"), ("cpu", "sdrns"), ("cpu", "rns")):
+        model = build_model(cfg, system=system, device=dev)
+        eng = ServingEngine(model, from_jax_params(tree, cfg, dev), batch=3,
+                            s_max=19, page_size=8, kv_format="rns8",
+                            device=dev)
+        kernels.reset_launch_counts()
+        res[dev, system] = eng.generate({"tokens": prompts}, max_new=8)
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+    L = cfg.n_layers
+    assert counts["sdrns_matmul"] == 7 * L
+    assert counts["sdrns_matvec"] == 1 + 7 * (7 * L + 1)
+    assert counts["rns_matmul"] == 0
+    np.testing.assert_allclose(res["cuda", "sdrns"].prefill_logits,
+                               res["cpu", "sdrns"].prefill_logits, rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(res["cuda", "sdrns"].tokens,
+                                  res["cpu", "sdrns"].tokens)
+    np.testing.assert_array_equal(res["cpu", "sdrns"].tokens,
+                                  res["cpu", "rns"].tokens)

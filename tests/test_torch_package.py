@@ -81,6 +81,8 @@ def test_entry_points_raise_without_a_card(no_card):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg, system="rns")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, system="sdrns")
     model = build_model(cfg, system="rns", device="cpu")
     params = model.init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -126,6 +128,16 @@ def test_launch_counters_stay_zero_on_cpu():
     res = eng.generate({"tokens": torch.randint(0, cfg.vocab, (2, 5))},
                        max_new=3)
     assert res.tokens.shape == (2, 3)
+    model = build_model(cfg, system="sdrns", device="cpu")
+    eng = ServingEngine(model, model.init(0), batch=2, s_max=12,
+                        page_size=4, kv_format="rns8", device="cpu")
+    res = eng.generate({"tokens": torch.randint(0, cfg.vocab, (2, 5))},
+                       max_new=2)
+    assert res.tokens.shape == (2, 2)
+    sd = nx.encode(torch.randint(-7, 8, (8, 4)), nx.EncodeSpec(layout="sd"))
+    nx.add(sd, sd)
     assert kernels.launch_counts() == {"rns_matmul": 0, "flash_attention": 0,
                                        "paged_decode": 0,
-                                       "paged_decode_syndrome": 0}
+                                       "paged_decode_syndrome": 0,
+                                       "sdrns_matmul": 0, "sdrns_matvec": 0,
+                                       "sd_add": 0}
