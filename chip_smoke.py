@@ -37,6 +37,24 @@ Phases (each prints its lines; any failure raises and the exit code is not
    planes, rns8 pages, batch 2, 16-token prompts, 8 new tokens, greedy,
    after its twin under ``system="rns"``.  Prefill logits and tokens must
    equal the twin's bit for bit; launch counts are exact.
+8. serve-dense -- qwen3-8b at full width and depth under ``system="rns"``
+   with ``paged=False`` (the dense bf16 cache, kernel B5), batch 8,
+   256-token prompts, 64 new tokens, greedy, beside its twin on bf16 pages,
+   both with the decode chunk set to the page size: prefill logits and
+   tokens equal bit for bit, exact launch counts, and the B5 launches of
+   the first decode step equal to the plain version on their own inputs.
+9. serve-hybrid -- zamba2-7b at full width and depth (81 Mamba2 layers, 13
+   applications of the shared attention block, 3 tail layers) under
+   ``system="rns"`` on the dense bf16 cache, batch 8, 256-token prompts, 64
+   new tokens, greedy: every logit finite, exact launch counts, and the B5
+   launches of the first decode step equal to the plain version on that
+   step's own inputs.
+
+Phase 3 also serves the reduced zamba2 on the card and on the CPU
+([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
+shapes the two dense serves launch it with, at the qwen3 and zamba2 decode
+shapes in one chunk, a split shape with all-masked chunks and in f32, B2 at
+zamba2's head_dim 112 and B1 at every zamba2 shape, decode and prefill.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result JSON.
@@ -64,8 +82,11 @@ FLUSH_BYTES = 256 << 20      # > the 50 MB L2: every timed launch starts cold
 LAYER_MATMULS = [((4096, 4096), 2), ((4096, 1024), 2), ((4096, 12288), 2),
                  ((12288, 4096), 1)]
 LOGITS = (4096, 151936)
+# one qwen3-8b decode step: 36 layers x (q, k, v, o, gate, up, down), logits
+QWEN3_STEP = [((K, N), 36 * n) for (K, N), n in LAYER_MATMULS] + [(LOGITS, 1)]
 KERNELS = ("rns_matmul", "flash_attention", "paged_decode",
-           "paged_decode_syndrome", "sdrns_matmul", "sdrns_matvec", "sd_add")
+           "paged_decode_syndrome", "flash_decode", "sdrns_matmul",
+           "sdrns_matvec", "sd_add")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # [serve-sd]: qwen3-8b at full width, depth cut to 8 of 36 layers for time
 # and memory (21 B of digit planes per weight: 4.05 GB a layer, 13.07 GB
@@ -73,6 +94,14 @@ NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 SD_LAYERS, SD_BATCH, SD_PROMPT, SD_NEW = 8, 2, 16, 8
 SD_COLS = 256                # columns of the plain version's SD check
 SD_ADD_SHAPE = (4096, 4096)  # the weight whose digit planes B8 adds
+# zamba2-7b matmul shapes (K, N) and their count per decode step: 81 Mamba2
+# in/out projections, 13 shared blocks (in_proj, q, k, v, o, gate, up,
+# down), the logits last
+HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
+                  ((3584, 3584), 4 * 13), ((3584, 14336), 2 * 13),
+                  ((14336, 3584), 13), ((3584, 32000), 1)]
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
+DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -120,15 +149,20 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_rns_matmul(torch, timer, gen, mset, label):
-    """B1 at the main path's shapes on the planes of ``mset``, operands
-    drawn over the full centred range of its widest modulus."""
+def check_rns_matmul(torch, timer, gen, mset, label, step):
+    """B1 on the planes of ``mset`` at one model's shapes, operands drawn
+    over the full centred range of its widest modulus.  ``step`` lists each
+    shape (K, N) with its launches per decode step, the logits last: each is
+    held bit for bit at M = 8 (decode) and, but the logits, at the serves'
+    prefill M.  zamba2's N = 14576 (the Mamba2 in_proj) is not a multiple of
+    the kernel's 64-column tile, so its edge tiles are held too."""
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
 
     C, h = mset.num_channels, max(mset.moduli) // 2
     per = {}
-    shapes = [(M, K, N) for M in (8, 2048) for (K, N), _ in LAYER_MATMULS]
-    shapes.append((8, *LOGITS))
+    shapes = [(M, K, N) for M in (8, SERVE_B * SERVE_PROMPT)
+              for (K, N), _ in step[:-1]]
+    shapes.append((8, *step[-1][0]))
     for M, K, N in shapes:
         a = torch.randint(-h, h + 1, (C, M, K), generator=gen, device="cuda",
                           dtype=torch.int32).to(torch.int8)
@@ -156,55 +190,63 @@ def check_rns_matmul(torch, timer, gen, mset, label):
               f"bound_ms={bms:.4f} ({by})", flush=True)
         del a, b, ab, bb
         torch.cuda.empty_cache()
-    # one decode step of the main path: 36 layers x 7 matmuls + logits, M=8
-    mult = [((8, K, N), 36 * n) for (K, N), n in LAYER_MATMULS]
-    mult.append(((8, *LOGITS), 1))
-    step = {k: sum(per[s][k] * n for s, n in mult)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"[kernels] rns_matmul[{label}] one decode step (253 launches, "
-          f"M=8): kernel_ms={step['ms']:.3f} plain_ms={step['plain_ms']:.3f} "
-          f"library_ms={step['library_ms']:.3f} "
-          f"bound_ms={step['bound_ms']:.3f}", flush=True)
-    return dict(step, bound_by="bytes",
+    n = sum(c for _, c in step)
+    total = {k: sum(per[(8, K, N)][k] * c for (K, N), c in step)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[kernels] rns_matmul[{label}] one decode step ({n} launches, "
+          f"M=8): kernel_ms={total['ms']:.3f} "
+          f"plain_ms={total['plain_ms']:.3f} "
+          f"library_ms={total['library_ms']:.3f} "
+          f"bound_ms={total['bound_ms']:.3f}", flush=True)
+    return dict(total, bound_by="bytes",
                 max_abs_err=max(v["err"] for v in per.values()),
-                at=f"one decode step on {label} planes (C={C}): 36 x "
-                   f"(q,k,v,o,gate,up,down) + logits, M=8; per-shape times "
-                   f"in the [kernels] lines")
+                at=f"one decode step on {label} planes (C={C}): {n} "
+                   f"launches at M=8; per-shape times in the [kernels] lines")
 
 
 def check_flash_attention(torch, timer, gen):
+    """B2 at the prefill shapes of qwen3-8b (hd 128, g 4) and zamba2-7b's
+    shared block (hd 112, g 1: the first head_dim that does not fill the
+    kernel's four dims per lane)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                                 flash_attention_ref)
 
-    B, S, H, Kv, hd = 8, 256, 32, 8, 128
-    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
-    out = flash_attention_cuda(q, k, v, causal=True)
-    ref = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
-    err = float((out.float() - ref).abs().max())
-    # bf16 output rounding plus p rounded to bf16 before PV: the reference's
-    # own bf16 tolerance (tests/test_flash_attn.py, _tol)
-    tol = 2e-2
-    if not err <= tol:
-        raise AssertionError(f"flash_attention: max error {err} > {tol}")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = timer(lambda: flash_attention_cuda(q, k, v, causal=True), 20)
-    plain = timer(lambda: flash_attention_ref(q, k, v, causal=True), 5)
-    lib = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B
-    pairs = B * H * S * (S + 1) // 2
-    bms, by = bound_ms(nbytes, 4 * hd * pairs, "bf16")
-    print(f"[kernels] flash_attention B={B} S={S} H={H} Kv={Kv} hd={hd} "
-          f"bf16 causal: max_abs_err={err:.3e} (tol {tol}); "
-          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa)="
-          f"{lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, max_abs_err=err,
-                at=f"prefill B={B} S={S} H={H} Kv={Kv} hd={hd} bf16")
+    out_rows = {}
+    for label, (B, S, H, Kv, hd) in (("qwen3", (8, 256, 32, 8, 128)),
+                                     ("zamba2", (8, 256, 32, 32, 112))):
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        out = flash_attention_cuda(q, k, v, causal=True)
+        ref = flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=True)
+        err = float((out.float() - ref).abs().max())
+        # bf16 output rounding plus p rounded to bf16 before PV: the
+        # reference's own bf16 tolerance (tests/test_flash_attn.py, _tol)
+        tol = 2e-2
+        if not err <= tol:
+            raise AssertionError(f"flash_attention[{label}]: max error {err}"
+                                 f" > {tol}")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = timer(lambda: flash_attention_cuda(q, k, v, causal=True), 20)
+        plain = timer(lambda: flash_attention_ref(q, k, v, causal=True), 5)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B
+        pairs = B * H * S * (S + 1) // 2
+        bms, by = bound_ms(nbytes, 4 * hd * pairs, "bf16")
+        print(f"[kernels] flash_attention[{label}] B={B} S={S} H={H} Kv={Kv} "
+              f"hd={hd} bf16 causal: max_abs_err={err:.3e} (tol {tol}); "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa)="
+              f"{lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+        out_rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=bms, bound_by=by, max_abs_err=err,
+                               at=f"prefill B={B} S={S} H={H} Kv={Kv} "
+                                  f"hd={hd} bf16")
+        del q, k, v, qt, kt, vt, out, ref
+    return dict(out_rows["qwen3"], zamba2=out_rows["zamba2"])
 
 
 def check_paged_decode(torch, timer, gen):
@@ -555,6 +597,105 @@ def check_sd_add(torch, timer):
                    f"weights; no PyTorch call computes SD sums")
 
 
+def check_flash_decode(torch, timer, gen):
+    """B5 against its plain version, partial by partial (o, m, l) and
+    merged: at the shapes the two serves launch it with (T 321; [serve-dense]
+    at the page size's 64-row chunks, six with a ragged last one,
+    [serve-hybrid] at pick_block(321, 512) = 328, one chunk longer than the
+    cache), at the qwen3-8b and zamba2-7b decode shapes with one chunk (T
+    320), a split shape (T 4096, bk 512, kv_len 1..4096: chunks past kv_len
+    are all masked) and the qwen3 shape in f32; kv_len ragged from its low
+    end to T.  Timed beside the plain version and SDPA over the same dense
+    cache with a length mask; the byte bound reads K and V of the valid
+    rows once.  The kernels line takes the [serve-dense] shape, whose
+    launches it reports."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import (flash_decode_cuda,
+                                                flash_decode_ref)
+    from repro_torch.numerics.attention import (DEFAULT_DECODE_BLOCK,
+                                                merge_decode_partials,
+                                                pick_block)
+
+    B = SERVE_B
+    T_serve, lo_serve = SERVE_PROMPT + SERVE_NEW + 1, SERVE_PROMPT + 1
+    bf16 = torch.bfloat16
+    cases = [("serve_dense", 32, 8, 128, T_serve, bf16, lo_serve, DENSE_BK),
+             ("serve_hybrid", 32, 32, 112, T_serve, bf16, lo_serve, None),
+             ("qwen3", 32, 8, 128, 320, torch.bfloat16, 257, None),
+             ("zamba2", 32, 32, 112, 320, torch.bfloat16, 257, None),
+             ("split", 32, 8, 128, 4096, torch.bfloat16, 1, None),
+             ("qwen3_f32", 32, 8, 128, 320, torch.float32, 257, None)]
+    res = {}
+    for label, H, Kv, hd, T, dt, lo, bk in cases:
+        bk = bk or pick_block(T, DEFAULT_DECODE_BLOCK)
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dt)
+        kv_len = torch.randint(lo, T + 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        kv_len[0], kv_len[1] = lo, T
+        out = flash_decode_cuda(q, k, v, kv_len, bk)
+        ref = flash_decode_ref(q, k, v, kv_len, bk)
+        torch.cuda.synchronize()
+        # f32: sums in another order (the reference's 2e-5); bf16: p is
+        # rounded to bf16 on both sides, and an exp one f32 ulp apart can
+        # round to the neighbouring bf16 value (2**-8 of one weight).  o
+        # and l are unnormalized sums: held relative to their largest value
+        tol = 2e-5 if dt == torch.float32 else 2e-3
+        errs = {}
+        for name, a, r in (("o", out[0], ref[0]), ("l", out[2], ref[2])):
+            errs[name] = float((a - r).abs().max()) / max(
+                1.0, float(r.abs().max()))
+        errs["m"] = float((out[1] - ref[1]).abs().max())
+        merged = float((merge_decode_partials(*out)
+                        - merge_decode_partials(*ref)).abs().max())
+        errs["merged"] = merged
+        bad = {n: e for n, e in errs.items()
+               if not e <= (2e-5 if n == "m" else tol)}
+        if bad:
+            raise AssertionError(f"flash_decode[{label}]: errors {bad} over "
+                                 f"tolerance {tol} (m: 2e-5)")
+        n_k = -(-T // bk)
+        dead = (-(-kv_len // bk)).tolist()
+        for b in range(B):
+            if not (bool((out[1][b, :, dead[b]:] == -1e30).all())
+                    and bool((out[2][b, :, dead[b]:] == 0).all())
+                    and bool((out[0][b, :, :, dead[b]:] == 0).all())):
+                raise AssertionError(f"flash_decode[{label}]: chunks past "
+                                     f"kv_len[{b}] are not (0, -1e30, 0)")
+        del out, ref
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        ms = timer(lambda: flash_decode_cuda(q, k, v, kv_len, bk), 20)
+        plain = timer(lambda: flash_decode_ref(q, k, v, kv_len, bk), 5)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        n_rows = int(kv_len.sum())
+        esz = k.element_size()
+        nbytes = (q.numel() * q.element_size() + 2 * n_rows * Kv * hd * esz
+                  + 4 * B * H * n_k * (hd + 2) + 4 * B)
+        bms, by = bound_ms(nbytes, 4 * hd * H * n_rows,
+                           "f32" if dt == torch.float32 else "bf16")
+        print(f"[kernels] flash_decode[{label}] B={B} H={H} Kv={Kv} hd={hd} "
+              f"T={T} bk={bk} ({n_k} chunks) {str(dt)[6:]} kv_len "
+              f"{lo}..{T} (sum {n_rows}): errors o {errs['o']:.2e} l "
+              f"{errs['l']:.2e} (rel, tol {tol}) m {errs['m']:.2e} merged "
+              f"{merged:.2e}; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms(sdpa, length mask)={lib:.4f} bound_ms={bms:.5f} "
+              f"({by})", flush=True)
+        res[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bms, bound_by=by, max_abs_err=merged,
+                          at=f"decode B={B} H={H} Kv={Kv} hd={hd} T={T} "
+                             f"bk={bk} kv_len {lo}..{T}, {str(dt)[6:]} cache")
+        del q, k, v, kt, vt, q4, mask
+        torch.cuda.empty_cache()
+    return dict(res["serve_dense"], **{k: v for k, v in res.items()
+                                       if k != "serve_dense"})
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: small input, card against CPU
 # ---------------------------------------------------------------------------
@@ -609,6 +750,52 @@ def check_small(torch):
           f"{same}/{res['cpu'].tokens.size}", flush=True)
     if not err <= tol:
         raise AssertionError(f"small: card and CPU logits differ by {err}")
+
+
+def _tree_to(node, dev):
+    if isinstance(node, dict):
+        return {k: _tree_to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, dev) for v in node]
+    return node.to(dev)
+
+
+def check_small_hybrid(torch):
+    """The reduced zamba2 (4 Mamba2 layers, 2 shared-block applications;
+    random weights from seed 0) under rns on the dense cache, served on
+    the card and on the CPU: prefill logits within the tolerance, greedy
+    tokens equal."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("zamba2-7b").reduced()
+    float_params = build_model(cfg, device="cpu").init(SEED)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (3, 8)).astype(np.int32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                            s_max=16, device=dev)
+        res[dev] = eng.generate({"tokens": prompts}, max_new=8)
+    err = float(np.abs(res["cuda"].prefill_logits
+                       - res["cpu"].prefill_logits).max())
+    same = int((res["cuda"].tokens == res["cpu"].tokens).sum())
+    # f32 compute on both; exact residue matmuls; float summation order
+    # differs (an int4 code can flip only at a rounding tie)
+    tol = 1e-3
+    print(f"[small-hybrid] reduced zamba2-7b (L={cfg.n_layers}, attn_every="
+          f"{cfg.attn_every}) rns, dense cache, card vs CPU: prefill logits "
+          f"max_abs_err={err:.3e} (tol {tol}); tokens equal "
+          f"{same}/{res['cpu'].tokens.size}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"small-hybrid: card and CPU logits differ by "
+                             f"{err}")
+    if not np.array_equal(res["cuda"].tokens, res["cpu"].tokens):
+        raise AssertionError("small-hybrid: card and CPU tokens differ")
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +1045,214 @@ def serve_sd(torch, smi):
     return counts
 
 
+def record_first_decode(n, run):
+    """``run()`` with B5's card implementation wrapped to keep the inputs
+    and outputs of its first ``n`` launches (one decode step's).  K and V
+    are the cache itself, not copies: later steps write only rows at or past
+    each launch's kv_len, which B5 and its plain version mask."""
+    from repro_torch.numerics import registry
+
+    kernel = registry.get_impl("flash_decode", "cuda")
+    first = []
+
+    def recording(q, k, v, kv_len, bk):
+        out = kernel(q, k, v, kv_len, bk)
+        if len(first) < n:
+            first.append(((q.clone(), k, v, kv_len.clone(), bk),
+                          tuple(t.clone() for t in out)))
+        return out
+
+    registry.register_impl("flash_decode", "cuda", recording)
+    try:
+        return run(), first
+    finally:
+        registry.register_impl("flash_decode", "cuda", kernel)
+
+
+def check_first_decode(first, n, kv_len0, label):
+    """Hold the recorded B5 launches of the first decode step against the
+    plain version on their own inputs, merged."""
+    from repro_torch.kernels.flash_attn import flash_decode_ref
+    from repro_torch.numerics.attention import merge_decode_partials
+
+    if len(first) != n:
+        raise AssertionError(f"{label}: recorded {len(first)} B5 launches of "
+                             f"the first step, expected {n}")
+    worst = 0.0
+    for (q, k, v, kv_len, bk), out in first:
+        if kv_len.tolist() != [kv_len0] * len(kv_len):
+            raise AssertionError(f"{label}: first step kv_len "
+                                 f"{kv_len.tolist()}, expected {kv_len0}")
+        ref = flash_decode_ref(q, k, v, kv_len, bk)
+        worst = max(worst, float((merge_decode_partials(*out)
+                                  - merge_decode_partials(*ref)).abs().max()))
+    tol = 2e-3      # the bf16-cache tolerance of [kernels] flash_decode
+    print(f"[{label}] the {n} B5 launches of the first decode step (T "
+          f"{k.shape[1]}, bk {bk}) against the plain version on their own "
+          f"inputs: max_abs_err={worst:.3e} (tol {tol})", flush=True)
+    if not worst <= tol:
+        raise AssertionError(f"{label}: B5 differs from the plain version on "
+                             f"the serve's inputs")
+
+
+def serve_dense(torch):
+    """Phase 8: qwen3-8b at full width and depth under system="rns" with
+    paged=False: the dense bf16 cache and kernel B5, then its twin on bf16
+    pages of 64 rows; both with the decode chunk set to the page size, so
+    both emit the same per-chunk partials (the reference's own pin,
+    tests/test_paged_serving.py)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.numerics.attention import set_decode_block
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("qwen3-8b")
+    B, plen, max_new, ps = SERVE_B, SERVE_PROMPT, SERVE_NEW, DENSE_BK
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    kw = dict(batch=B, s_max=plen + max_new + 1, device="cuda")
+    engine = ServingEngine(model, params, paged=False, **kw)
+    del params
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    L = cfg.n_layers
+    prev = set_decode_block(ps)
+    try:
+        kernels.reset_launch_counts()
+        res, first = record_first_decode(L, lambda: engine.generate(
+            {"tokens": prompts}, max_new=max_new))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        twin_engine = ServingEngine(model, engine.params, page_size=ps,
+                                    kv_format="bf16", **kw)
+        twin = twin_engine.generate({"tokens": prompts}, max_new=max_new)
+        torch.cuda.synchronize()
+    finally:
+        set_decode_block(prev)
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    st = res.stats
+    cache_bytes = 2 * L * B * kw["s_max"] * cfg.n_kv * cfg.hd * 2
+    print(f"[serve-dense] qwen3-8b L={L} d={cfg.d_model} system=rns "
+          f"paged=False (dense bf16 cache, decode chunk {ps}) B={B} prompt="
+          f"{plen} new={max_new}: init_s={t_init:.2f} prefill_s="
+          f"{st.prefill_s:.3f} decode_s={st.decode_s:.3f} decode_tok_s="
+          f"{B * steps / st.decode_s:.2f} step_ms="
+          f"{1e3 * st.decode_s / steps:.1f}", flush=True)
+    print(f"[serve-dense] resident weight bytes={rb} dense cache bytes="
+          f"{cache_bytes} max_memory_allocated={peak}", flush=True)
+    print(f"[serve-dense] launches {json.dumps(counts)}", flush=True)
+    per_step = 7 * L + 1
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=L, flash_decode=L * steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    same_logits = np.array_equal(res.prefill_logits, twin.prefill_logits)
+    n_diff = int((res.tokens != twin.tokens).sum())
+    print(f"[serve-dense] against the twin on bf16 pages (page size {ps}, "
+          f"step_ms {1e3 * twin.stats.decode_s / steps:.1f}): prefill logits "
+          f"bit-identical {same_logits}; differing tokens {n_diff} of "
+          f"{res.tokens.size}", flush=True)
+    # equal partials at bk = page size make equal logits, so equal tokens
+    if not same_logits or n_diff:
+        raise AssertionError("serve-dense: prefill logits or tokens differ "
+                             "from the twin's")
+    check_first_decode(first, L, plen + 1, "serve-dense")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError("tokens misshapen or out of [0, vocab)")
+    if not np.isfinite(res.prefill_logits).all():
+        raise AssertionError("prefill logits not finite")
+    print(f"[serve-dense] seq0 tokens {res.tokens[0, :16].tolist()}",
+          flush=True)
+    return counts
+
+
+def serve_hybrid(torch, smi):
+    """Phase 9: zamba2-7b at full width and depth under system="rns" on the
+    dense bf16 cache (the hybrid family has no paged decode)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.models.transformer import hybrid_groups, ssm_dims
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("zamba2-7b")
+    B, plen, max_new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    G, tail = hybrid_groups(cfg)
+    dims = ssm_dims(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+
+    # every decode logit finite, folded on the device and read once
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def decode(*a, **k):
+        logits, cache = model.decode(*a, **k)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    engine = ServingEngine(dataclasses.replace(model, decode=decode), params,
+                           batch=B, s_max=plen + max_new + 1, device="cuda")
+    del params
+    if engine.paged:
+        raise AssertionError("the hybrid family has no paged decode")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    kernels.reset_launch_counts()
+    res, first = record_first_decode(G, lambda: engine.generate(
+        {"tokens": prompts}, max_new=max_new))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    st = res.stats
+    s_max = plen + max_new + 1
+    kv_bytes = 2 * G * B * s_max * cfg.n_kv * cfg.hd * 2
+    ssm_bytes = 4 * cfg.n_layers * B * (
+        dims.n_heads * dims.headdim * dims.d_state
+        + (dims.d_conv - 1) * dims.conv_dim)
+    print(f"[serve-hybrid] zamba2-7b L={cfg.n_layers} ({G} shared-block "
+          f"applications, {tail} tail layers) d={cfg.d_model} hd={cfg.hd} "
+          f"system=rns dense bf16 cache B={B} prompt={plen} new={max_new}: "
+          f"init_s={t_init:.2f} prefill_s={st.prefill_s:.3f} decode_s="
+          f"{st.decode_s:.3f} decode_tok_s={B * steps / st.decode_s:.2f} "
+          f"step_ms={1e3 * st.decode_s / steps:.1f}; {smi}", flush=True)
+    print(f"[serve-hybrid] resident weight bytes={rb} dense KV cache bytes="
+          f"{kv_bytes} SSM state + conv bytes={ssm_bytes} "
+          f"max_memory_allocated={peak}", flush=True)
+    print(f"[serve-hybrid] launches {json.dumps(counts)}", flush=True)
+    per_step = 2 * cfg.n_layers + 8 * G + 1
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=G, flash_decode=G * steps)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    check_first_decode(first, G, plen + 1, "serve-hybrid")
+    if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+        raise AssertionError("serve-hybrid: a logit is not finite")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError("tokens misshapen or out of [0, vocab)")
+    print(f"[serve-hybrid] every prefill and decode logit finite; seq0 "
+          f"tokens {res.tokens[0, :16].tolist()}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -886,22 +1281,31 @@ def main() -> int:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     from repro_torch.core.moduli import P21, P21R2
-    rm = check_rns_matmul(torch, timer, gen, P21, "P21")
-    rm_r = check_rns_matmul(torch, timer, gen, P21R2, "P21R2")
+    rm = check_rns_matmul(torch, timer, gen, P21, "P21", QWEN3_STEP)
+    rm_r = check_rns_matmul(torch, timer, gen, P21R2, "P21R2", QWEN3_STEP)
+    rm_h = check_rns_matmul(torch, timer, gen, P21, "zamba2", HYBRID_MATMULS)
     fa = check_flash_attention(torch, timer, gen)
     pd = check_paged_decode(torch, timer, gen)
     ps = check_paged_decode_syndrome(torch, timer, gen)
+    fd = check_flash_decode(torch, timer, gen)
     sdm, sdv = check_sdrns_matmul(torch, timer, gen)
     sda = check_sd_add(torch, timer)
     del timer
     torch.cuda.empty_cache()
     check_small(torch)
+    check_small_hybrid(torch)
     counts = serve_full_width(torch)
     torch.cuda.empty_cache()
     counts_r = serve_redundant(torch)
     gc.collect()
     torch.cuda.empty_cache()
     counts_sd = serve_sd(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_dense = serve_dense(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_hy = serve_hybrid(torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -913,6 +1317,8 @@ def main() -> int:
          "src/repro/kernels/flash_attn.py:385", pd["rns8"]),
         ("paged_decode_syndrome", src_dir + "flash_attn.cu",
          "src/repro/kernels/flash_attn.py:385 (red_moduli)", ps),
+        ("flash_decode", src_dir + "flash_attn.cu",
+         "src/repro/kernels/flash_attn.py:228", fd),
         ("sdrns_matmul", src_dir + "sdrns_matmul.cu",
          "src/repro/kernels/sdrns_matmul.py:109", sdm),
         ("sdrns_matvec", src_dir + "sdrns_matmul.cu",
@@ -920,11 +1326,12 @@ def main() -> int:
         ("sd_add", src_dir + "sd_add.cu", "src/repro/kernels/sd_add.py:68",
          sda),
     ]
-    # launches: B1-B3 from [serve], the syndrome mode from [serve-r], B6
-    # and B7 from [serve-sd], B8 from nx.add (the path each is measured
-    # on); the other serves' counts are beside them
+    # launches: B1-B3 from [serve], the syndrome mode from [serve-r], B5
+    # from [serve-dense], B6 and B7 from [serve-sd], B8 from nx.add (the
+    # path each is measured on); the other serves' counts are beside them
     launched = dict(counts, paged_decode_syndrome=counts_r[
-        "paged_decode_syndrome"], sdrns_matmul=counts_sd["sdrns_matmul"],
+        "paged_decode_syndrome"], flash_decode=counts_dense["flash_decode"],
+        sdrns_matmul=counts_sd["sdrns_matmul"],
         sdrns_matvec=counts_sd["sdrns_matvec"], sd_add=sda["launches"])
     fixed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "at")
@@ -932,6 +1339,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launched[name], "launches_serve_r": counts_r[name],
          "launches_serve_sd": counts_sd[name],
+         "launches_serve_dense": counts_dense[name],
+         "launches_serve_hybrid": counts_hy[name],
          **{k: r[k] for k in fixed},
          **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
         for name, source, rep, r in entries]}
@@ -940,6 +1349,9 @@ def main() -> int:
         {k: rm_r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "at")},
         launches=counts_r["rns_matmul"])
+    # B1 at zamba2-7b's shapes, one decode step of [serve-hybrid]
+    line["kernels"][0]["zamba2"] = dict(rm_h,
+                                        launches=counts_hy["rns_matmul"])
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig`` and its ``reduced()`` are kept field for field and value for
 value: the parity tests build the same reduced model in both packages and
-load the same committed checkpoint into each.  Only ``qwen3-8b`` is ported.
+load the same committed checkpoint into each.  Ported: ``qwen3-8b`` (dense)
+and ``zamba2-7b`` (hybrid).
 """
 from __future__ import annotations
 
@@ -100,7 +101,7 @@ class ArchConfig:
         return dataclasses.replace(self, **r)
 
 
-ARCH_IDS: tuple[str, ...] = ("qwen3-8b",)
+ARCH_IDS: tuple[str, ...] = ("qwen3-8b", "zamba2-7b")
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_") for a in ARCH_IDS}
 

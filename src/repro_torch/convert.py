@@ -3,7 +3,8 @@
 :func:`load_npz` reads the ``params/...`` keys of a checkpoint written by
 ``repro/train/checkpoint.py`` into a nested dict of numpy arrays;
 :func:`from_jax_params` turns such a tree (layers stacked on axis 0, as in
-the npz) into the port's parameters (a list of per-layer dicts of tensors).
+the npz) into the port's parameters (a list of per-layer dicts of tensors;
+the hybrid family's ``shared`` block, not stacked, comes across as it is).
 Residue preparation then runs in the port (``Model.prepare_params``).
 """
 from __future__ import annotations
@@ -47,12 +48,18 @@ def _layer(node, i: int):
     return np.asarray(node)[i]
 
 
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return np.asarray(node)
+
+
 def from_jax_params(np_tree: dict[str, Any], cfg: ArchConfig,
                     device: torch.device | str) -> dict[str, Any]:
     """The reference's parameter tree (numpy, layers stacked on axis 0) ->
     the port's parameters on ``device``."""
     layers = np_tree["layers"]
-    n = len(np.asarray(layers["attn_norm"]["scale"]))
+    n = len(_first_leaf(layers))
     if n != cfg.n_layers:
         raise ValueError(f"tree holds {n} layers, config says "
                          f"{cfg.n_layers}")

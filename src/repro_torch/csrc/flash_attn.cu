@@ -1,5 +1,6 @@
-// Flash attention for Hopper (sm_90a): causal GQA prefill and paged
-// split-KV decode partials over bf16 or packed residue pages.
+// Flash attention for Hopper (sm_90a): causal GQA prefill, and split-KV
+// decode partials over bf16 or packed residue pages and over the dense
+// contiguous cache.
 //
 // flash_attention_fwd replaces repro/kernels/flash_attn.py::
 // flash_attention_pallas (body _attn_kernel).  One block per (q tile of 64
@@ -31,6 +32,19 @@
 // other heads, so syn summed over heads and pages counts each element
 // once.  Bound on the H100: the KV page bytes of the valid rows (witness
 // lanes included in the syndrome mode).
+//
+// flash_decode_fwd replaces flash_decode_pallas (body _decode_kernel): the
+// same split-KV partials over the dense (B, T, Kv, hd) cache, one block per
+// (chunk of bk rows, head h, batch row b).  Its chunk body is the paged
+// decode's (decode_chunk), addressed at row b * T + j * bk instead of a
+// page, so a dense decode with bk equal to the page size gives the paged
+// decode's partials bit for bit.  Rows at or past kv_len[b] are never read
+// (the reference zeroes and masks them with -1e30; neither reaches its
+// partial), an all-masked chunk writes o = 0, m = -1e30, l = 0, and p is
+// rounded to the cache dtype before the PV product.  Bound on the H100: the
+// K and V bytes of the valid rows.  A warp walks the rows of a chunk one
+// dot product at a time and each thread one output dim over every row;
+// tensor cores are later work.
 //
 // Every entry point runs on the given stream, allocates nothing and returns
 // cudaGetLastError().
@@ -313,33 +327,35 @@ __device__ __forceinline__ float kv_checked(const void* pages,
   return (float)x * scales[srow];
 }
 
-template <typename TQ, int MODE, bool SYN>
-__global__ void __launch_bounds__(PD_THREADS)
-paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
-                    const void* __restrict__ vp,
-                    const float* __restrict__ ks,
-                    const float* __restrict__ vs,
-                    const uint8_t* __restrict__ kw,
-                    const uint8_t* __restrict__ vw,
-                    const int* __restrict__ tab,
-                    const int* __restrict__ kv_len, float* __restrict__ o,
-                    float* __restrict__ mo, float* __restrict__ lo,
-                    int* __restrict__ syn, int H, int Kv, int hd, int ps,
-                    int n_pmax, long long row_stride, float scale, Packed pk,
-                    Witness wt) {
-  extern __shared__ float smem[];
-  float* qs = smem;       // [hd]
-  float* sc = qs + hd;    // [ps] scores, then p
-  __shared__ float red[2];
-  __shared__ int bad_s;
+// Where one split-KV chunk of one (b, h) reads and writes: `nvalid` KV
+// rows starting at row `row0` of the K/V tensors (rows `row_stride`
+// elements apart), output column `j` of n_chunks.
+struct Chunk {
+  long long bh, row0, row_stride;
+  int j, n_chunks, nvalid, hd, Kv, kh;
+  bool lead;
+  float scale;
+};
 
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = H / Kv;
-  const int kh = h / g;
-  const bool lead = h % g == 0;
+// The body shared by the paged and the dense decode: one chunk's partial
+// (o, m, l) -- and with SYN its syndrome count -- by one block of
+// PD_THREADS.  smem holds hd + (rows in a chunk) floats.
+template <typename TQ, int MODE, bool SYN>
+__device__ __forceinline__ void decode_chunk(
+    const Chunk& c, const TQ* __restrict__ q, const void* __restrict__ kp,
+    const void* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const uint8_t* __restrict__ kw,
+    const uint8_t* __restrict__ vw, float* __restrict__ o,
+    float* __restrict__ mo, float* __restrict__ lo, int* __restrict__ syn,
+    const Packed& pk, const Witness& wt, float* smem, float* red,
+    int* bad_s) {
+  float* qs = smem;       // [hd]
+  float* sc = qs + c.hd;  // [rows] scores, then p
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long bh = (long long)b * H + h;
-  const int nvalid = max(0, min(ps, kv_len[b] - j * ps));
+  const int hd = c.hd, nvalid = c.nvalid, Kv = c.Kv, kh = c.kh, j = c.j;
+  const int n_pmax = c.n_chunks;
+  const long long bh = c.bh, row_stride = c.row_stride;
+  const bool lead = c.lead;
   const int hds = MODE == KV_PACKED ? hd / pk.vpb : hd;  // stored per row
 
   if (nvalid == 0) {  // all rows masked: o = 0, m = -1e30, l = 0
@@ -351,14 +367,13 @@ paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
     }
     return;
   }
-  const long long pid = tab[(long long)b * n_pmax + j];
   for (int d = tid; d < hd; d += PD_THREADS) qs[d] = to_f(q[bh * hd + d]);
-  if (SYN && tid == 0) bad_s = 0;
+  if (SYN && tid == 0) *bad_s = 0;
   __syncthreads();
 
   int bad = 0;
   for (int r = warp; r < nvalid; r += PD_WARPS) {
-    const long long row = pid * ps + r;
+    const long long row = c.row0 + r;
     const long long off = row * row_stride + (long long)kh * hds;
     const long long srow = row * Kv + kh;
     float part = 0.f;
@@ -368,7 +383,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
                                         lead, bad),
                   part);
     part = warp_sum(part);
-    if (lane == 0) sc[r] = part * scale;
+    if (lane == 0) sc[r] = part * c.scale;
   }
   __syncthreads();
 
@@ -393,7 +408,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
   for (int d = tid; d < hd; d += PD_THREADS) {
     float acc = 0.f;
     for (int r = 0; r < nvalid; ++r) {
-      const long long row = pid * ps + r;
+      const long long row = c.row0 + r;
       const long long off = row * row_stride + (long long)kh * hds;
       // p is cast to v's dtype before PV: bf16 pages round it, f32 and
       // dequantized residue pages keep it in f32
@@ -412,10 +427,84 @@ paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
   if (SYN) {
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) bad += __shfl_xor_sync(0xffffffffu, bad, s);
-    if (lane == 0 && bad) atomicAdd(&bad_s, bad);
+    if (lane == 0 && bad) atomicAdd(bad_s, bad);
     __syncthreads();
-    if (tid == 0) syn[bh * n_pmax + j] = lead ? bad_s : 0;
+    if (tid == 0) syn[bh * n_pmax + j] = lead ? *bad_s : 0;
   }
+}
+
+// Paged: one block per (page slot j, head h, batch row b); the chunk is
+// page tab[b, j], its valid rows those below kv_len[b].
+template <typename TQ, int MODE, bool SYN>
+__global__ void __launch_bounds__(PD_THREADS)
+paged_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ kp,
+                    const void* __restrict__ vp,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const uint8_t* __restrict__ kw,
+                    const uint8_t* __restrict__ vw,
+                    const int* __restrict__ tab,
+                    const int* __restrict__ kv_len, float* __restrict__ o,
+                    float* __restrict__ mo, float* __restrict__ lo,
+                    int* __restrict__ syn, int H, int Kv, int hd, int ps,
+                    int n_pmax, long long row_stride, float scale, Packed pk,
+                    Witness wt) {
+  extern __shared__ float smem[];
+  __shared__ float red[2];
+  __shared__ int bad_s;
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = H / Kv;
+  Chunk c;
+  c.bh = (long long)b * H + h;
+  c.j = j;
+  c.n_chunks = n_pmax;
+  c.nvalid = max(0, min(ps, kv_len[b] - j * ps));
+  c.row0 = c.nvalid ? (long long)tab[(long long)b * n_pmax + j] * ps : 0;
+  c.row_stride = row_stride;
+  c.hd = hd;
+  c.Kv = Kv;
+  c.kh = h / g;
+  c.lead = h % g == 0;
+  c.scale = scale;
+  decode_chunk<TQ, MODE, SYN>(c, q, kp, vp, ks, vs, kw, vw, o, mo, lo, syn,
+                              pk, wt, smem, red, &bad_s);
+}
+
+// Dense (replaces flash_decode_pallas, body _decode_kernel): one block per
+// (chunk j of bk rows, head h, batch row b) over the contiguous cache
+// k/v (B, T, Kv, hd); chunk j holds rows j*bk .. j*bk + bk - 1 of row b,
+// valid below min(kv_len[b], T).  The chunk body is the paged one, so with
+// bk equal to the page size both give the same partials bit for bit.
+template <typename TQ, int MODE>
+__global__ void __launch_bounds__(PD_THREADS)
+dense_decode_kernel(const TQ* __restrict__ q, const void* __restrict__ k,
+                    const void* __restrict__ v,
+                    const int* __restrict__ kv_len, float* __restrict__ o,
+                    float* __restrict__ mo, float* __restrict__ lo, int H,
+                    int Kv, int hd, int T_, int bk, int n_k, float scale) {
+  extern __shared__ float smem[];
+  __shared__ float red[2];
+  __shared__ int bad_s;
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  Chunk c;
+  c.bh = (long long)b * H + h;
+  c.j = j;
+  c.n_chunks = n_k;
+  c.nvalid = max(0, min(bk, min(kv_len[b], T_) - j * bk));
+  c.row0 = (long long)b * T_ + (long long)j * bk;
+  c.row_stride = (long long)Kv * hd;
+  c.hd = hd;
+  c.Kv = Kv;
+  c.kh = h / (H / Kv);
+  c.lead = false;
+  c.scale = scale;
+  const Packed pk = {0, 0, 0, 0, 0, 1};
+  Witness wt;
+  wt.r = 0;
+  wt.lane_stride = 0;
+  decode_chunk<TQ, MODE, false>(c, q, k, v, nullptr, nullptr, nullptr,
+                                nullptr, o, mo, lo, nullptr, pk, wt, smem,
+                                red, &bad_s);
 }
 
 struct PagedArgs {
@@ -459,6 +548,36 @@ int dispatch_paged(int kv_mode, const PagedArgs& a, cudaStream_t stream) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename TQ, int MODE>
+int launch_dense(const void* q, const void* k, const void* v,
+                 const int* kv_len, float* o, float* m, float* l, int B,
+                 int H, int Kv, int hd, int T_, int bk, float scale,
+                 cudaStream_t stream) {
+  const int n_k = (T_ + bk - 1) / bk;
+  size_t smem = sizeof(float) * (size_t)(hd + bk);
+  cudaFuncSetAttribute(dense_decode_kernel<TQ, MODE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  dim3 grid(n_k, H, B);
+  dense_decode_kernel<TQ, MODE><<<grid, PD_THREADS, smem, stream>>>(
+      (const TQ*)q, k, v, kv_len, o, m, l, H, Kv, hd, T_, bk, n_k, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int dispatch_dense(int kv_dtype, const void* q, const void* k, const void* v,
+                   const int* kv_len, float* o, float* m, float* l, int B,
+                   int H, int Kv, int hd, int T_, int bk, float scale,
+                   cudaStream_t stream) {
+  if (kv_dtype == KV_F32)
+    return launch_dense<TQ, KV_F32>(q, k, v, kv_len, o, m, l, B, H, Kv, hd,
+                                    T_, bk, scale, stream);
+  if (kv_dtype == KV_BF16)
+    return launch_dense<TQ, KV_BF16>(q, k, v, kv_len, o, m, l, B, H, Kv, hd,
+                                     T_, bk, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -540,5 +659,28 @@ extern "C" int paged_decode_fwd(const void* q, const void* k_pages,
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 0) return dispatch_paged<float>(kv_mode, a, s);
   if (q_dtype == 1) return dispatch_paged<__nv_bfloat16>(kv_mode, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Split-KV decode partials over the dense cache.  q (B, H, hd) in q_dtype
+// (0 = float32, 1 = bfloat16); k, v (B, T, Kv, hd) contiguous in kv_dtype
+// (the same codes); kv_len (B,) int32.  Writes o (B, H, hd, n_k), m and l
+// (B, H, n_k) f32 with n_k = ceil(T / bk).
+extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
+                                const void* kv_len, void* o, void* m, void* l,
+                                int B, int H, int Kv, int hd, int T, int bk,
+                                float scale, int q_dtype, int kv_dtype,
+                                void* stream) {
+  if (Kv < 1 || H % Kv != 0 || bk < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* kl = (const int*)kv_len;
+  if (q_dtype == 0)
+    return dispatch_dense<float>(kv_dtype, q, k, v, kl, (float*)o, (float*)m,
+                                 (float*)l, B, H, Kv, hd, T, bk, scale, s);
+  if (q_dtype == 1)
+    return dispatch_dense<__nv_bfloat16>(kv_dtype, q, k, v, kl, (float*)o,
+                                         (float*)m, (float*)l, B, H, Kv, hd,
+                                         T, bk, scale, s);
   return (int)cudaErrorInvalidValue;
 }

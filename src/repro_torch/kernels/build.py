@@ -49,6 +49,10 @@ _SIGNATURES = {
     "paged_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _L, _F, _I, _I, _I, _I, _I, _P, _P, _L,
                          _I, _P, _P, _P],
+    # q, k, v, kv_len, o, m, l, B, H, Kv, hd, T, bk, scale, q_dtype,
+    # kv_dtype, stream
+    "flash_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -13,6 +13,12 @@
   decoded value, counted on GQA lead heads only (``h % g == 0``), as
   ``flash_paged_decode_pallas(..., red_moduli=...)`` does.  The kernel
   launches under its own counter name, ``paged_decode_syndrome``.
+* :func:`flash_decode_cuda` / :func:`flash_decode_ref` replace
+  ``flash_decode_pallas``: the same split-KV partials over the dense
+  contiguous cache ``k, v (B, T, Kv, hd)``, one partial per chunk of ``bk``
+  rows (the last one ragged when ``bk`` does not divide T).  With ``bk``
+  equal to the page size they equal the paged decode's partials over the
+  same rows bit for bit (one chunk body in ``csrc/flash_attn.cu``).
 
 The kernels live in ``csrc/flash_attn.cu``; its header note says what bounds
 each on the H100 and what the design does about it.  The plain versions
@@ -31,12 +37,12 @@ from repro_torch.core.moduli import PackedFormat
 from repro_torch.kernels import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_ref",
-           "paged_decode_cuda", "paged_decode_ref", "launches",
-           "reset_launches"]
+           "paged_decode_cuda", "paged_decode_ref", "flash_decode_cuda",
+           "flash_decode_ref", "launches", "reset_launches"]
 
 NEG_BIG = -1e30
 launches = {"flash_attention": 0, "paged_decode": 0,
-            "paged_decode_syndrome": 0}
+            "paged_decode_syndrome": 0, "flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -116,8 +122,108 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged decode partials
+# Split-KV decode partials (paged and dense)
 # ---------------------------------------------------------------------------
+
+
+def _chunk_rows(n_chunks: int, rows: int,
+                kv_len: torch.Tensor) -> torch.Tensor:
+    """(B, n_chunks, rows) bool: row t of chunk j is below ``kv_len[b]``."""
+    t = torch.arange(n_chunks * rows, device=kv_len.device)
+    return t.reshape(n_chunks, rows)[None] < kv_len[:, None, None]
+
+
+def _chunk_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+                    valid: torch.Tensor):
+    """The per-chunk partials of one decode token.
+
+    q (B, H, hd); kb, vb (B, n, rows, Kv, hd) chunked K/V in the cache
+    dtype (or dequantized f32); valid (B, n, rows).  Returns ``o (B, H, hd,
+    n)``, ``m`` and ``l`` ``(B, H, n)`` f32: masked rows zeroed and scored
+    -1e30, ``p`` rounded to the values' dtype before the PV product.
+    """
+    B, H, hd = q.shape
+    n, Kv = kb.shape[1], kb.shape[3]
+    g = H // Kv
+    kb = torch.where(valid[..., None, None], kb, 0)
+    vb = torch.where(valid[..., None, None], vb, 0)
+    qg = q.to(torch.float32).reshape(B, Kv, g, hd)
+    s = torch.einsum("bkgd,bjtkd->bkgjt", qg, kb.to(torch.float32))
+    s = s * (1.0 / hd ** 0.5)
+    vmask = valid[:, None, None]                             # (B,1,1,n,rows)
+    s = torch.where(vmask, s, NEG_BIG)
+    m = s.amax(dim=-1)                                       # (B,Kv,g,n)
+    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
+    lsum = p.sum(dim=-1)
+    o = torch.einsum("bkgjt,bjtkd->bkgdj", p.to(vb.dtype).to(torch.float32),
+                     vb.to(torch.float32))
+    return (o.reshape(B, H, hd, n), m.reshape(B, H, n),
+            lsum.reshape(B, H, n))
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, bk: int):
+    """Split-KV partials over the dense cache.
+
+    q (B, H, hd); k, v (B, T, Kv, hd) in the cache dtype; kv_len (B,)
+    int32 (rows at or past ``min(kv_len[b], T)`` are masked).  Returns
+    ``o (B, H, hd, n_k)``, ``m`` and ``l`` ``(B, H, n_k)`` f32 with
+    ``n_k = ceil(T / bk)``; the last chunk is ragged when ``bk`` does not
+    divide T.
+    """
+    B, T = k.shape[:2]
+    n_k = -(-T // bk)
+    pad = (0, 0, 0, 0, 0, n_k * bk - T)
+
+    def chunks(x):
+        return torch.nn.functional.pad(x, pad).reshape(
+            B, n_k, bk, *x.shape[2:])
+
+    kl = torch.clamp(_full_len(kv_len, B, T, q.device), max=T)
+    return _chunk_partials(q, chunks(k), chunks(v), _chunk_rows(n_k, bk, kl))
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, bk: int):
+    """The Hopper kernel; same contract as :func:`flash_decode_ref`.
+
+    q, k, v and kv_len must be contiguous; q is f32 or bf16, the cache f32
+    or bf16 (one dtype for k and v), kv_len int32.
+    """
+    if not all(t.is_cuda for t in (q, k, v, kv_len)):
+        raise ValueError("flash_decode_cuda takes CUDA tensors")
+    if not all(t.is_contiguous() for t in (q, k, v, kv_len)):
+        raise ValueError("flash_decode_cuda takes contiguous q, k, v and "
+                         "kv_len")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
+        raise TypeError(f"the cache must be f32 or bf16 of one dtype, got "
+                        f"{k.dtype}, {v.dtype}")
+    if kv_len.dtype != torch.int32:
+        raise TypeError(f"kv_len must be int32, got {kv_len.dtype}")
+    B, H, hd = q.shape
+    _, T, Kv, hd2 = k.shape
+    if (hd2 != hd or v.shape != k.shape or k.shape[0] != B or H % Kv
+            or kv_len.shape != (B,)):
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_len "
+                         f"{tuple(kv_len.shape)}")
+    if bk < 1 or 4 * (hd + bk) > 227 * 1024:
+        raise ValueError(f"chunk of {bk} rows does not fit shared memory")
+    n_k = -(-T // bk)
+    dev = q.device
+    o = torch.empty((B, H, hd, n_k), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H, n_k), dtype=torch.float32, device=dev)
+    lsum = torch.empty((B, H, n_k), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = build.library().flash_decode_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        o.data_ptr(), m.data_ptr(), lsum.data_ptr(), B, H, Kv, hd, T, bk,
+        1.0 / hd ** 0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
+    build.check(err, "flash_decode_fwd")
+    launches["flash_decode"] += 1
+    return o, m, lsum
 
 
 def _witness_mismatch(raw: torch.Tensor, wit: torch.Tensor,
@@ -166,22 +272,8 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
         return pack.decode(sel).to(torch.float32) * scale[tab]
 
     kb, vb = rows_of(k_pages, k_scale), rows_of(v_pages, v_scale)
-    rows = torch.arange(n_pmax * ps, device=q.device).reshape(n_pmax, ps)
-    valid = rows[None] < kv_len.to(q.device)[:, None, None]  # (B, n_pmax, ps)
-    kb = torch.where(valid[..., None, None], kb, 0)
-    vb = torch.where(valid[..., None, None], vb, 0)
-    qg = q.to(torch.float32).reshape(B, Kv, g, hd)
-    s = torch.einsum("bkgd,bjtkd->bkgjt", qg, kb.to(torch.float32))
-    s = s * (1.0 / hd ** 0.5)
-    vmask = valid[:, None, None]                             # (B,1,1,n_pmax,ps)
-    s = torch.where(vmask, s, NEG_BIG)
-    m = s.amax(dim=-1)                                       # (B,Kv,g,n_pmax)
-    p = torch.where(vmask, torch.exp(s - m[..., None]), 0.0)
-    lsum = p.sum(dim=-1)
-    o = torch.einsum("bkgjt,bjtkd->bkgdj", p.to(vb.dtype).to(torch.float32),
-                     vb.to(torch.float32))
-    out = (o.reshape(B, H, hd, n_pmax), m.reshape(B, H, n_pmax),
-           lsum.reshape(B, H, n_pmax))
+    valid = _chunk_rows(n_pmax, ps, kv_len.to(q.device))
+    out = _chunk_partials(q, kb, vb, valid)
     if red_moduli is None:
         return out
     keep = valid[..., None, None]                    # (B, n_pmax, ps, 1, 1)

@@ -1,8 +1,14 @@
-"""Serving entry point: batched prefill + paged decode on the card.
+"""Serving entry point: batched prefill + decode on the card.
 
 Example (one H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --system rns --kv-format rns8 --batch 8 --prompt-len 256 --max-new 64
+
+The dense family (``qwen3-8b``) decodes over the paged KV pool in
+``--kv-format``; the hybrid family (``zamba2-7b``: Mamba2 layers and a
+shared attention block) has no paged decode and serves from the dense bf16
+cache, where ``--kv-format`` does not apply.  Its prompts must be a
+multiple of the SSM chunk (256) long, or shorter than one chunk.
 
 ``--system sdrns`` serves on P21 signed-digit weight planes, 21 B per
 weight: at full width only a cut depth fits one card (``chip_smoke.py``
@@ -58,7 +64,8 @@ def main(argv=None):
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch} system={args.system} kv={args.kv_format} "
+    kv = args.kv_format if engine.paged else "dense"
+    print(f"[serve] {args.arch} system={args.system} kv={kv} "
           f"device={model.device} B={B} prompt={P} new={args.max_new}: "
           f"{dt:.2f}s ({B * args.max_new / dt:.1f} tok/s)")
     for b in range(min(B, 2)):

@@ -1,6 +1,7 @@
 """Model API: ``build_model(cfg, system=..., device=...)``.
 
-The returned :class:`Model` bundles the dense-family functions:
+The returned :class:`Model` bundles the functions of the dense and hybrid
+families:
 
 * ``init(seed)`` -- random parameters on the model's device.  Under
   ``system="rns"`` and ``"sdrns"`` each layer is made residue-resident
@@ -10,10 +11,15 @@ The returned :class:`Model` bundles the dense-family functions:
   by their planes);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
   float tree (identity for ``bns``; idempotent on prepared trees);
-* ``prefill(params, tokens, s_max=None, logits_at=None)``;
+* ``prefill(params, tokens, s_max=None, logits_at=None)`` -- logits and
+  the family's cache (``models/transformer.py``);
+* ``init_cache(batch, s_max)`` -- a zeroed cache of that layout;
+* ``decode(params, token, cache, pos)`` -- one step over the dense cache
+  (updated in place), every slot at position ``pos``;
 * ``decode_paged(params, token, kv, block_tab, pos, page_size=...,
-  with_syndrome=False)``; with the syndrome it also returns the
-  ``(B, L)`` count of KV elements whose witnesses disagree (rns8r pages).
+  with_syndrome=False)`` -- dense family only (``None`` for hybrid); with
+  the syndrome it also returns the ``(B, L)`` count of KV elements whose
+  witnesses disagree (rns8r pages).
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -54,7 +60,10 @@ class Model:
     init: Callable[..., Any]
     prepare_params: Callable[[Any], Any]
     prefill: Callable[..., Any]
-    decode_paged: Callable[..., Any]
+    decode: Callable[..., Any]
+    init_cache: Callable[..., Any]
+    # paged serving; None for families without a paged decode (hybrid)
+    decode_paged: Callable[..., Any] | None = None
 
 
 def build_model(cfg: ArchConfig, *, system: str = "bns",
@@ -123,6 +132,15 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
                                  dense_kw=dense_kw, cache_dtype=cache_dtype,
                                  logits_at=logits_at)
 
+    def init_cache(batch: int, s_max: int, dtype=torch.bfloat16):
+        return tf_mod.init_lm_cache(cfg, batch, s_max, dtype, dev)
+
+    @torch.no_grad()
+    def decode(params, token, cache, pos: int):
+        token = torch.as_tensor(token, device=dev).long()
+        return tf_mod.lm_decode(params, cfg, token, cache, pos,
+                                dense_kw=dense_kw)
+
     @torch.no_grad()
     def decode_paged(params, token, kv, block_tab, pos, *, page_size,
                      cache_dtype=torch.bfloat16, with_syndrome=False):
@@ -134,7 +152,9 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
 
     return Model(cfg=cfg, device=dev, init=init,
                  prepare_params=prepare_params, prefill=prefill,
-                 decode_paged=decode_paged)
+                 decode=decode, init_cache=init_cache,
+                 decode_paged=decode_paged if cfg.family == "dense"
+                 else None)
 
 
 def resident_bytes(params: Any) -> int:

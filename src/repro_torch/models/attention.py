@@ -1,15 +1,17 @@
-"""Grouped-query attention with qk-norm: prefill and paged decode.
+"""Grouped-query attention with qk-norm: prefill, dense and paged decode.
 
 Port of ``repro/models/attention.py`` for the serving path.  Prefill runs
 the causal flash attention kernel and hands back this layer's KV cache
-(zero-padded to ``s_max``); paged decode appends the new token's K/V to its
-page and runs the split-KV paged decode kernel over the slot's page list.
-KV heads stay ungrouped ``(B, T, Kv, hd)``; the kernels map query head
-``h`` onto KV head ``h // (H // Kv)``.
+(zero-padded to ``s_max``); dense decode writes the new token's K/V into
+the layer's contiguous cache in place and runs the split-KV decode kernel
+over it; paged decode appends them to the slot's page and runs the
+split-KV paged decode kernel over the slot's page list.  KV heads stay
+ungrouped ``(B, T, Kv, hd)``; the kernels map query head ``h`` onto KV
+head ``h // (H // Kv)``.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -18,7 +20,13 @@ from repro_torch.models.layers import init_rmsnorm, rmsnorm, rope
 from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as nxkv
 
-__all__ = ["init_attention", "prefill_attention", "paged_decode_attention"]
+__all__ = ["KVCache", "init_attention", "prefill_attention",
+           "decode_attention", "paged_decode_attention"]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (..., B, S_max, Kv, hd)
+    v: torch.Tensor
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -81,6 +89,30 @@ def prefill_attention(params, x, s_max: int, *, n_heads, n_kv, head_dim,
     out = _full_seq(q, k, v, causal=causal, n_heads=n_heads,
                     head_dim=head_dim)
     return linear.dense(params["wo"], out, **dense_kw), cache
+
+
+def decode_attention(params, x, cache: KVCache, pos: int, *, n_heads, n_kv,
+                     head_dim, qk_norm=False, rope_theta=1e4,
+                     dense_kw=None) -> torch.Tensor:
+    """One decode step over one layer's dense cache, every slot at ``pos``.
+
+    x: (B, 1, D); cache: this layer's ``(B, S_max, Kv, hd)`` views.  The
+    new token's K/V are cast to the cache dtype and written at ``pos`` in
+    place (the reference's ``dynamic_update_slice``); attention then reads
+    the cache with ``kv_len = pos + 1``.  Returns (B, 1, D).
+    """
+    dense_kw = dense_kw or {}
+    B = x.shape[0]
+    pos_t = torch.full((B,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
+                           head_dim=head_dim, qk_norm=qk_norm,
+                           positions=pos_t[:, None], rope_theta=rope_theta,
+                           dense_kw=dense_kw)
+    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    o = nxattn.flash_decode(q[:, 0], cache.k, cache.v, kv_len=pos_t + 1)
+    out = o.to(q.dtype).reshape(B, 1, n_heads * head_dim)
+    return linear.dense(params["wo"], out, **dense_kw)
 
 
 def paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",

@@ -1,8 +1,23 @@
-"""Decoder-only LM, dense family: init, prefill and paged decode.
+"""Decoder-only LM, dense and hybrid families: init, prefill, dense-cache
+decode and paged decode.
 
-Port of the dense-family paths of ``repro/models/transformer.py``.  The
-reference's ``lax.scan`` over stacked layer parameters becomes a Python
-loop over a list of per-layer parameter dicts.
+Port of the dense- and hybrid-family paths of
+``repro/models/transformer.py``.  The reference's ``lax.scan`` over stacked
+layer parameters becomes a Python loop over a list of per-layer parameter
+dicts.
+
+* dense -- pre-norm GQA attention (qk-norm) + SwiGLU.
+* hybrid (zamba2) -- a Mamba2 backbone; after every ``attn_every`` layers a
+  *shared* (weight-tied) attention + SwiGLU block runs on
+  ``in_proj(concat(hidden, embeddings))`` and is added back to the residual
+  stream.  Each application of the shared block has its own KV cache.
+
+Caches (stacked over layers on axis 0, updated in place by decode):
+
+* dense: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
+* hybrid: ``{"ssm": SsmCache(conv (L, B, K-1, conv_dim), state (L, B, H,
+  P, N)), "attn": KVCache(k, v)}`` with KV leaves (G, B, S_max, Kv, hd),
+  G the number of shared-block applications.
 """
 from __future__ import annotations
 
@@ -14,21 +29,46 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
                                        rmsnorm)
+from repro_torch.models.ssm import Mamba2Dims, SsmCache
 from repro_torch.numerics import kv_pages as kvp
 
-__all__ = ["init_lm", "lm_prefill", "lm_decode_paged"]
+__all__ = ["init_lm", "init_lm_cache", "lm_prefill", "lm_decode",
+           "lm_decode_paged", "ssm_dims", "hybrid_groups"]
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.mlp_type != "swiglu":
-        raise ValueError(f"the port serves the dense swiglu family, not "
-                         f"{cfg.family!r}/{cfg.mlp_type!r}")
+    if cfg.family == "hybrid" or (cfg.family == "dense"
+                                  and cfg.mlp_type == "swiglu"):
+        return
+    raise ValueError(f"the port serves the dense swiglu and the hybrid "
+                     f"families, not {cfg.family!r}/{cfg.mlp_type!r}")
+
+
+def ssm_dims(cfg: ArchConfig) -> Mamba2Dims:
+    return Mamba2Dims(cfg.d_model, cfg.ssm_state, cfg.ssm_conv,
+                      cfg.ssm_expand, cfg.ssm_headdim)
+
+
+def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
+    """(shared-block applications, tail layers) of the hybrid family."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.n_layers - g * cfg.attn_every
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
 
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig,
                 device) -> dict[str, Any]:
+    if cfg.family == "hybrid":
+        return {"norm": init_rmsnorm(cfg.d_model, device),
+                "mamba": ssm_mod.init_mamba2(gen, ssm_dims(cfg), device)}
     return {
         "attn_norm": init_rmsnorm(cfg.d_model, device),
         "attn": attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
@@ -39,25 +79,66 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+def _init_shared_block(gen: torch.Generator, cfg: ArchConfig,
+                       device) -> dict[str, Any]:
+    return {
+        "in_proj": linear.init_dense(gen, 2 * cfg.d_model, cfg.d_model,
+                                     device),
+        "attn_norm": init_rmsnorm(cfg.d_model, device),
+        "attn": attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv, cfg.hd, device=device),
+        "mlp_norm": init_rmsnorm(cfg.d_model, device),
+        "mlp": mlp_mod.init_swiglu(gen, cfg.d_model, cfg.d_ff, device),
+    }
+
+
 def init_lm(gen: torch.Generator, cfg: ArchConfig, *, device="cuda",
             prepare_layer: Callable[[dict], dict] | None = None
             ) -> dict[str, Any]:
     """Random parameters, made layer by layer on ``device``.
 
-    ``prepare_layer`` (the residue-resident pass) runs on each layer right
-    after it is made, so only one layer's float weights exist at a time.
+    ``prepare_layer`` (the residue-resident pass) runs on each layer (and
+    the hybrid family's shared block) right after it is made, so only one
+    layer's float weights exist at a time.
     """
     _check_family(cfg)
+    prep = prepare_layer or (lambda p: p)
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, device),
-        "layers": [],
+        "layers": [prep(_init_layer(gen, cfg, device))
+                   for _ in range(cfg.n_layers)],
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
-    for _ in range(cfg.n_layers):
-        layer = _init_layer(gen, cfg, device)
-        params["layers"].append(layer if prepare_layer is None
-                                else prepare_layer(layer))
+    if cfg.family == "hybrid":
+        params["shared"] = prep(_init_shared_block(gen, cfg, device))
     return params
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    """A zeroed cache of the family's layout (module docstring); the SSM
+    state and conv history are f32 whatever ``dtype`` the KV cache has."""
+    _check_family(cfg)
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        shape = (L, batch, s_max, cfg.n_kv, cfg.hd)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+    dims = ssm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    ssm_cache = SsmCache(
+        torch.zeros((L, batch, dims.d_conv - 1, dims.conv_dim), **f32),
+        torch.zeros((L, batch, dims.n_heads, dims.headdim, dims.d_state),
+                    **f32))
+    shape = (hybrid_groups(cfg)[0], batch, s_max, cfg.n_kv, cfg.hd)
+    return {"ssm": ssm_cache,
+            "attn": KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                            torch.zeros(shape, dtype=dtype, device=device))}
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
 
 
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
@@ -80,11 +161,58 @@ def _mlp_block(lp, x, dense_kw):
     return mlp_mod.swiglu(lp["mlp"], rmsnorm(lp["mlp_norm"], x), dense_kw)
 
 
+def _attn_kw(cfg: ArchConfig, dense_kw, *, shared: bool = False):
+    """Attention keywords; the hybrid shared block runs without qk-norm."""
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+                qk_norm=cfg.qk_norm and not shared,
+                rope_theta=cfg.rope_theta, dense_kw=dense_kw)
+
+
+def _hybrid_schedule(cfg: ArchConfig):
+    """``(layer indices, shared-block application or None)`` in order: each
+    group of ``attn_every`` Mamba2 layers is followed by the shared block;
+    the tail layers by nothing."""
+    G, _ = hybrid_groups(cfg)
+    ae = cfg.attn_every
+    for g in range(G):
+        yield range(g * ae, (g + 1) * ae), g
+    yield range(G * ae, cfg.n_layers), None
+
+
+def _shared_in(params, x, x0, dense_kw):
+    """The shared block's input: ``in_proj(concat(hidden, embeddings))``."""
+    return linear.dense(params["shared"]["in_proj"],
+                        torch.cat([x, x0], dim=-1), **dense_kw)
+
+
+def _shared_out(params, h, a, dense_kw):
+    sp = params["shared"]
+    h = h + a
+    return h + mlp_mod.swiglu(sp["mlp"], rmsnorm(sp["mlp_norm"], h),
+                              dense_kw)
+
+
+def _read_logits(params, cfg, x, logits_at, dense_kw):
+    B = x.shape[0]
+    if logits_at is not None:
+        rows = torch.as_tensor(logits_at, device=x.device).long()
+        xg = x[torch.arange(B, device=x.device), rows][:, None]
+    else:
+        xg = x[:, -1:]
+    return _logits(params, cfg, xg, dense_kw)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
 def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                s_max: int | None = None, dense_kw=None,
                cache_dtype=torch.bfloat16, logits_at=None):
-    """Process the prompt; return ``(logits (B, vocab), (k, v))`` with the
-    KV cache stacked over layers, ``(L, B, s_max, Kv, hd)`` each.
+    """Process the prompt; return ``(logits (B, vocab), cache)`` with the
+    cache of the family's layout (module docstring), KV padded to
+    ``s_max`` rows.
 
     ``logits_at``: optional (B,) positions to read logits from instead of
     the last row.
@@ -95,24 +223,104 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed(params["embed"], tokens, cd)
     B, S = tokens.shape
     s_max = S if s_max is None else s_max
-    shape = (cfg.n_layers, B, s_max, cfg.n_kv, cfg.hd)
-    k_cache = torch.empty(shape, dtype=cache_dtype, device=x.device)
-    v_cache = torch.empty(shape, dtype=cache_dtype, device=x.device)
-    akw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-               qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-               dense_kw=dense_kw, cache_dtype=cache_dtype)
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
+                               logits_at)
+    cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
+    akw = _attn_kw(cfg, dense_kw)
     for i, lp in enumerate(params["layers"]):
         h, (kc, vc) = attn_mod.prefill_attention(
-            lp["attn"], rmsnorm(lp["attn_norm"], x), s_max, **akw)
-        k_cache[i], v_cache[i] = kc, vc
+            lp["attn"], rmsnorm(lp["attn_norm"], x), s_max,
+            cache_dtype=cache_dtype, **akw)
+        cache.k[i], cache.v[i] = kc, vc
         x = x + h
         x = x + _mlp_block(lp, x, dense_kw)
-    if logits_at is not None:
-        rows = torch.as_tensor(logits_at, device=x.device).long()
-        xg = x[torch.arange(B, device=x.device), rows][:, None]
+    return _read_logits(params, cfg, x, logits_at, dense_kw), cache
+
+
+def _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
+                    logits_at):
+    B = x.shape[0]
+    cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
+    ssm_c, kv = cache["ssm"], cache["attn"]
+    dims = ssm_dims(cfg)
+    skw = _attn_kw(cfg, dense_kw, shared=True)
+    sp = params["shared"]
+    x0 = x
+    for layers, g in _hybrid_schedule(cfg):
+        for i in layers:
+            lp = params["layers"][i]
+            h, c2 = ssm_mod.mamba2_forward(
+                lp["mamba"], rmsnorm(lp["norm"], x), dims,
+                chunk=cfg.ssm_chunk, dense_kw=dense_kw, return_cache=True)
+            ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
+            x = x + h
+        if g is None:
+            continue
+        h = _shared_in(params, x, x0, dense_kw)
+        a, (kc, vc) = attn_mod.prefill_attention(
+            sp["attn"], rmsnorm(sp["attn_norm"], h), s_max,
+            cache_dtype=cache_dtype, **skw)
+        kv.k[g], kv.v[g] = kc, vc
+        x = x + _shared_out(params, h, a, dense_kw)
+    return _read_logits(params, cfg, x, logits_at, dense_kw), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode over the dense cache (one token, every slot at one position)
+# ---------------------------------------------------------------------------
+
+
+def lm_decode(params, cfg: ArchConfig, token: torch.Tensor, cache, pos: int,
+              *, dense_kw=None):
+    """One decode step.  token: (B, 1) int; pos: the position every slot
+    decodes at.  The cache (``lm_prefill``'s layout) is updated in place;
+    returns ``(logits (B, vocab), cache)``."""
+    _check_family(cfg)
+    dense_kw = dense_kw or {}
+    cd = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], token, cd)
+    pos = int(pos)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, x, cache, pos, dense_kw)
     else:
-        xg = x[:, -1:]
-    return _logits(params, cfg, xg, dense_kw)[:, 0], (k_cache, v_cache)
+        akw = _attn_kw(cfg, dense_kw)
+        for i, lp in enumerate(params["layers"]):
+            x = x + attn_mod.decode_attention(
+                lp["attn"], rmsnorm(lp["attn_norm"], x),
+                KVCache(cache.k[i], cache.v[i]), pos, **akw)
+            x = x + _mlp_block(lp, x, dense_kw)
+    return _logits(params, cfg, x, dense_kw)[:, 0], cache
+
+
+def _hybrid_decode(params, cfg, x, cache, pos, dense_kw):
+    ssm_c, kv = cache["ssm"], cache["attn"]
+    dims = ssm_dims(cfg)
+    skw = _attn_kw(cfg, dense_kw, shared=True)
+    sp = params["shared"]
+    x0 = x
+    for layers, g in _hybrid_schedule(cfg):
+        for i in layers:
+            lp = params["layers"][i]
+            h, c2 = ssm_mod.mamba2_decode(
+                lp["mamba"], rmsnorm(lp["norm"], x),
+                SsmCache(ssm_c.conv[i], ssm_c.state[i]), dims,
+                dense_kw=dense_kw)
+            ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
+            x = x + h
+        if g is None:
+            continue
+        h = _shared_in(params, x, x0, dense_kw)
+        a = attn_mod.decode_attention(
+            sp["attn"], rmsnorm(sp["attn_norm"], h),
+            KVCache(kv.k[g], kv.v[g]), pos, **skw)
+        x = x + _shared_out(params, h, a, dense_kw)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decode over the paged pool (dense family)
+# ---------------------------------------------------------------------------
 
 
 def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
@@ -126,13 +334,14 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     also the per-(slot, layer) in-kernel syndrome map ``(B, L)`` int32,
     which stays on the device.
     """
+    if cfg.family != "dense":
+        raise ValueError(f"paged decode supports the dense family, not "
+                         f"{cfg.family!r}")
     _check_family(cfg)
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], token, cd)
-    akw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-               qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-               dense_kw=dense_kw, cache_dtype=cache_dtype,
+    akw = dict(_attn_kw(cfg, dense_kw), cache_dtype=cache_dtype,
                with_syndrome=with_syndrome)
     syns = []
     for i, lp in enumerate(params["layers"]):

@@ -2,10 +2,16 @@
 
 * :func:`flash_attention` -- GQA-native causal attention over the model
   layouts ``q (B, Sq, H, hd)`` / ``k, v (B, T, Kv, hd)`` (prefill).
+* :func:`flash_decode` -- one-token split-KV attention over one layer's
+  dense contiguous cache ``(B, T, Kv, hd)``: one ``(o, m, l)`` partial per
+  chunk of ``bk`` rows, ``bk = pick_block(T, 512)`` unless
+  :func:`set_decode_block` overrides it;
 * :func:`paged_decode` -- one-token split-KV attention over one layer's
   paged pool: the kernel emits one ``(o, m, l)`` partial per block-table
-  entry and :func:`merge_decode_partials` combines them; on rns8r pages it
-  can also count witness mismatches in the same pass (``syndrome=True``).
+  entry; on rns8r pages it can also count witness mismatches in the same
+  pass (``syndrome=True``).
+
+Both decodes combine their partials with :func:`merge_decode_partials`.
 
 The implementation follows the device of ``q`` (numerics/registry).
 """
@@ -16,18 +22,46 @@ import torch
 from repro_torch.kernels.flash_attn import (
     flash_attention_cuda,
     flash_attention_ref,
+    flash_decode_cuda,
+    flash_decode_ref,
     paged_decode_cuda,
     paged_decode_ref,
 )
 from repro_torch.numerics import kv_pages as _kv
 from repro_torch.numerics.registry import get_impl, register_impl
 
-__all__ = ["flash_attention", "paged_decode", "merge_decode_partials"]
+__all__ = ["flash_attention", "flash_decode", "paged_decode",
+           "merge_decode_partials", "pick_block", "set_decode_block"]
+
+DEFAULT_DECODE_BLOCK = 512     # the reference's DEFAULT_BLOCKS[1]
 
 register_impl("flash_attention", "cuda", flash_attention_cuda)
 register_impl("flash_attention", "ref", flash_attention_ref)
+register_impl("flash_decode", "cuda", flash_decode_cuda)
+register_impl("flash_decode", "ref", flash_decode_ref)
 register_impl("paged_decode", "cuda", paged_decode_cuda)
 register_impl("paged_decode", "ref", paged_decode_ref)
+
+
+def pick_block(n: int, pref: int) -> int:
+    """Preferred tile size, shrunk (8-aligned) when the dim is smaller."""
+    return min(pref, -(-max(n, 1) // 8) * 8)
+
+
+_DECODE_BLOCK_OVERRIDE: int | None = None
+
+
+def set_decode_block(bk: int | None) -> int | None:
+    """Override the dense split-KV decode chunk size (None restores auto).
+
+    With the chunk equal to the page size the dense decode emits the paged
+    decode's partials over the same rows and runs the same merge, so the
+    two are bit-identical.  Returns the previous override.
+    """
+    global _DECODE_BLOCK_OVERRIDE
+    prev = _DECODE_BLOCK_OVERRIDE
+    _DECODE_BLOCK_OVERRIDE = bk
+    return prev
 
 
 def merge_decode_partials(o_p: torch.Tensor, m_p: torch.Tensor,
@@ -55,6 +89,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     impl = get_impl("flash_attention", q.device)
     return impl(q, k, v, kv_len, causal=causal)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 kv_len: torch.Tensor, bk: int | None = None) -> torch.Tensor:
+    """One-token split-KV attention over a (padded) dense KV cache.
+
+    q: (B, H, hd); k, v: (B, T, Kv, hd) contiguous; kv_len: (B,) valid
+    prefix lengths.  Returns (B, H, hd) f32 (callers cast at the boundary).
+    """
+    B = q.shape[0]
+    T = k.shape[1]
+    bk = bk or _DECODE_BLOCK_OVERRIDE or pick_block(T, DEFAULT_DECODE_BLOCK)
+    kv_len = torch.as_tensor(kv_len, device=q.device).to(
+        torch.int32).expand(B).contiguous()
+    impl = get_impl("flash_decode", q.device)
+    return merge_decode_partials(*impl(q.contiguous(), k, v, kv_len, bk))
 
 
 def paged_decode(q: torch.Tensor, kv_layer: "_kv.PagedKV",

@@ -1,15 +1,19 @@
-"""Batched serving engine over the paged KV pool.
+"""Batched serving engine over the paged KV pool or the dense cache.
 
-Port of the paged path of ``repro/serving/engine.py``: ``generate``
-prefills right-padded prompts in one pass, scatters the prefill KV into the
-page pool (``_scatter``), then runs one decode *segment* and returns a
-:class:`GenerateResult`.  The reference runs a segment as one
-``lax.while_loop`` dispatch; here it is a plain Python loop of decode steps
-(a CUDA graph is later work) with the reference's per-slot ``done`` /
-``remaining`` semantics: finished slots keep decoding, and the loop halts
-when every slot is done or the segment ends.  The halt test reads one
-``(B,)`` bool per step on the host, and only when an ``eos`` is set.
-Under ``system="rns"`` the weights are made residue-resident at
+Port of the paged and the dense paths of ``repro/serving/engine.py``.
+``paged=None`` (the default) serves from the page pool where the model has
+a paged decode (the dense family) and from the dense cache otherwise (the
+hybrid family); ``paged=False`` pins the dense cache.
+
+Paged: ``generate`` prefills right-padded prompts in one pass, scatters
+the prefill KV into the page pool (``_scatter``), then runs one decode
+*segment* and returns a :class:`GenerateResult`.  The reference runs a
+segment as one ``lax.while_loop`` dispatch; here it is a plain Python loop
+of decode steps (a CUDA graph is later work) with the reference's per-slot
+``done`` / ``remaining`` semantics: finished slots keep decoding, and the
+loop halts when every slot is done or the segment ends.  The halt test
+reads one ``(B,)`` bool per step on the host, and only when an ``eos`` is
+set.  Under ``system="rns"`` the weights are made residue-resident at
 construction (``model.prepare_params``).
 
 The fault layer (DESIGN.md §12 and §15) rides on the segment:
@@ -25,6 +29,15 @@ The fault layer (DESIGN.md §12 and §15) rides on the segment:
   weight planes (``numerics.api.scrub``) and redundant KV pools
   (``kv_pages.verify_pages``) are checked and repaired; the counts are read
   after the segment.
+
+Dense: ``generate`` keeps the cache the prefill made (KV padded to
+``s_max``, and the hybrid family's SSM state) and decodes every slot at
+the uniform position ``prompt_len + i``, one ``model.decode`` per token, in
+the reference's host loop (its fused ``while_loop`` is that loop's twin):
+each token is emitted, then the ``eos`` / ``active`` mask is updated, and
+the loop stops once every slot is done or ``max_new`` tokens are out.  No
+pool is built, so ``kv_format`` is ignored; a ``policy`` needs pages and
+raises; ``scrub`` still checks the weight planes before the loop.
 
 Greedy decoding takes the ``argmax``; temperature sampling draws from a
 ``torch.Generator``.
@@ -65,10 +78,15 @@ class ServingEngine:
                  page_size: int = 64, kv_format: str = "bf16",
                  num_pages: int | None = None, cache_dtype=torch.bfloat16,
                  device: torch.device | str = "cuda", scrub: str = "off",
-                 policy: str = "off", quarantine_after: int = 3):
-        """``kv_format``: ``"bf16"``, ``"rns8"``, ``"rns4"`` or ``"rns8r"``
-        page storage.  ``num_pages`` defaults to full capacity for ``batch``
-        slots plus the dump page.  ``device`` must be the model's device.
+                 policy: str = "off", quarantine_after: int = 3,
+                 paged: bool | None = None):
+        """``paged``: ``None`` serves from the page pool when the model has
+        a paged decode, else from the dense cache; ``False`` pins the
+        dense cache (a ``True`` the model cannot serve falls back to it,
+        as in the reference).  ``kv_format``: ``"bf16"``, ``"rns8"``,
+        ``"rns4"`` or ``"rns8r"`` page storage (paged only).
+        ``num_pages`` defaults to full capacity for ``batch`` slots plus
+        the dump page.  ``device`` must be the model's device.
 
         ``scrub``: ``"off"``, ``"decode"`` (check and repair every
         redundant weight plane and KV pool before each segment) or
@@ -90,14 +108,25 @@ class ServingEngine:
         self.page_size = page_size
         self.kv_format = kv_format
         self.cache_dtype = cache_dtype
-        self.n_pmax = -(-s_max // page_size)
-        if num_pages is None:
-            num_pages = 1 + batch * self.n_pmax
-        cfg = model.cfg
-        self.pool = KVPagePool(cfg.n_layers, num_pages, page_size, cfg.n_kv,
-                               cfg.hd, fmt=kv_format, dtype=cache_dtype,
-                               device=dev)
-        self.stats = EngineStats(pool=self.pool.stats)
+        supported = model.decode_paged is not None
+        if paged is None:
+            paged = supported
+        elif paged and not supported:
+            logger.info("paged serving unsupported for family %s: serving "
+                        "from the dense cache", model.cfg.family)
+            paged = False
+        self.paged = paged
+        self.pool = None
+        self.stats = EngineStats()
+        if paged:
+            self.n_pmax = -(-s_max // page_size)
+            if num_pages is None:
+                num_pages = 1 + batch * self.n_pmax
+            cfg = model.cfg
+            self.pool = KVPagePool(cfg.n_layers, num_pages, page_size,
+                                   cfg.n_kv, cfg.hd, fmt=kv_format,
+                                   dtype=cache_dtype, device=dev)
+            self.stats.pool = self.pool.stats
 
         self._scrub_groups = 0      # rotate:k group count (0: everything)
         self._scrub_cursor = 0      # the group the next segment checks
@@ -115,10 +144,10 @@ class ServingEngine:
         if policy not in ("off", "detect", "correct", "strict"):
             raise ValueError(f"policy must be 'off', 'detect', 'correct' or "
                              f"'strict', got {policy!r}")
-        if policy != "off" and not self.pool.fmt.redundant:
-            raise ValueError("policy= needs a redundant KV page format "
-                             "(kv_format='rns8r'): the in-kernel syndrome "
-                             "reads the witness lanes")
+        if policy != "off" and not (self.paged and self.pool.fmt.redundant):
+            raise ValueError("policy= needs paged serving with a redundant "
+                             "KV page format (kv_format='rns8r'): the "
+                             "in-kernel syndrome reads the witness lanes")
         if quarantine_after < 1:
             raise ValueError(f"quarantine_after must be >= 1, got "
                              f"{quarantine_after}")
@@ -177,7 +206,7 @@ class ServingEngine:
         self.params = map_resident(self.params, fix)
         if scrubbed["w"]:
             self.stats.faults.weight_scrubs += 1
-        if self.pool.fmt.redundant:
+        if self.pool is not None and self.pool.fmt.redundant:
             scrubbed_kv = False
             for t in self.pool.kv:
                 if due():
@@ -374,6 +403,44 @@ class ServingEngine:
             f.syndromes += fresh
         return buf, n, done, recompute
 
+    # -- the dense-cache loop ------------------------------------------------
+
+    def _generate_dense(self, tok, cache, plen, max_new, eos_vec, done0,
+                        temperature, generator, prefill_logits, t0, t1
+                        ) -> GenerateResult:
+        """Decode over the prefill's dense cache (module docstring): token
+        ``i`` is emitted, the done mask updated, and unless every slot is
+        done or this was the last token one step at ``plen + i`` samples
+        token ``i + 1``."""
+        f_det, f_cor = self._drain_scrub(self._scrub_launch())
+        watch = bool((eos_vec >= 0).any())
+        eos = torch.as_tensor(np.clip(eos_vec, -1, 2**31 - 1),
+                              device=self.device)
+        done = np.asarray(done0, bool)
+        outs, steps = [], 0
+        for i in range(max_new):
+            outs.append(tok)
+            if watch:
+                done = done | self._eos_hit(tok, eos)
+            if done.all():
+                break       # every live slot has hit its EOS
+            if i + 1 == max_new:
+                break       # last token emitted; no step needed for it
+            logits, cache = self.model.decode(self.params, tok, cache,
+                                              plen + i)
+            steps += 1
+            tok = self._sample(logits, temperature, generator)
+        tokens_np = torch.cat(outs, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+        self.stats.decode_steps += steps
+        self.stats.decode_dispatches += steps
+        return GenerateResult(
+            tokens=tokens_np, prefill_logits=prefill_logits, steps=steps,
+            stats=RequestStats(decode_steps=steps, decode_dispatches=steps,
+                               prefill_s=t1 - t0, decode_s=t2 - t1,
+                               faults_detected=f_det,
+                               faults_corrected=f_cor))
+
     # -- generate ------------------------------------------------------------
 
     @torch.no_grad()
@@ -409,12 +476,17 @@ class ServingEngine:
             eos_vec = np.full(B, -1, np.int64)
             done0 = np.zeros(B, bool)
         t0 = time.perf_counter()
-        logits, (k_dense, v_dense) = self.model.prefill(
+        logits, cache = self.model.prefill(
             self.params, tokens, s_max=self.s_max,
             cache_dtype=self.cache_dtype)
         prefill_logits = logits.to(torch.float32).cpu().numpy()
         t1 = time.perf_counter()
         tok = self._sample(logits, temperature, generator)
+        if not self.paged:
+            return self._generate_dense(tok, cache, plen, max_new, eos_vec,
+                                        done0, temperature, generator,
+                                        prefill_logits, t0, t1)
+        k_dense, v_dense = cache
 
         pool = self.pool
         pool.reset()    # generate() owns the whole pool for this call

@@ -265,3 +265,91 @@ def test_sdrns_serving_card_matches_cpu(gen):
                                   res["cpu", "sdrns"].tokens)
     np.testing.assert_array_equal(res["cpu", "sdrns"].tokens,
                                   res["cpu", "rns"].tokens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kv,hd,T,bk", [
+    (3, 8, 2, 16, 72, 32), (2, 4, 4, 112, 50, 16), (2, 32, 8, 128, 321, 64),
+    (1, 4, 4, 112, 600, 512)])
+def test_flash_decode_kernel(gen, dtype, B, H, Kv, hd, T, bk):
+    """B5 against its plain version, partial by partial: GQA g = 4 and 1,
+    head_dim 16, 112 and 128, a ragged last chunk, kv_len inside the first
+    chunk (later chunks all masked) and at T.  f32 caches at the
+    reference's 2e-5; bf16 caches round p to bf16 on both sides (an exp one
+    ulp apart can round to the neighbouring bf16 value)."""
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dtype)
+    kv_len = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    kv_len[-1] = T
+    kv_len[0] = 5           # inside the first chunk (B = 1: the only row)
+    out = fa.flash_decode_cuda(q, k, v, kv_len, bk)
+    ref = fa.flash_decode_ref(q, k, v, kv_len, bk)
+    tol = 2e-5 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(out[1], ref[1], rtol=2e-5, atol=2e-5)
+    for a, b in ((out[0], ref[0]), (out[2], ref[2])):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    torch.testing.assert_close(merge_decode_partials(*out),
+                               merge_decode_partials(*ref), rtol=tol,
+                               atol=tol)
+    n_dead = -(-5 // bk)
+    assert (out[1][0, :, n_dead:] == -1e30).all()
+    assert (out[2][0, :, n_dead:] == 0).all()
+
+
+def test_flash_decode_equals_paged_decode_at_page_size(gen):
+    """The dense kernel with bk = page size gives the paged kernel's
+    partials over the same rows bit for bit (one chunk body)."""
+    B, H, Kv, hd, ps, n_p = 3, 32, 8, 128, 64, 5
+    T = ps * n_p - 7
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    kv_len = torch.tensor([1, 130, T], dtype=torch.int32, device="cuda")
+    pad = (0, 0, 0, 0, 0, ps * n_p - T)
+    kp = torch.nn.functional.pad(k, pad).reshape(B * n_p, ps, Kv, hd)
+    vp = torch.nn.functional.pad(v, pad).reshape(B * n_p, ps, Kv, hd)
+    tab = torch.arange(B * n_p, dtype=torch.int32,
+                       device="cuda").reshape(B, n_p)
+    dense = fa.flash_decode_cuda(q, k, v, kv_len, ps)
+    paged = fa.paged_decode_cuda(q, kp, vp, None, None, tab, kv_len, ps)
+    for a, b in zip(dense, paged):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_serving_card_matches_cpu(gen):
+    """Reduced zamba2 (4 Mamba2 layers, 2 shared-block applications) under
+    rns over the dense cache: the card's prefill logits agree with the
+    CPU's and its greedy tokens are equal; the card ran B1, B2 and B5."""
+    from repro_torch import kernels
+
+    cfg = get_config("zamba2-7b").reduced()
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 8))
+    float_params = build_model(cfg, device="cpu").init(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                            s_max=15, device=dev)
+        kernels.reset_launch_counts()
+        res[dev] = eng.generate({"tokens": prompts}, max_new=6)
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+    # 5 decode steps; per step 4 Mamba2 layers x 2 projections, 2 shared
+    # blocks x (in_proj, q, k, v, o, gate, up, down) and the logits
+    assert counts["flash_decode"] == 2 * 5
+    assert counts["flash_attention"] == 2
+    assert counts["rns_matmul"] == 6 * (4 * 2 + 2 * 8 + 1)
+    assert counts["paged_decode"] == 0
+    np.testing.assert_allclose(res["cuda"].prefill_logits,
+                               res["cpu"].prefill_logits, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+
+
+def _tree_to(node, dev):
+    if isinstance(node, dict):
+        return {k: _tree_to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, dev) for v in node]
+    return node.to(dev)

@@ -21,6 +21,7 @@ import repro_torch
 from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                            flash_decode_cuda,
                                             paged_decode_cuda)
 from repro_torch.kernels.rns_matmul import rns_matmul_cuda
 from repro_torch.models.api import build_model
@@ -41,6 +42,10 @@ def _all_modules() -> list[str]:
 def test_import_leaves_jax_and_repro_unloaded():
     mods = _all_modules()
     assert "repro_torch.launch.serve" in mods
+    # the dense-cache decode and the hybrid family are among them
+    assert {"repro_torch.models.ssm", "repro_torch.configs.zamba2_7b",
+            "repro_torch.models.transformer",
+            "repro_torch.numerics.attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -83,6 +88,8 @@ def test_entry_points_raise_without_a_card(no_card):
         build_model(cfg, system="rns")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg, system="sdrns")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("zamba2-7b").reduced(), system="rns")
     model = build_model(cfg, system="rns", device="cpu")
     params = model.init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -90,6 +97,8 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-8b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-7b", "--reduced"])
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -104,6 +113,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         paged_decode_cuda(torch.zeros((1, 2, 16)), q, q, None, None,
                           torch.zeros((1, 1), dtype=torch.int32),
                           torch.ones(1, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_cuda(torch.zeros((1, 2, 16)), q, q,
+                          torch.ones(1, dtype=torch.int32), 8)
 
 
 def test_launch_counters_stay_zero_on_cpu():
@@ -136,8 +148,20 @@ def test_launch_counters_stay_zero_on_cpu():
     assert res.tokens.shape == (2, 2)
     sd = nx.encode(torch.randint(-7, 8, (8, 4)), nx.EncodeSpec(layout="sd"))
     nx.add(sd, sd)
+    kd = torch.randn(2, 8, 2, 16)
+    nxattn.flash_decode(torch.randn(2, 4, 16), kd, kd,
+                        kv_len=torch.tensor([3, 8]))
+    for arch in ("qwen3-8b", "zamba2-7b"):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, system="rns", device="cpu")
+        eng = ServingEngine(model, model.init(0), batch=2, s_max=12,
+                            paged=False, device="cpu")
+        res = eng.generate({"tokens": torch.randint(0, cfg.vocab, (2, 4))},
+                           max_new=3)
+        assert res.tokens.shape == (2, 3)
     assert kernels.launch_counts() == {"rns_matmul": 0, "flash_attention": 0,
                                        "paged_decode": 0,
                                        "paged_decode_syndrome": 0,
+                                       "flash_decode": 0,
                                        "sdrns_matmul": 0, "sdrns_matvec": 0,
                                        "sd_add": 0}
