@@ -102,6 +102,33 @@ HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
                   ((14336, 3584), 13), ((3584, 32000), 1)]
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
+# kernel ms of the bodies B2-B5 replaced, at the same shapes (chip_smoke.py
+# on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill and
+# the row-parallel decode chunk; PERF.md's kernel table).  Printed beside
+# the kernel's time in the [kernels] lines only; the JSON line carries
+# this run's numbers alone.
+BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
+           "paged_decode[bf16]": 0.029, "paged_decode[rns8]": 0.054,
+           "paged_decode[rns4]": 0.053, "paged_decode_syndrome[rns8r]": 0.170,
+           "flash_decode[serve_dense]": 0.045,
+           "flash_decode[serve_hybrid]": 0.207, "flash_decode[qwen3]": 0.154,
+           "flash_decode[zamba2]": 0.208, "flash_decode[split]": 0.248,
+           "flash_decode[qwen3_f32]": 0.130}
+
+
+# the earlier times taken on other kv_len draws than this run's: the same
+# shape, but other valid rows (PERF.md compares them by their bounds)
+BEFORE_OTHER_DRAW = {"paged_decode[bf16]", "paged_decode[rns8]",
+                   "paged_decode[rns4]", "paged_decode_syndrome[rns8r]",
+                   "flash_decode[qwen3]", "flash_decode[zamba2]",
+                   "flash_decode[split]", "flash_decode[qwen3_f32]"}
+
+
+def earlier(key: str) -> str:
+    if key not in BEFORE_MS:
+        return ""
+    draw = ", other kv_len draw" if key in BEFORE_OTHER_DRAW else ""
+    return f" (before the redesign: {BEFORE_MS[key]:.3f}{draw})"
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -134,6 +161,37 @@ class Timer:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+
+def ptxas_lines(log_path, source: str) -> list[str]:
+    """Registers and spills of each kernel compiled from ``source``, from
+    the build's ``-Xptxas -v`` log."""
+    import re
+
+    if not os.path.exists(log_path):
+        return [f"{source}: no nvcc log at {log_path}"]
+    text = open(log_path).read()
+    sec = text.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+    found, name = [], None
+    for line in sec.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spills = m.group(1), "spills not reported"
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)) and name:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            found.append((name, int(m.group(1)), spills))
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            n for n, _, _ in found), capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [n for n, _, _ in found]
+    short = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", n)
+             for n in names]
+    return [f"{source}: {n}: {r} registers, {sp}"
+            for n, (_, r, sp) in zip(short, found)]
 
 
 def nvidia_smi() -> str:
@@ -205,48 +263,77 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
 
 
 def check_flash_attention(torch, timer, gen):
-    """B2 at the prefill shapes of qwen3-8b (hd 128, g 4) and zamba2-7b's
-    shared block (hd 112, g 1: the first head_dim that does not fill the
-    kernel's four dims per lane)."""
+    """B2's bf16 tensor-core route at the prefill shapes of qwen3-8b (hd
+    128, g 4) and zamba2-7b's shared block (hd 112, g 1), at a ragged qwen3
+    shape (S 200, not a multiple of the 64-row tiles, kv_len < S) and at a
+    long qwen3 prompt (S 2048, where the operations bound it)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                                 flash_attention_ref)
 
     out_rows = {}
+    # the shapes after the serves' two draw from their own generator, so
+    # that the later checks draw what they drew before those were added
+    extra = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for label, (B, S, H, Kv, hd) in (("qwen3", (8, 256, 32, 8, 128)),
-                                     ("zamba2", (8, 256, 32, 32, 112))):
+                                     ("zamba2", (8, 256, 32, 32, 112)),
+                                     ("ragged", (8, 200, 32, 8, 128)),
+                                     ("long", (1, 2048, 32, 8, 128))):
+        if label == "ragged":
+            gen = extra
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
         k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
         v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
-        out = flash_attention_cuda(q, k, v, causal=True)
-        ref = flash_attention_ref(q.float(), k.float(), v.float(),
-                                  causal=True)
-        err = float((out.float() - ref).abs().max())
-        # bf16 output rounding plus p rounded to bf16 before PV: the
-        # reference's own bf16 tolerance (tests/test_flash_attn.py, _tol)
+        kv_len = None
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if label == "ragged":
+            kv_len = torch.randint(1, S, (B,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            kv_len[0] = 7
+            pos = torch.arange(S, device="cuda")
+            mask = ((pos[None, None, :] <= pos[None, :, None])
+                    & (pos[None, None, :] < kv_len[:, None, None]))[:, None]
+        out = flash_attention_cuda(q, k, v, kv_len, causal=True)
+        ref = flash_attention_ref(q, k, v, kv_len, causal=True)
+        err = float((out.float() - ref.float()).abs().max())
+        # bf16 output rounding on both sides and f32 sums in another order:
+        # the reference's own bf16 tolerance (tests/test_flash_attn.py, _tol)
         tol = 2e-2
         if not err <= tol:
             raise AssertionError(f"flash_attention[{label}]: max error {err}"
                                  f" > {tol}")
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = timer(lambda: flash_attention_cuda(q, k, v, causal=True), 20)
-        plain = timer(lambda: flash_attention_ref(q, k, v, causal=True), 5)
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B
-        pairs = B * H * S * (S + 1) // 2
+        ms = timer(lambda: flash_attention_cuda(q, k, v, kv_len,
+                                                causal=True), 20)
+        plain = timer(lambda: flash_attention_ref(q, k, v, kv_len,
+                                                  causal=True), 5)
+        if mask is None:
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        else:
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        # the valid KV rows are read once, every q row read and written once
+        lens = [S] * B if kv_len is None else kv_len.tolist()
+        nbytes = 2 * (2 * q.numel() + 2 * sum(lens) * Kv * hd) + 4 * B
+        pairs = H * sum(sum(min(i + 1, n) for i in range(S)) for n in lens)
         bms, by = bound_ms(nbytes, 4 * hd * pairs, "bf16")
+        ragged = "" if kv_len is None else f" kv_len 7..{max(lens)}"
+        tflops = 4 * hd * pairs / ms / 1e9
         print(f"[kernels] flash_attention[{label}] B={B} S={S} H={H} Kv={Kv} "
-              f"hd={hd} bf16 causal: max_abs_err={err:.3e} (tol {tol}); "
-              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa)="
-              f"{lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+              f"hd={hd} bf16 causal{ragged}: max_abs_err={err:.3e} (tol "
+              f"{tol}); kernel_ms={ms:.4f}{earlier(f'flash_attention[{label}]')}"
+              f" ({tflops:.0f} TFLOP/s) plain_ms={plain:.4f} "
+              f"library_ms(sdpa)={lib:.4f} bound_ms={bms:.4f} ({by})",
+              flush=True)
         out_rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                bound_ms=bms, bound_by=by, max_abs_err=err,
                                at=f"prefill B={B} S={S} H={H} Kv={Kv} "
-                                  f"hd={hd} bf16")
-        del q, k, v, qt, kt, vt, out, ref
-    return dict(out_rows["qwen3"], zamba2=out_rows["zamba2"])
+                                  f"hd={hd} bf16{ragged}")
+        del q, k, v, qt, kt, vt, out, ref, mask
+    return dict(out_rows["qwen3"], **{k: v for k, v in out_rows.items()
+                                      if k != "qwen3"})
 
 
 def check_paged_decode(torch, timer, gen):
@@ -313,9 +400,10 @@ def check_paged_decode(torch, timer, gen):
         bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, kind)
         print(f"[kernels] paged_decode[{name}] B={B} H={H} Kv={Kv} hd={hd} "
               f"ps={ps} kv_len 1..{n_pmax * ps} (sum {n_rows}): "
-              f"max_abs_err={err:.3e} (tol {tol}); kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms(sdpa gathered)={lib:.4f} "
-              f"bound_ms={bms:.5f} ({by})", flush=True)
+              f"max_abs_err={err:.3e} (tol {tol}); kernel_ms={ms:.4f}"
+              f"{earlier(f'paged_decode[{name}]')} plain_ms={plain:.4f} "
+              f"library_ms(sdpa gathered)={lib:.4f} bound_ms={bms:.5f} "
+              f"({by})", flush=True)
         results[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=bms, bound_by=by, max_abs_err=err,
                              at=f"decode B={B} H={H} Kv={Kv} hd={hd} "
@@ -408,9 +496,10 @@ def check_paged_decode_syndrome(torch, timer, gen):
     print(f"[kernels] paged_decode_syndrome[rns8r] B={B} H={H} Kv={Kv} "
           f"hd={hd} ps={ps} kv_len 1..{n_pmax * ps} (sum {n_rows}), lane 0 "
           f"strided: max_abs_err={err:.3e} (tol 1e-4); syn bit-exact, clean "
-          f"{clean}, planted {faulty}; kernel_ms={ms:.4f} plain_ms="
-          f"{plain:.4f} library_ms(sdpa gathered, counts no syndromes)="
-          f"{lib:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+          f"{clean}, planted {faulty}; kernel_ms={ms:.4f}"
+          f"{earlier('paged_decode_syndrome[rns8r]')} plain_ms={plain:.4f} "
+          f"library_ms(sdpa gathered, counts no syndromes)={lib:.4f} "
+          f"bound_ms={bms:.5f} ({by})", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                 bound_by=by, max_abs_err=err,
                 at=f"decode B={B} H={H} Kv={Kv} hd={hd} ps={ps}, rns8r "
@@ -683,7 +772,8 @@ def check_flash_decode(torch, timer, gen):
               f"T={T} bk={bk} ({n_k} chunks) {str(dt)[6:]} kv_len "
               f"{lo}..{T} (sum {n_rows}): errors o {errs['o']:.2e} l "
               f"{errs['l']:.2e} (rel, tol {tol}) m {errs['m']:.2e} merged "
-              f"{merged:.2e}; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"{merged:.2e}; kernel_ms={ms:.4f}"
+              f"{earlier(f'flash_decode[{label}]')} plain_ms={plain:.4f} "
               f"library_ms(sdpa, length mask)={lib:.4f} bound_ms={bms:.5f} "
               f"({by})", flush=True)
         res[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1272,6 +1362,8 @@ def main() -> int:
     build.library()
     print(f"[build] kernels from {build.CSRC} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for line in ptxas_lines(build.log_path(), "flash_attn.cu"):
+        print(f"[build] ptxas {line}", flush=True)
     smi = nvidia_smi()
     print(f"[build] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)

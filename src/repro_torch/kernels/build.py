@@ -17,8 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "source_hash", "build", "library",
-           "check"]
+__all__ = ["CSRC", "BUILD_DIR", "source_hash", "log_path", "build",
+           "library", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -71,6 +71,11 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def log_path() -> Path:
+    """The nvcc (``-Xptxas -v``) log of the build with this source hash."""
+    return BUILD_DIR / f"nvcc_{source_hash()}.log"
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -103,7 +108,7 @@ def build() -> Path:
         logs.append(f"== {src.name}\n{log}")
         if p.returncode != 0:
             failed.append(src.name)
-    (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+    log_path().write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}"

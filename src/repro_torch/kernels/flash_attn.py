@@ -21,7 +21,11 @@
   same rows bit for bit (one chunk body in ``csrc/flash_attn.cu``).
 
 The kernels live in ``csrc/flash_attn.cu``; its header note says what bounds
-each on the H100 and what the design does about it.  The plain versions
+each on the H100 and what the design does about it.  The prefill takes the
+tensor-core kernel for bf16 (head_dim a multiple of 16) and the CUDA-core
+kernel for f32; the decodes share one row-parallel chunk body that loads
+each row as vectors (head_dim a multiple of 8).  Both take head_dim <= 128
+and raise for what their kernel does not take.  The plain versions
 compute the same functions in the same order of operations, tensor-wide:
 masked scores take ``-1e30``, masked KV rows are zeroed, ``p`` is rounded
 to v's dtype before the PV product and the prefill output is
@@ -45,11 +49,27 @@ launches = {"flash_attention": 0, "paged_decode": 0,
             "paged_decode_syndrome": 0, "flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DECODE_WARPS = 8      # PD_MAXW in csrc/flash_attn.cu
+_SMEM_BYTES = 227 * 1024
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _check_aligned(what: str, align: int, *addrs: int) -> None:
+    """Raise unless every address, stride or offset (in bytes) is a
+    multiple of ``align``: the kernels load rows by vectors."""
+    if any(a % align for a in addrs):
+        raise ValueError(f"{what}: the kernel loads {align}-byte vectors; "
+                         f"addresses and row strides must be multiples")
+
+
+def _check_decode_hd(hd: int) -> None:
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"the decode kernels take head_dim a multiple of 8 "
+                         f"up to 128, got {hd}")
 
 
 def _full_len(kv_len: torch.Tensor | None, B: int, T: int,
@@ -107,8 +127,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if hd > 128:
         raise ValueError(f"head_dim {hd} > 128 is not supported")
+    if q.dtype == torch.bfloat16 and hd % 16:
+        raise ValueError(f"the bf16 tensor-core kernel takes head_dim a "
+                         f"multiple of 16, got {hd}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda takes contiguous q/k/v")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_cuda", 16, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr())
     kl = _full_len(kv_len, B, T, q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -209,8 +235,10 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, kv_len "
                          f"{tuple(kv_len.shape)}")
-    if bk < 1 or 4 * (hd + bk) > 227 * 1024:
+    _check_decode_hd(hd)
+    if bk < 1 or 4 * (bk + _DECODE_WARPS * hd) > _SMEM_BYTES:
         raise ValueError(f"chunk of {bk} rows does not fit shared memory")
+    _check_aligned("flash_decode_cuda", 16, k.data_ptr(), v.data_ptr())
     n_k = -(-T // bk)
     dev = q.device
     o = torch.empty((B, H, hd, n_k), dtype=torch.float32, device=dev)
@@ -336,9 +364,18 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if ps != page_size or v_pages.shape != k_pages.shape or H % Kv:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}, page_size {page_size}")
+    _check_decode_hd(hd)
+    if 4 * (ps + _DECODE_WARPS * hd) > _SMEM_BYTES:
+        raise ValueError(f"pages of {ps} rows do not fit shared memory")
     row_stride, page_stride = _pool_strides(k_pages, "k_pages")
     if _pool_strides(v_pages, "v_pages") != (row_stride, page_stride):
         raise ValueError("k_pages and v_pages must share their strides")
+    esz = k_pages.element_size()
+    # a lane loads 8 values: 16 or 32 bytes of f32 / bf16, 8 / vpb bytes
+    # of packed residues
+    align = 16 if pack is None else 8 // pack.values_per_byte
+    _check_aligned("paged_decode_cuda", align, k_pages.data_ptr(),
+                   v_pages.data_ptr(), row_stride * esz)
     if tab.dtype != torch.int32 or kv_len.dtype != torch.int32:
         raise TypeError("tab and kv_len must be int32")
     n_pmax = tab.shape[1]
@@ -385,6 +422,8 @@ def paged_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError("k and v witness lanes must share their strides")
         kw, vw, lane_stride = k_wit.data_ptr(), v_wit.data_ptr(), \
             k_wit.stride(2)
+        _check_aligned("paged_decode_cuda witness lanes", 8, kw, vw,
+                       lane_stride)
         red = (ctypes.c_int * r)(*(int(x) for x in red_moduli))
         syn = torch.empty((B, H, n_pmax), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

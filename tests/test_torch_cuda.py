@@ -68,6 +68,41 @@ def test_flash_attention_kernel_f32(gen, B, S, H, Kv, hd, causal):
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("B,Sq,T,H,Kv,hd,causal", [
+    (2, 200, 200, 8, 2, 128, True), (2, 200, 200, 8, 2, 128, False),
+    (3, 100, 100, 4, 4, 112, True), (2, 65, 150, 8, 8, 112, False),
+    (3, 70, 70, 8, 2, 16, True), (2, 130, 130, 4, 1, 16, False),
+    (1, 64, 64, 32, 8, 128, True)])
+def test_flash_attention_kernel_bf16(gen, B, Sq, T, H, Kv, hd, causal):
+    """B2's tensor-core route against its plain version at the reference's
+    bf16 tolerance: S not a multiple of the 64-row tiles, kv_len < T (row
+    0 inside the first tile), Sq != T, g = 1 and 4, head_dim 16, 112 and
+    128.  Garbage past kv_len must not reach the output."""
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    kv_len = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    kv_len[0] = 7
+    tail = torch.arange(T, device="cuda")[None, :] >= kv_len[:, None]
+    k[tail] = float("nan")
+    v[tail] = float("inf")
+    out = fa.flash_attention_cuda(q, k, v, kv_len, causal=causal)
+    ref = fa.flash_attention_ref(q, k, v, kv_len, causal=causal)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 136])
+def test_flash_attention_kernel_bf16_rejects_head_dim(gen, hd):
+    """The tensor-core route takes head_dim a multiple of 16 up to 128; it
+    raises for any other bf16 head_dim (no fallback to the f32 body)."""
+    q = torch.randn(1, 8, 2, hd, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, q, q, causal=True)
+
+
 @pytest.mark.parametrize("fmt", ["bf16", "rns8", "rns4"])
 @pytest.mark.parametrize("H,Kv,hd,q_dtype", [
     (4, 4, 16, torch.float32), (8, 2, 128, torch.bfloat16)])
@@ -270,13 +305,15 @@ def test_sdrns_serving_card_matches_cpu(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Kv,hd,T,bk", [
     (3, 8, 2, 16, 72, 32), (2, 4, 4, 112, 50, 16), (2, 32, 8, 128, 321, 64),
-    (1, 4, 4, 112, 600, 512)])
+    (1, 4, 4, 112, 600, 512), (3, 32, 8, 128, 600, 512),
+    (3, 8, 8, 112, 600, 512)])
 def test_flash_decode_kernel(gen, dtype, B, H, Kv, hd, T, bk):
     """B5 against its plain version, partial by partial: GQA g = 4 and 1,
     head_dim 16, 112 and 128, a ragged last chunk, kv_len inside the first
-    chunk (later chunks all masked) and at T.  f32 caches at the
-    reference's 2e-5; bf16 caches round p to bf16 on both sides (an exp one
-    ulp apart can round to the neighbouring bf16 value)."""
+    chunk (later chunks all masked) and at T, chunks of 512 rows (longer
+    than the rows a block keeps in flight, 64 at head_dim 128).  f32
+    caches at the reference's 2e-5; bf16 caches round p to bf16 on both
+    sides (an exp one ulp apart can round to the neighbouring bf16 value)."""
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").to(dtype)

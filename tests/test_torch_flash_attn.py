@@ -1,9 +1,12 @@
 """Port parity: flash prefill attention and paged split-KV decode.
 
 The port's plain versions (what its kernels compute) against the JAX Pallas
-kernels in interpret mode, in f32 at the reference's own tolerance
-(``tests/test_flash_attn.py``: 2e-5).  The reduced qwen3 shape has
-H == Kv, so GQA (g > 1) gets its own cases here.
+kernels in interpret mode, at the reference's own tolerances
+(``tests/test_flash_attn.py``: 2e-5 in f32, 2e-2 in bf16).  The reduced
+qwen3 shape has H == Kv, so GQA (g > 1) gets its own cases here.  The
+prefill is also held in bf16, the dtype of the full-width serves, at the
+head_dims of qwen3-8b (128) and zamba2-7b (112): the card's tensor-core
+kernel is held against this plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.numerics import kv_pages as tkv
 from repro_torch.numerics.tensor import ResidueTensor
 
 TOL = 2e-5
+BF16_TOL = 2e-2      # the reference's bf16 tolerance (test_flash_attn._tol)
 
 
 def _qkv(seed, B, Sq, H, Kv, hd, T):
@@ -31,19 +35,30 @@ def _qkv(seed, B, Sq, H, Kv, hd, T):
 
 
 CASES = [
-    # (B, Sq, T, H, Kv, hd, kv_len, causal, bq, bk)
-    (2, 64, 64, 4, 4, 16, None, True, 32, 32),           # g = 1, causal
-    (2, 64, 96, 4, 2, 32, None, False, 32, 32),          # g = 2
-    (3, 32, 80, 4, 2, 16, [17, 80, 1], False, 32, 32),   # ragged kv_len
-    (2, 48, 72, 4, 2, 16, [50, 72], True, 32, 32),       # blocks !| S
-    (2, 40, 40, 8, 2, 16, [40, 23], True, 16, 16),       # g = 4, causal
+    # (B, Sq, T, H, Kv, hd, kv_len, causal, bq, bk, dtype)
+    (2, 64, 64, 4, 4, 16, None, True, 32, 32, "float32"),         # g = 1
+    (2, 64, 96, 4, 2, 32, None, False, 32, 32, "float32"),        # g = 2
+    (3, 32, 80, 4, 2, 16, [17, 80, 1], False, 32, 32, "float32"),  # ragged
+    (2, 48, 72, 4, 2, 16, [50, 72], True, 32, 32, "float32"),     # bq !| S
+    (2, 40, 40, 8, 2, 16, [40, 23], True, 16, 16, "float32"),     # g = 4
+    # bf16, the serves' dtype
+    (2, 48, 72, 4, 2, 16, [50, 72], True, 32, 32, "bfloat16"),
+    (2, 40, 40, 8, 2, 16, [40, 23], True, 16, 16, "bfloat16"),
+    (2, 64, 96, 4, 2, 32, None, False, 32, 32, "bfloat16"),
+    (1, 40, 40, 8, 2, 112, [37], True, 16, 16, "bfloat16"),       # zamba2 hd
+    (1, 40, 56, 8, 2, 128, [45], False, 16, 16, "bfloat16"),      # qwen3 hd
+    (1, 24, 24, 8, 2, 128, None, True, 16, 16, "bfloat16"),
 ]
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"B{c[0]}S{c[1]}"
-                         f"T{c[2]}H{c[3]}Kv{c[4]}c{int(c[7])}")
+def _case_id(c):
+    return (f"B{c[0]}S{c[1]}T{c[2]}H{c[3]}Kv{c[4]}c{int(c[7])}"
+            + ("" if c[10] == "float32" else f"-hd{c[5]}-bf16"))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_prefill_plain_matches_pallas_interpret(case):
-    B, Sq, T, H, Kv, hd, kv_len, causal, bq, bk = case
+    B, Sq, T, H, Kv, hd, kv_len, causal, bq, bk, dtype = case
     q, k, v = _qkv(sum(case[:6]), B, Sq, H, Kv, hd, T)
     if kv_len is not None:
         # garbage past each row's kv_len must not reach the output
@@ -51,15 +66,21 @@ def test_prefill_plain_matches_pallas_interpret(case):
             kv_len)[:, None, None, None]
         k = np.where(tail, 123.0, k).astype(np.float32)
         v = np.where(tail, -55.0, v).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    # bf16: both sides take the same bf16 values
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jdt)
+                  for x in (tq, tk, tv))
     jl = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
-    j = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
-                               jnp.asarray(v), jl, causal=causal, bq=bq,
-                               bk=bk, interpret=True)
+    j = flash_attention_pallas(jq, jk, jv, jl, causal=causal, bq=bq, bk=bk,
+                               interpret=True)
     tl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
-    t = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), causal=causal, kv_len=tl)
-    assert t.dtype == torch.float32 and t.shape == (B, Sq, H, hd)
-    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=TOL, atol=TOL)
+    t = tattn.flash_attention(tq, tk, tv, causal=causal, kv_len=tl)
+    assert t.dtype == tdt and t.shape == (B, Sq, H, hd)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j.astype(jnp.float32)), rtol=tol,
+                               atol=tol)
 
 
 def _pools(fmt_name, L, P, ps, Kv, hd, dense_k, dense_v, tab):
