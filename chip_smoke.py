@@ -102,9 +102,10 @@ HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
                   ((14336, 3584), 13), ((3584, 32000), 1)]
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
-# kernel ms of the bodies B2-B5 replaced, at the same shapes (chip_smoke.py
-# on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill and
-# the row-parallel decode chunk; PERF.md's kernel table).  Printed beside
+# kernel ms of the bodies B2-B7 replaced, at the same shapes (chip_smoke.py
+# on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
+# row-parallel decode chunk and the packed K-parallel SD body; PERF.md's
+# kernel table).  Printed beside
 # the kernel's time in the [kernels] lines only; the JSON line carries
 # this run's numbers alone.
 BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
@@ -113,7 +114,19 @@ BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
            "flash_decode[serve_dense]": 0.045,
            "flash_decode[serve_hybrid]": 0.207, "flash_decode[qwen3]": 0.154,
            "flash_decode[zamba2]": 0.208, "flash_decode[split]": 0.248,
-           "flash_decode[qwen3_f32]": 0.130}
+           "flash_decode[qwen3_f32]": 0.130,
+           # B7 (M 2) and B6 (M 32) at [serve-sd]'s shapes (M, K, N), and
+           # B7's decode step: the body with one thread's K tree a column
+           "sdrns_matvec[2,4096,4096]": 12.803,
+           "sdrns_matvec[2,4096,1024]": 6.957,
+           "sdrns_matvec[2,4096,12288]": 11.308,
+           "sdrns_matvec[2,12288,4096]": 38.168,
+           "sdrns_matvec[2,4096,151936]": 62.697,
+           "sdrns_matvec[step]": 865.1,
+           "sdrns_matmul[32,4096,4096]": 69.238,
+           "sdrns_matmul[32,4096,1024]": 53.059,
+           "sdrns_matmul[32,4096,12288]": 104.582,
+           "sdrns_matmul[32,12288,4096]": 218.048}
 
 
 # the earlier times taken on other kv_len draws than this run's: the same
@@ -164,8 +177,8 @@ class Timer:
 
 
 def ptxas_lines(log_path, source: str) -> list[str]:
-    """Registers and spills of each kernel compiled from ``source``, from
-    the build's ``-Xptxas -v`` log."""
+    """Registers, stack frame and spills of each kernel compiled from
+    ``source``, from the build's ``-Xptxas -v`` log."""
     import re
 
     if not os.path.exists(log_path):
@@ -179,6 +192,8 @@ def ptxas_lines(log_path, source: str) -> list[str]:
         elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                              r"loads", line)) and name:
             spills = f"spills {m.group(1)}/{m.group(2)} B"
+            if st := re.search(r"(\d+) bytes stack frame", line):
+                spills = f"stack frame {st.group(1)} B, {spills}"
         elif (m := re.search(r"Used (\d+) registers", line)) and name:
             found.append((name, int(m.group(1)), spills))
             name = None
@@ -530,7 +545,8 @@ def _sd_residues(torch, dig, mset, block=1 << 24):
 
 def check_sdrns_matmul(torch, timer, gen):
     """B6 (M = 32, the prefill projections) and B7 (M = 2, every decode
-    projection and the logits) at the main path's shapes, on random digit
+    projection and the logits; and M = 8, the engine's padded decode
+    batch, on the gate/up shape) at the main path's shapes, on random digit
     vectors: digit for digit against the plain version on the first
     SD_COLS columns (the plain version materializes the (n, M, K, N, n)
     partial products), and at the full shapes each output digit vector,
@@ -550,6 +566,7 @@ def check_sdrns_matmul(torch, timer, gen):
     shapes = [(B * P, K, N) for (K, N), _ in LAYER_MATMULS]
     shapes += [(B, K, N) for (K, N), _ in LAYER_MATMULS]
     shapes.append((B, *LOGITS))
+    shapes.append((8, *LAYER_MATMULS[2][0]))
     per = {}
     for M, K, N in shapes:
         matvec = M <= 8
@@ -585,7 +602,8 @@ def check_sdrns_matmul(torch, timer, gen):
                               bmm_ms=bmm, bound_ms=bms, bound_by=by, err=err)
         print(f"[kernels] {name} C={C} M={M} K={K} N={N} n={n}: digits "
               f"equal the plain version on {SD_COLS} columns, decoded "
-              f"residues equal rns_matmul's at full N; kernel_ms={ms:.3f} "
+              f"residues equal rns_matmul's at full N; kernel_ms={ms:.3f}"
+              f"{earlier(f'{name}[{M},{K},{N}]')} "
               f"plain_ms({SD_COLS} cols)={plain:.3f} bound_ms={bms:.4f} "
               f"({by}); yardsticks rns_matmul_ms={rns_ms:.4f} "
               f"bf16_bmm_ms={bmm:.4f}", flush=True)
@@ -599,8 +617,8 @@ def check_sdrns_matmul(torch, timer, gen):
     layer = {k: sum(per[(B, K, N)][k] * m for (K, N), m in LAYER_MATMULS)
              for k in keys}
     print(f"[kernels] sdrns_matvec one decode step ({7 * L + 1} launches, "
-          f"M={B}, {L} layers + logits): kernel_ms={tot['ms']:.3f} "
-          f"(per layer {layer['ms']:.3f}, logits "
+          f"M={B}, {L} layers + logits): kernel_ms={tot['ms']:.3f}"
+          f"{earlier('sdrns_matvec[step]')} (per layer {layer['ms']:.3f}, logits "
           f"{per[(B, *LOGITS)]['ms']:.3f}) plain_ms({SD_COLS} cols)="
           f"{tot['plain_ms']:.3f} bound_ms={tot['bound_ms']:.4f}; "
           f"yardsticks rns_matmul_ms={tot['rns_ms']:.3f} bf16_bmm_ms="
@@ -618,6 +636,7 @@ def check_sdrns_matmul(torch, timer, gen):
     matvec = dict(common, ms=tot["ms"], plain_ms=tot["plain_ms"],
                   bound_ms=tot["bound_ms"], bound_by="bytes",
                   ms_per_layer=layer["ms"],
+                  ms_m8_gate_up=per[(8, *LAYER_MATMULS[2][0])]["ms"],
                   yardstick_rns_matmul_ms=tot["rns_ms"],
                   yardstick_bf16_bmm_ms=tot["bmm_ms"],
                   at=f"one decode step, {L} layers x (q,k,v,o,gate,up,down) "
@@ -1362,8 +1381,9 @@ def main() -> int:
     build.library()
     print(f"[build] kernels from {build.CSRC} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for line in ptxas_lines(build.log_path(), "flash_attn.cu"):
-        print(f"[build] ptxas {line}", flush=True)
+    for source in ("flash_attn.cu", "sdrns_matmul.cu"):
+        for line in ptxas_lines(build.log_path(), source):
+            print(f"[build] ptxas {line}", flush=True)
     smi = nvidia_smi()
     print(f"[build] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)

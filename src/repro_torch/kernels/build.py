@@ -33,10 +33,10 @@ _SIGNATURES = {
     # a, b, out, moduli (host int[C]), C, M, N, K, a_sc, lda, b_sc, ldb,
     # stream
     "rns_matmul_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P],
-    # a, b, out, wrap_signs (host int[C]), C, M, N, K, n, a_cs, lda, b_cs,
-    # ldb, matvec, stream
-    "sdrns_matmul_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-                        _I, _P],
+    # a, b, out, roots workspace, wrap_signs (host int[C]), C, M, N, K, n,
+    # a_cs, lda, b_cs, ldb, matvec, stream
+    "sdrns_matmul_s8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                        _L, _I, _P],
     # x, y, out, B, n, kind (1 pow2m1, 0 pow2, -1 pow2p1, 2 plain), stream
     "sd_add_s8": [_P, _P, _P, _L, _I, _I, _P],
     # q, k, v, kv_len, o, B, Sq, T, H, Kv, hd, causal, scale, dtype, stream
@@ -53,6 +53,12 @@ _SIGNATURES = {
     # kv_dtype, stream
     "flash_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _I, _I, _P],
+}
+
+# Queries that launch nothing: name -> (argument types, result type).
+_QUERIES = {
+    # C, M, N, K, matvec -> bytes of sdrns_matmul_s8's roots workspace
+    "sdrns_matmul_workspace": ([_I, _I, _I, _I, _I], _L),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -133,6 +139,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _lib = lib
     return _lib
 

@@ -11,11 +11,13 @@ end-around adder tree), and the K terms reduce by the same pairwise tree,
 so the output digit vectors (not only their values) are the reference's.
 
 * :func:`sdrns_matmul_cuda` / :func:`sdrns_matvec_cuda` launch
-  ``csrc/sdrns_matmul.cu``: one body, two schedules (rows tiled by 8, or
-  all M <= 8 rows per block so each B digit vector is read once).  They are
-  bound by the integer instruction rate of the CUDA cores (a few hundred
-  operations per term), far above both the planes' byte bound and the
-  int8 tensor-core bound; see the source's note.
+  ``csrc/sdrns_matmul.cu``: one body on packed digit masks, two
+  schedules (rows tiled by 4, or all M <= 8 rows a block so each B digit
+  vector is read once), K split into chunks of 64 leaves whose roots a
+  second launch joins; the wrapper allocates the roots workspace.  They
+  are bound by the integer instruction rate of the CUDA cores, far above
+  both the planes' byte bound and the int8 tensor-core bound; see the
+  source's note.
 * :func:`sdrns_matmul_ref` is the plain version, a port of
   ``repro/kernels/ref.py::sdrns_matmul_ref``: per channel
   ``sdrns.modular_mul`` over the broadcast ``(M, K, N)`` terms, then the
@@ -104,12 +106,15 @@ def _launch(a_dig: torch.Tensor, b_dig: torch.Tensor,
     out = torch.empty((C, M, N, n), dtype=torch.int8, device=a_dig.device)
     if M == 0 or N == 0 or K == 0:
         return out.zero_()
+    lib = build.library()
+    roots = torch.empty(lib.sdrns_matmul_workspace(C, M, N, K, int(matvec)),
+                        dtype=torch.uint8, device=a_dig.device)
     signs = (ctypes.c_int * C)(*(int(w) for w in wrap_signs))
     stream = torch.cuda.current_stream(a_dig.device).cuda_stream
-    err = build.library().sdrns_matmul_s8(
-        a_dig.data_ptr(), b_dig.data_ptr(), out.data_ptr(), signs, C, M, N,
-        K, n, a_dig.stride(0), a_dig.stride(1), b_dig.stride(0),
-        b_dig.stride(1), int(matvec), stream)
+    err = lib.sdrns_matmul_s8(
+        a_dig.data_ptr(), b_dig.data_ptr(), out.data_ptr(), roots.data_ptr(),
+        signs, C, M, N, K, n, a_dig.stride(0), a_dig.stride(1),
+        b_dig.stride(0), b_dig.stride(1), int(matvec), stream)
     build.check(err, "sdrns_matmul_s8")
     launches[name] += 1
     return out
@@ -117,7 +122,7 @@ def _launch(a_dig: torch.Tensor, b_dig: torch.Tensor,
 
 def sdrns_matmul_cuda(a_dig: torch.Tensor, b_dig: torch.Tensor,
                       wrap_signs: Sequence[int]) -> torch.Tensor:
-    """Kernel B6 (rows tiled by 8); same contract as
+    """Kernel B6 (rows tiled by 4); same contract as
     :func:`sdrns_matmul_ref`."""
     return _launch(a_dig, b_dig, wrap_signs, matvec=False)
 

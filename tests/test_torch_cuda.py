@@ -244,13 +244,20 @@ def _digits(gen, *shape):
                          dtype=torch.int32).to(torch.int8)
 
 
-@pytest.mark.parametrize("M,K,N,n", [(3, 129, 40, 7), (33, 64, 40, 7),
-                                     (8, 300, 130, 5), (1, 1, 7, 7),
-                                     (20, 1000, 33, 7), (9, 2, 300, 7)])
+@pytest.mark.parametrize("M,K,N,n", [
+    (3, 129, 40, 7), (33, 64, 40, 7), (8, 300, 130, 5), (1, 1, 7, 7),
+    (20, 1000, 33, 7), (9, 2, 300, 7),
+    # around the 64-leaf K chunk, every B7 row count, N past a column tile
+    (1, 63, 40, 7), (2, 64, 24, 7), (4, 65, 130, 7), (5, 127, 33, 5),
+    (6, 128, 9, 7), (7, 129, 1030, 7), (2, 200, 3, 5),
+    # the longest K of the serves (down), and B6 past 32 rows
+    (8, 12288, 24, 7), (33, 200, 40, 7), (33, 4096, 12, 5)])
 def test_sdrns_matmul_kernels_digit_exact(gen, M, K, N, n):
     """B6 (and B7 where M <= 8) give the plain version's digit vectors on
-    random digits, whole and on a K segment view; ragged K exercises the
-    zero leaves of the K tree."""
+    random digits, whole and on a K segment view (offset K // 3, off the
+    64-leaf chunk grid except at K 12288); ragged K exercises the zero
+    leaves of the chunk and join trees, N below one column tile (512) a
+    partial tile."""
     a = _digits(gen, 3, M, K, n)
     b = _digits(gen, 3, K, N, n)
     ws = (1, 0, -1)
