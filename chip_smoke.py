@@ -102,10 +102,10 @@ HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
                   ((14336, 3584), 13), ((3584, 32000), 1)]
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
-# kernel ms of the bodies B2-B7 replaced, at the same shapes (chip_smoke.py
+# kernel ms of the bodies B1-B7 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
-# row-parallel decode chunk and the packed K-parallel SD body; PERF.md's
-# kernel table).  Printed beside
+# row-parallel decode chunk, the packed K-parallel SD body and B1's two
+# schedules; PERF.md's kernel table).  Printed beside
 # the kernel's time in the [kernels] lines only; the JSON line carries
 # this run's numbers alone.
 BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
@@ -126,7 +126,41 @@ BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
            "sdrns_matmul[32,4096,4096]": 69.238,
            "sdrns_matmul[32,4096,1024]": 53.059,
            "sdrns_matmul[32,4096,12288]": 104.582,
-           "sdrns_matmul[32,12288,4096]": 218.048}
+           "sdrns_matmul[32,12288,4096]": 218.048,
+           # B1 (its one-tile body, before the two schedules) at every
+           # [kernels] shape (label, M, K, N) and its decode-step sums
+           "rns_matmul[P21,8,4096,4096]": 0.1032,
+           "rns_matmul[P21,8,4096,1024]": 0.0957,
+           "rns_matmul[P21,8,4096,12288]": 0.1502,
+           "rns_matmul[P21,8,12288,4096]": 0.2797,
+           "rns_matmul[P21,2048,4096,4096]": 1.3437,
+           "rns_matmul[P21,2048,4096,1024]": 0.3596,
+           "rns_matmul[P21,2048,4096,12288]": 3.9336,
+           "rns_matmul[P21,2048,12288,4096]": 3.9218,
+           "rns_matmul[P21,8,4096,151936]": 1.453,
+           "rns_matmul[P21,step]": 36.659,
+           "rns_matmul[P21R2,8,4096,4096]": 0.1187,
+           "rns_matmul[P21R2,8,4096,1024]": 0.0966,
+           "rns_matmul[P21R2,8,4096,12288]": 0.2383,
+           "rns_matmul[P21R2,8,12288,4096]": 0.3083,
+           "rns_matmul[P21R2,2048,4096,4096]": 2.2742,
+           "rns_matmul[P21R2,2048,4096,1024]": 0.5809,
+           "rns_matmul[P21R2,2048,4096,12288]": 6.5631,
+           "rns_matmul[P21R2,2048,12288,4096]": 6.486,
+           "rns_matmul[P21R2,8,4096,151936]": 2.4494,
+           "rns_matmul[P21R2,step]": 46.21,
+           "rns_matmul[zamba2,8,3584,14576]": 0.2097,
+           "rns_matmul[zamba2,8,7168,3584]": 0.1771,
+           "rns_matmul[zamba2,8,3584,3584]": 0.0908,
+           "rns_matmul[zamba2,8,3584,14336]": 0.1905,
+           "rns_matmul[zamba2,8,14336,3584]": 0.3339,
+           "rns_matmul[zamba2,2048,3584,14576]": 4.1295,
+           "rns_matmul[zamba2,2048,7168,3584]": 2.0772,
+           "rns_matmul[zamba2,2048,3584,3584]": 1.0263,
+           "rns_matmul[zamba2,2048,3584,14336]": 4.0197,
+           "rns_matmul[zamba2,2048,14336,3584]": 4.0,
+           "rns_matmul[zamba2,8,3584,32000]": 0.3112,
+           "rns_matmul[zamba2,step]": 47.959}
 
 
 # the earlier times taken on other kv_len draws than this run's: the same
@@ -222,13 +256,33 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
+def _int_mm_same(torch, a_mm, b_mm, moduli, M):
+    """B1's function through ``torch._int_mm``, one call a channel, then the
+    same truncating rem, canonicalize and center (the rows past M of a
+    padded A are dropped first)."""
+    outs = []
+    for c, m in enumerate(moduli):
+        acc = torch._int_mm(a_mm[c], b_mm[c])[:M]
+        r = torch.fmod(acc, m)
+        r = torch.where(r < 0, r + m, r)
+        outs.append(torch.where(r > m // 2, r - m, r))
+    return torch.stack(outs)
+
+
 def check_rns_matmul(torch, timer, gen, mset, label, step):
     """B1 on the planes of ``mset`` at one model's shapes, operands drawn
     over the full centred range of its widest modulus.  ``step`` lists each
     shape (K, N) with its launches per decode step, the logits last: each is
     held bit for bit at M = 8 (decode) and, but the logits, at the serves'
     prefill M.  zamba2's N = 14576 (the Mamba2 in_proj) is not a multiple of
-    the kernel's 64-column tile, so its edge tiles are held too."""
+    the kernel's 128-column tiles, so its edge tiles are held too.
+
+    Beside the kernel: its plain version, ``torch._int_mm`` per channel with
+    the same rem and centring (the same function; M padded to 32 at M <= 16,
+    which ``_int_mm`` refuses; timed on B as stored and on a K-contiguous
+    copy made outside the timed region, the faster layout kept and
+    printed), and a bf16 ``bmm`` of the same operands as a yardstick (not
+    the same function)."""
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
 
     C, h = mset.num_channels, max(mset.moduli) // 2
@@ -248,33 +302,74 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
             raise AssertionError(f"rns_matmul[{label}] M={M} K={K} N={N}: "
                                  f"kernel differs from the plain version "
                                  f"({err})")
+        pad = max(M, 32)
+        a_mm = a if pad == M else torch.cat(
+            [a, a.new_zeros((C, pad - M, K))], dim=1)
+        # _int_mm on B as stored and on a K-contiguous copy (made here, not
+        # timed); the faster layout is the library time
+        lib, layout = None, None
+        for name, b_mm in (("B as stored (N contiguous)", b),
+                           ("B copied K-contiguous, copy not timed",
+                            b.transpose(1, 2).contiguous().transpose(1, 2))):
+            try:
+                lib_out = _int_mm_same(torch, a_mm, b_mm, mset.moduli, M)
+            except RuntimeError:
+                continue
+            if not torch.equal(lib_out, ref):
+                raise AssertionError(f"rns_matmul[{label}] M={M} K={K} "
+                                     f"N={N}: torch._int_mm differs from "
+                                     f"the plain version")
+            del lib_out
+            t = timer(lambda: _int_mm_same(torch, a_mm, b_mm, mset.moduli,
+                                           M), 10)
+            if lib is None or t < lib:
+                lib, layout = t, name
+            del b_mm
+        if lib is None:
+            raise AssertionError(f"rns_matmul[{label}] M={M} K={K} N={N}: "
+                                 f"torch._int_mm refused both layouts")
         del out, ref
         ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ms = timer(lambda: rns_matmul_cuda(a, b, mset.moduli), 10)
         plain = timer(lambda: rns_matmul_ref(a, b, mset.moduli), 3)
-        lib = timer(lambda: torch.bmm(ab, bb), 10)
+        bmm = timer(lambda: torch.bmm(ab, bb), 10)
         nbytes = C * (M * K + K * N + 4 * M * N)
         bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+        key = f"rns_matmul[{label},{M},{K},{N}]"
         per[(M, K, N)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=bms, bound_by=by, err=err)
+                              yardstick_bf16_bmm_ms=bmm, bound_ms=bms,
+                              bound_by=by, err=err)
+        padded = f", M padded to {pad}" if pad != M else ""
         print(f"[kernels] rns_matmul[{label}] C={C} M={M} K={K} N={N} "
-              f"operands in [-{h}, {h}]: bit-exact; kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms(bf16 bmm)={lib:.4f} "
-              f"bound_ms={bms:.4f} ({by})", flush=True)
-        del a, b, ab, bb
+              f"operands in [-{h}, {h}]: bit-exact; kernel_ms={ms:.4f}"
+              f"{earlier(key)} plain_ms={plain:.4f} library_ms(_int_mm"
+              f"{padded}, {layout})={lib:.4f} yardstick bf16_bmm_ms="
+              f"{bmm:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+        del a, b, ab, bb, a_mm
         torch.cuda.empty_cache()
     n = sum(c for _, c in step)
+    keys = ("ms", "plain_ms", "library_ms", "yardstick_bf16_bmm_ms",
+            "bound_ms")
     total = {k: sum(per[(8, K, N)][k] * c for (K, N), c in step)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for k in keys}
     print(f"[kernels] rns_matmul[{label}] one decode step ({n} launches, "
-          f"M=8): kernel_ms={total['ms']:.3f} "
+          f"M=8): kernel_ms={total['ms']:.3f}"
+          f"{earlier(f'rns_matmul[{label},step]')} "
           f"plain_ms={total['plain_ms']:.3f} "
-          f"library_ms={total['library_ms']:.3f} "
+          f"library_ms(_int_mm, M padded to 32)={total['library_ms']:.3f} "
+          f"yardstick bf16_bmm_ms={total['yardstick_bf16_bmm_ms']:.3f} "
           f"bound_ms={total['bound_ms']:.3f}", flush=True)
     return dict(total, bound_by="bytes",
                 max_abs_err=max(v["err"] for v in per.values()),
                 at=f"one decode step on {label} planes (C={C}): {n} "
-                   f"launches at M=8; per-shape times in the [kernels] lines")
+                   f"launches at M=8; per-shape times in the [kernels] lines "
+                   f"and under shapes",
+                library_at="torch._int_mm per channel + fmod/canonicalize/"
+                           "centre, M padded to 32 at M <= 16, the faster "
+                           "of B as stored and B K-contiguous (copy not "
+                           "timed)",
+                shapes={f"{M},{K},{N}": {k: v[k] for k in keys + (
+                    "bound_by",)} for (M, K, N), v in per.items()})
 
 
 def check_flash_attention(torch, timer, gen):
@@ -1381,7 +1476,7 @@ def main() -> int:
     build.library()
     print(f"[build] kernels from {build.CSRC} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for source in ("flash_attn.cu", "sdrns_matmul.cu"):
+    for source in ("rns_matmul.cu", "flash_attn.cu", "sdrns_matmul.cu"):
         for line in ptxas_lines(build.log_path(), source):
             print(f"[build] ptxas {line}", flush=True)
     smi = nvidia_smi()
@@ -1459,7 +1554,8 @@ def main() -> int:
     # B1 on the P21R2 planes of [serve-r] (C = 5), held and timed as above
     line["kernels"][0]["p21r2"] = dict(
         {k: rm_r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms", "at")},
+                              "bound_by", "library_ms", "library_at",
+                              "yardstick_bf16_bmm_ms", "at", "shapes")},
         launches=counts_r["rns_matmul"])
     # B1 at zamba2-7b's shapes, one decode step of [serve-hybrid]
     line["kernels"][0]["zamba2"] = dict(rm_h,

@@ -3,43 +3,74 @@
 // Replaces the TPU kernel repro/kernels/rns_matmul.py::rns_matmul_pallas.
 // For each channel c: out[c] = center(A[c] @ B[c] mod m_c), with A (M, K)
 // and B (K, N) int8 centered residues.  The K loop accumulates exact int32
-// sums with no modular reduction (|acc| <= 64 * 64 * K < 2^31); one
-// truncating rem, canonicalize and center runs in the epilogue, bit for bit
-// the reference's `lax.rem` -> `r < 0 ? r + m` -> `r > m / 2 ? r - m`.
+// sums with no modular reduction (|acc| <= 128 * 128 * K < 2^31 for any
+// int8 operands and K < 2^17); one truncating rem, canonicalize and center
+// runs in the epilogue, bit for bit the reference's `lax.rem` ->
+// `r < 0 ? r + m` -> `r > m / 2 ? r - m`.
 //
-// Design: int8 tensor cores through mma.sync.m16n8k32 (s8.s8.s32).  A block
-// computes a 64x64 output tile of one channel with four warps (2x2, 32x32
-// each).  A tiles are copied to shared memory as they are (K contiguous);
-// B planes are stored with N contiguous while the mma wants B along K, so
-// each thread loads a 4(k) x 4(n) byte block with 32-bit loads and
-// transposes it in registers with __byte_perm before the shared store.  The
-// next tile's global loads are issued before the current tile's mma steps
-// (register prefetch).  Ragged M, N and K edges load zeros and skip stores.
+// Bounds on the H100: at decode (M = 8) the weight planes are read once and
+// nothing else matters, so the kernel is bound by device memory bytes (one
+// qwen3-8b step: 22.7 GB of P21 planes, 6.8 ms at 3.35 TB/s); at prefill
+// (M = 2048) by int8 tensor-core operations.  Two schedules, picked by M
+// (rns_tiles.cuh holds their index maps, checked on the host):
 //
-// Bound on the H100: at decode (M = 8) the weight planes are read once and
-// nothing else matters, so the kernel is bound by device memory bytes; at
-// prefill (M = 2048) by int8 tensor-core operations.  This first version
-// keeps one simple tile shape for both; it does not split K, so a decode
-// matmul with few N tiles does not fill every SM.
+// - decode, M <= 16 (rns_decode_kernel): the operands swap roles so the
+//   weight columns fill the mma's 16-row side and the M activation rows its
+//   8-column side.  Each warp streams 32-row steps of a 128-column strip
+//   straight into registers with 16-byte loads, two steps (8 KB) in flight
+//   before it computes (64 KB an SM), and transposes them in registers
+//   into the A fragments of its eight tiles: the tiles' rows are assigned
+//   to columns so that each lane's own bytes are its fragments.  The work
+//   is cut stream-K: one block an SM (the ~170 registers a thread the
+//   loads need), each an equal run of K steps across 128-column tile
+//   boundaries, its 8 warps taking the steps of each tile segment in turn;
+//   so no launch has a tail wave, and k/v at N 1024 and down at K 12288
+//   fill the card too.  Partials of a tile cut between blocks are exact
+//   int32 sums, so any order gives the same integers: a block reduces its
+//   warps in shared memory (a bank-conflict-free layout, dec_acc), adds its
+//   part into an int32 workspace (red.global.add), and the last block of a
+//   tile (a counter that the same block resets) runs the epilogue and puts
+//   the workspace back to zero.  One launch, no memset per call.  Measured
+//   against a cp.async ring into shared memory (3-4 stages a warp), register
+//   loads streamed faster at every decode shape (PERF.md §6).
+// - prefill, M > 16 (rns_prefill_kernel): 128 x 256 tiles, 16 warps of
+//   64 x 32, a 4-stage cp.async ring.  A rows (K contiguous) land with an
+//   80-byte pitch and feed ldmatrix.x4; B rows land as they lie in memory
+//   (N contiguous: the int8 mma wants B along K, and Hopper's wgmma
+//   transposes only 16-bit operands) with their 16-byte chunks swizzled,
+//   and each lane transposes its 4x4 byte blocks into the B fragments of
+//   four n8 tiles.  The transpose runs on the stage the mma steps read, in
+//   registers, while the next stages' copies are in flight.  Blocks are
+//   rasterized M-tile-fastest in groups of 16 so running blocks share B
+//   tiles in L2.  mma.sync (m16n8k32 s8) rather than wgmma: wgmma would
+//   need B K-major in shared memory, i.e. a transposing shared-to-shared
+//   pass per stage.  On the card, removing the B transposes or the mma
+//   steps alone left the time unchanged and removing the copies saved
+//   about a quarter: the loop waits on shared-memory reads and copies
+//   more than on arithmetic (not separated further without a profiler).
+//   The 128 x 256 tile (a quarter less L2 traffic an operation than 128 x
+//   128) was the faster of those tried; 64 x 64 warps were slower.
+//
+// Ragged M, N and K edges load zeros and skip stores.  Views whose base or
+// strides are not 16-byte aligned (a K segment at an odd offset, N 65) take
+// byte loads inside the same kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rns_tiles.cuh"
+
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 64;
-constexpr int SROW = BK + 16;  // 80-byte shared rows: conflict-free fragments
-constexpr int THREADS = 128;
-constexpr int MAXC = 8;
+using rnt::Args;
+using rnt::Row16;
 
 struct Moduli {
-  int m[MAXC];
+  int m[rnt::kMaxC];
 };
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -47,175 +78,327 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes of one A row starting at column k (zeros past M or K).
-__device__ __forceinline__ uint4 load_a16(const int8_t* a, long long lda,
-                                          int row, int k, int M, int K,
-                                          bool vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (row >= M) return v;
-  const int8_t* p = a + (long long)row * lda + k;
-  if (vec && k + 16 <= K) return *reinterpret_cast<const uint4*>(p);
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 16; ++i) {
-    if (k + i < K) w[i >> 2] |= (unsigned)(uint8_t)p[i] << (8 * (i & 3));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 4 bytes of one B row (fixed k) at columns n..n+3 (zeros past K or N).
-__device__ __forceinline__ unsigned load_b4(const int8_t* b, long long ldb,
-                                            int k, int n, int K, int N,
-                                            bool vec) {
-  if (k >= K) return 0u;
-  const int8_t* p = b + (long long)k * ldb + n;
-  if (vec && n + 4 <= N) return *reinterpret_cast<const unsigned*>(p);
-  unsigned w = 0u;
-  for (int i = 0; i < 4; ++i) {
-    if (n + i < N) w |= (unsigned)(uint8_t)p[i] << (8 * i);
-  }
-  return w;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
 }
 
-__global__ void __launch_bounds__(THREADS)
-rns_matmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                  int32_t* __restrict__ out, Moduli mod, int M, int N, int K,
-                  long long a_sc, long long lda, long long b_sc,
-                  long long ldb, bool vec_a, bool vec_b) {
-  __shared__ __align__(16) int8_t As[BM][SROW];
-  __shared__ __align__(16) int8_t Bs[BN][SROW];  // transposed: [n][k]
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  const int c = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int8_t* a = A + c * a_sc;
-  const int8_t* b = B + c * b_sc;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
 
-  int acc[2][4][4];
+// One 16-byte copy into a stage: cp.async where the operand allows 16-byte
+// copies, byte loads and a shared store elsewhere; bytes past an edge are
+// zeros.
+__device__ __forceinline__ void stage_copy(int8_t* st, const int8_t* base,
+                                           const rnt::Copy& cp, bool vec) {
+  int8_t* dst = st + cp.smem;
+  if (cp.valid == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else if (vec) {
+    cp_async16(dst, base + cp.src, cp.valid);
+  } else {
+    const Row16 r = rnt::load16_bytes(base + cp.src, cp.valid);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+  }
+}
+
+// ---- decode ----------------------------------------------------------------
+
+// The warp's share of a tile segment (K steps [s0, s1) of the strip at n0,
+// channel bases a, b) into acc: kDecUnroll steps' loads in flight, then
+// their mma steps.
+template <int MT>
+__device__ __forceinline__ void dec_segment_mma(
+    const Args& g, const int8_t* a, const int8_t* b, int n0, int s0, int s1,
+    int warp, int lane, int (&acc)[MT][8][4]) {
+  const int steps = rnt::dec_warp_steps(s0, s1, warp);
+  for (int j = 0; j < steps; j += rnt::kDecUnroll) {
+    // A step past the warp's last reads as zero rows (k0 = K: no loads), so
+    // every index stays static and the buffers stay in registers.
+    Row16 w[rnt::kDecUnroll][8];
+    uint32_t x[rnt::kDecUnroll][MT][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int u = 0; u < rnt::kDecUnroll; ++u) {
+      const int k0 = j + u < steps
+                         ? rnt::dec_step(s0, warp, j + u) * rnt::kStepK
+                         : g.K;
+      rnt::dec_load_w(g, b, k0, n0, lane, w[u]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int mt = 0; mt < MT; ++mt)
+        rnt::dec_load_x(g, a, k0, lane, mt, x[u][mt]);
+    }
+#pragma unroll
+    for (int u = 0; u < rnt::kDecUnroll; ++u) {
+#pragma unroll
+      for (int word = 0; word < 4; ++word) {
+        uint32_t lo[4], hi[4];
+        rnt::dec_frag_w(w[u], word, lo, hi);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t af[4] = {lo[2 * h], lo[2 * h + 1], hi[2 * h],
+                                  hi[2 * h + 1]};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_s8(acc[mt][2 * word + h], af, x[u][mt][0], x[u][mt][1]);
+        }
+      }
+    }
+  }
+}
+
+// grid (plan.blocks); MT activation column blocks of 8 rows.
+template <int MT>
+__global__ void __launch_bounds__(rnt::kDecThreads, rnt::kDecBlocksPerSM)
+rns_decode_kernel(Args g, Moduli mod, rnt::DecodePlan pl, int* counters,
+                  int* partial) {
+  constexpr int kRows = 8 * MT;
+  __shared__ int s_acc[kRows * rnt::kAccPitch];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int M = g.M, N = g.N;
+  for (int i = tid; i < kRows * rnt::kAccPitch; i += rnt::kDecThreads)
+    s_acc[i] = 0;
+
+  const long long f1 = rnt::dec_run_end(pl, blockIdx.x);
+  for (long long f = rnt::dec_run_begin(pl, blockIdx.x); f < f1;) {
+    const rnt::Segment sg = rnt::dec_segment(pl, blockIdx.x, f);
+    f += sg.s1 - sg.s0;
+    const int c = rnt::dec_channel(pl, sg.t), m_c = mod.m[c];
+    const int n0 = rnt::dec_strip(pl, sg.t);
+    int acc[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mt][i][r] = 0;
+    dec_segment_mma<MT>(g, g.a + c * g.a_sc, g.b + c * g.b_sc, n0, sg.s0,
+                        sg.s1, warp, lane, acc);
+
+    __syncthreads();  // s_acc is zero
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          atomicAdd(&s_acc[rnt::dec_acc(rnt::dec_out_m(lane, mt, r),
+                                        rnt::dec_out_n(lane, i, r))],
+                    acc[mt][i][r]);
+    __syncthreads();
+
+    // A whole tile is finished here; a cut one goes to the workspace and
+    // its last block finishes it.  Each thread clears what it read.
+    const long long base = (long long)c * M * N;
+    const bool whole = rnt::tile_blocks(pl, sg.t) == 1;
+    for (int i = tid; i < M * rnt::kStripN; i += rnt::kDecThreads) {
+      const int m = i / rnt::kStripN, n = i % rnt::kStripN;
+      const int v = s_acc[rnt::dec_acc(m, n)];
+      s_acc[rnt::dec_acc(m, n)] = 0;
+      if (n0 + n < N) {
+        const long long o = base + (long long)m * N + n0 + n;
+        if (whole)
+          g.out[o] = rnt::center_rem(v, m_c);
+        else
+          atomicAdd(&partial[o], v);
+      }
+    }
+    if (whole) continue;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      s_last = atomicAdd(&counters[sg.t], 1) == rnt::tile_blocks(pl, sg.t) - 1;
+    __syncthreads();
+    if (!s_last) continue;
+    __threadfence();
+    for (int i = tid; i < M * rnt::kStripN; i += rnt::kDecThreads) {
+      const int m = i / rnt::kStripN, n = n0 + i % rnt::kStripN;
+      if (n < N) {
+        const long long o = base + (long long)m * N + n;
+        g.out[o] = rnt::center_rem(__ldcg(&partial[o]), m_c);
+        partial[o] = 0;
+      }
+    }
+    if (tid == 0) counters[sg.t] = 0;
+  }
+}
+
+// ---- prefill ---------------------------------------------------------------
+
+// grid (prefill_blocks), rasterized by pre_tile
+__global__ void __launch_bounds__(rnt::kPreThreads)
+rns_prefill_kernel(Args g, Moduli mod) {
+  extern __shared__ __align__(128) int8_t smem[];
+  const rnt::PreTile tile = rnt::pre_tile(g.M, g.N, blockIdx.x);
+  const int c = tile.c, m0 = tile.m0, n0 = tile.n0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int8_t* a = g.a + c * g.a_sc;
+  const int8_t* b = g.b + c * g.b_sc;
+  const bool vec_a = g.a_vec == 16, vec_b = g.b_vec == 16;
+  const int ktiles = rnt::ceil_div(g.K, rnt::kPreBK);
+
+  auto issue = [&](int kt) {
+    if (kt < ktiles) {
+      int8_t* st = smem + (kt % rnt::kPreStages) * rnt::kStageBytes;
+      const int k0 = kt * rnt::kPreBK;
+#pragma unroll
+      for (int q = 0; q < rnt::kCopiesA; ++q)
+        stage_copy(st, a, rnt::pre_copy_a(g, m0, k0, tid, q), vec_a);
+#pragma unroll
+      for (int q = 0; q < rnt::kCopiesB; ++q)
+        stage_copy(st, b, rnt::pre_copy_b(g, n0, k0, tid, q), vec_b);
+    }
+    cp_async_commit();
+  };
+
+  int acc[4][4 * rnt::kGroupsN][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * rnt::kGroupsN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
 
-  // A tile: 64 rows x 64 bytes = 256 chunks of 16 bytes, two per thread.
-  // B tile: 16 x 16 blocks of 4(k) x 4(n) bytes, two per thread.
-  uint4 ra[2];
-  unsigned rb[2][4];
-  auto load_tile = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int chunk = tid + i * THREADS;
-      int row = chunk >> 2, kc = (chunk & 3) * 16;
-      ra[i] = load_a16(a, lda, m0 + row, k0 + kc, M, K, vec_a);
-    }
+  for (int s = 0; s < rnt::kPreStages - 1; ++s) issue(s);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<rnt::kPreStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free
+    issue(kt + rnt::kPreStages - 1);
+    const int8_t* st = smem + (kt % rnt::kPreStages) * rnt::kStageBytes;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int blk = tid + i * THREADS;
-      int kq = blk >> 4, nq = blk & 15;
+    for (int kk = 0; kk < rnt::kPreBK / 32; ++kk) {
+      uint32_t bf[rnt::kGroupsN][4][2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        rb[i][r] = load_b4(b, ldb, k0 + kq * 4 + r, n0 + nq * 4, K, N, vec_b);
-    }
-  };
-  auto store_tile = [&]() {
+      for (int grp = 0; grp < rnt::kGroupsN; ++grp)
+        rnt::pre_frag_b(st + rnt::kStageA, warp, lane, kk, grp, bf[grp]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int chunk = tid + i * THREADS;
-      int row = chunk >> 2, kc = (chunk & 3) * 16;
-      *reinterpret_cast<uint4*>(&As[row][kc]) = ra[i];
-    }
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t af[4];
+        ldsm_x4(af, st + rnt::pre_ldsm_a(warp, lane, mi, kk));
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int blk = tid + i * THREADS;
-      int kq = blk >> 4, nq = blk & 15;
-      // rows r0..r3 hold bytes [n0..n3] of k = 4kq + r; column j of the
-      // 4x4 byte block becomes the word for n = 4nq + j, bytes k0..k3
-      unsigned t0 = __byte_perm(rb[i][0], rb[i][1], 0x5140);
-      unsigned t1 = __byte_perm(rb[i][2], rb[i][3], 0x5140);
-      unsigned t2 = __byte_perm(rb[i][0], rb[i][1], 0x7362);
-      unsigned t3 = __byte_perm(rb[i][2], rb[i][3], 0x7362);
-      unsigned col[4] = {__byte_perm(t0, t1, 0x5410),
-                         __byte_perm(t0, t1, 0x7632),
-                         __byte_perm(t2, t3, 0x5410),
-                         __byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<unsigned*>(&Bs[nq * 4 + j][kq * 4]) = col[j];
-    }
-  };
-
-  load_tile(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_tile();
-    __syncthreads();
-    if (k0 + BK < K) load_tile(k0 + BK);  // in flight during the mma steps
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        int r = wm + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(&As[r][kk + t * 4]);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(&As[r + 8][kk + t * 4]);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(&As[r][kk + 16 + t * 4]);
-        af[mi][3] =
-            *reinterpret_cast<const unsigned*>(&As[r + 8][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        int n = wn + ni * 8 + g;
-        unsigned b0 = *reinterpret_cast<const unsigned*>(&Bs[n][kk + t * 4]);
-        unsigned b1 =
-            *reinterpret_cast<const unsigned*>(&Bs[n][kk + 16 + t * 4]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], af[mi], b0, b1);
+        for (int j = 0; j < 4 * rnt::kGroupsN; ++j)
+          mma_s8(acc[mi][j], af, bf[j >> 2][j & 3][0], bf[j >> 2][j & 3][1]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
-  // Epilogue: one truncating rem, canonicalize, center; masked stores.
-  const int m = mod.m[c];
-  int32_t* o = out + (long long)c * M * N;
+  // Epilogue: a lane holds 8 consecutive columns of each of its rows.
+  const int m_c = mod.m[c];
+  int32_t* o = g.out + (long long)c * g.M * g.N;
+  const bool vec_o = g.N % 4 == 0;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        int row = m0 + wm + mi * 16 + g + (r >= 2 ? 8 : 0);
-        int col = n0 + wn + ni * 8 + t * 2 + (r & 1);
-        if (row < M && col < N) {
-          int v = acc[mi][ni][r] % m;
-          if (v < 0) v += m;
-          if (v > m / 2) v -= m;
-          o[(long long)row * N + col] = v;
-        }
+    for (int grp = 0; grp < rnt::kGroupsN; ++grp) {
+      const int m = m0 + rnt::pre_out_m(warp, lane, mi, 2 * h);
+      const int n = n0 + rnt::pre_out_n(warp, lane, 4 * grp, 2 * h);
+      if (m >= g.M) continue;
+      int v[8];
+      rnt::pre_row_values(acc, mi, h, grp, m_c, v);
+      int32_t* row = o + (long long)m * g.N;
+      if (vec_o && n + 8 <= g.N) {
+        *reinterpret_cast<int4*>(row + n) = make_int4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<int4*>(row + n + 4) =
+            make_int4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (n + q < g.N) row[n + q] = v[q];
       }
+    }
+}
+
+int sm_count() {
+  static int cache[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cache[dev] > 0) return cache[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (n <= 0) n = 1;
+  if (dev >= 0 && dev < 64) cache[dev] = n;
+  return n;
+}
+
+// The prefill's dynamic shared memory (above 48 KB), allowed once per device.
+cudaError_t set_smem_limit() {
+  static bool done[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      rns_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rnt::kPreSmem);
+  if (e == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
+  return e;
 }
 
 }  // namespace
 
+// Bytes of workspace rns_matmul_s8 needs for this shape (zeroed once by the
+// caller, left zero by every launch); 0 when it needs none.
+extern "C" long long rns_matmul_workspace(int C, int M, int N, int K) {
+  if (M > rnt::kDecodeMaxM) return 0;
+  return rnt::decode_workspace_bytes(C, M, N,
+                                     rnt::decode_plan(C, N, K, sm_count()));
+}
+
 extern "C" int rns_matmul_s8(const void* a, const void* b, void* out,
+                             void* ws, long long ws_bytes,
                              const int* moduli, int C, int M, int N, int K,
                              long long a_sc, long long lda, long long b_sc,
                              long long ldb, void* stream) {
-  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > rnt::kMaxC || M < 1 || N < 1 || K < 0)
+    return (int)cudaErrorInvalidValue;
   Moduli mod = {};
   for (int c = 0; c < C; ++c) mod.m[c] = moduli[c];
-  bool vec_a = lda % 16 == 0 && a_sc % 16 == 0 &&
-               (reinterpret_cast<uintptr_t>(a) & 15) == 0;
-  bool vec_b = ldb % 4 == 0 && b_sc % 4 == 0 &&
-               (reinterpret_cast<uintptr_t>(b) & 3) == 0;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, C);
-  rns_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)b, (int32_t*)out, mod, M, N, K, a_sc,
-      lda, b_sc, ldb, vec_a, vec_b);
+  Args g{(const int8_t*)a, (const int8_t*)b, (int32_t*)out, M, N, K,
+         a_sc, lda, b_sc, ldb,
+         rnt::vec_width(reinterpret_cast<uintptr_t>(a), a_sc, lda),
+         rnt::vec_width(reinterpret_cast<uintptr_t>(b), b_sc, ldb)};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M <= rnt::kDecodeMaxM) {
+    const rnt::DecodePlan pl = rnt::decode_plan(C, N, K, sm_count());
+    const long long need = rnt::decode_workspace_bytes(C, M, N, pl);
+    if (need > ws_bytes || (need > 0 && ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    int* counters = (int*)ws;
+    int* partial = counters + (rnt::decode_counter_ints(C, pl) + 3) / 4 * 4;
+    if (M <= 8)
+      rns_decode_kernel<1><<<pl.blocks, rnt::kDecThreads, 0, s>>>(
+          g, mod, pl, counters, partial);
+    else
+      rns_decode_kernel<2><<<pl.blocks, rnt::kDecThreads, 0, s>>>(
+          g, mod, pl, counters, partial);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t e = set_smem_limit();
+  if (e != cudaSuccess) return (int)e;
+  rns_prefill_kernel<<<rnt::prefill_blocks(C, M, N), rnt::kPreThreads,
+                       rnt::kPreSmem, s>>>(g, mod);
   return (int)cudaGetLastError();
 }

@@ -41,9 +41,16 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("M,K,N", [(37, 200, 130), (5, 64, 96),
-                                   (8, 4160, 300), (70, 129, 65)])
+@pytest.mark.parametrize("M,K,N", [
+    (37, 200, 130), (5, 64, 96), (8, 4160, 300), (70, 129, 65),
+    # the decode schedule (M <= 16) and the prefill's, around the threshold
+    (1, 4096, 1024), (2, 4096, 1024), (15, 640, 200), (16, 640, 200),
+    (17, 640, 200), (8, 129, 65), (16, 12288, 256), (8, 12288, 4096),
+    (8, 512, 14576), (40, 256, 14576), (300, 1000, 520)])
 def test_rns_matmul_kernel_bit_exact(gen, M, K, N):
+    """Both schedules at ragged shapes: K split across blocks (K 4096 at N
+    1024, K 12288), N 14576 (zamba2's in_proj), M 1-17 around the decode
+    threshold; each whole and as a K segment view at an odd offset."""
     a = torch.randint(-64, 65, (3, M, K), generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.int8)
     b = torch.randint(-64, 65, (3, K, N), generator=gen, device="cuda",
@@ -52,6 +59,45 @@ def test_rns_matmul_kernel_bit_exact(gen, M, K, N):
         out = rm.rns_matmul_cuda(a[:, :, lo:hi], b[:, lo:hi], P21.moduli)
         ref = rm.rns_matmul_ref(a[:, :, lo:hi], b[:, lo:hi], P21.moduli)
         assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", [2, 8, 16, 17, 2048])
+@pytest.mark.parametrize("lo", [0, 128, 37])
+def test_rns_matmul_kernel_extremes_and_views(gen, M, lo):
+    """P21R2's five channels with operands at the int8 extremes (-128, 127)
+    and the widest modulus's (+-66), the largest exact sums; K segments at
+    a 128-aligned offset (16-byte loads) and an odd one (byte loads), as
+    ``rns_run`` passes them.  The decode workspace is zero after each call
+    (the last block of each tile clears it)."""
+    K, N = 1408, 272
+    vals = torch.tensor([-128, 127, -66, 66], dtype=torch.int8,
+                        device="cuda")
+    a = vals[torch.randint(0, 4, (5, M, K), generator=gen, device="cuda")]
+    b = vals[torch.randint(0, 4, (5, K, N), generator=gen, device="cuda")]
+    a[:, 0] = -128
+    b[:, :, 0] = -128
+    av, bv = a[:, :, lo:lo + 1024], b[:, lo:lo + 1024]
+    assert torch.equal(rm.rns_matmul_cuda(av, bv, P21R2.moduli),
+                       rm.rns_matmul_ref(av, bv, P21R2.moduli))
+    torch.cuda.synchronize()
+    assert all(int(ws.count_nonzero()) == 0 for ws in rm._workspaces.values())
+
+
+def test_rns_matmul_kernel_repeated_decode_calls(gen):
+    """Calls of several decode shapes in a row share one workspace: each
+    leaves it zero for the next, so repeated calls give the same residues."""
+    shapes = [(8, 4096, 1024), (8, 12288, 4096), (3, 700, 130),
+              (16, 4096, 1024)]
+    ops = []
+    for M, K, N in shapes:
+        a = torch.randint(-64, 65, (3, M, K), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        b = torch.randint(-64, 65, (3, K, N), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        ops.append((a, b, rm.rns_matmul_ref(a, b, P21.moduli)))
+    for _ in range(3):
+        for a, b, ref in ops:
+            assert torch.equal(rm.rns_matmul_cuda(a, b, P21.moduli), ref)
 
 
 @pytest.mark.parametrize("B,S,H,Kv,hd,causal", [
