@@ -15,8 +15,12 @@ Phases (each prints its lines; any failure raises and the exit code is not
    mode bit for bit on a clean pool and on planted faults; the SD-RNS
    matmul's two schedules digit for digit on a column slice and, decoded,
    equal to rns_matmul's residues at the full shapes; the SD adder bit for
-   bit in each kind, and through ``nx.add``) and time kernel, plain version
-   and a library yardstick the port never calls, beside the bound.
+   bit in each kind, from an odd storage offset too, and through
+   ``nx.add``; rns_matmul at the speculative verify's 40 rows and on the
+   rns drafter's P16 planes at 3 bits in their K segments; the paged
+   decode at the verify's folded 40 rows, each row equal to its own
+   launch) and time kernel, plain version and a library yardstick the port
+   never calls, beside the bound.
 3. small   -- the quantizers give the same bits on the card as on the CPU,
    and the committed reduced qwen3-8b checkpoint served on the card and on
    the CPU (plain versions) gives prefill logits that agree.
@@ -24,6 +28,13 @@ Phases (each prints its lines; any failure raises and the exit code is not
    under ``system="rns"`` with rns8 KV pages: batch 8, 256-token prompts,
    64 new tokens, greedy.  Launch counters are reset just before and read
    just after, and must show every kernel on the path.
+   serve-spec -- speculative decoding on that model, weights and prompts:
+   one ``verify_paged`` of k + 1 = 5 tokens a slot equal to 5
+   ``decode_paged`` steps bit for bit (logits rows and page bytes), then
+   ``spec="ngram:4"`` for 64 new tokens and ``spec="rns:4"`` (the draft
+   derived from the target's planes, P16 at 3 bits) for 16: 0 tokens
+   differ from phase 4's, and the launch counts are exact per verify and
+   per draft step.
 5. serve-r -- the same serve on redundant residues: P21R2 weight planes,
    rns8r KV pages and ``policy="strict"``, with the paged decode's syndrome
    mode on every step.  The clean run must show zero syndromes and replays.
@@ -101,11 +112,17 @@ HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
                   ((3584, 3584), 4 * 13), ((3584, 14336), 2 * 13),
                   ((14336, 3584), 13), ((3584, 32000), 1)]
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
+# [serve-spec]: k draft tokens a verify (V = k + 1 rows a slot), and the new
+# tokens of each drafter's run.  The rns drafter runs k + 1 host-bound draft
+# steps a verify (3.6 s a verify on random weights, where it accepts
+# nothing): 16 new tokens, not 64, keep the smoke near half its time limit
+SPEC_K = 4
+SPEC_NEW = {"ngram:4": SERVE_NEW, "rns:4": 16}
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
-# kernel ms of the bodies B1-B7 replaced, at the same shapes (chip_smoke.py
+# kernel ms of the bodies B1-B8 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
-# row-parallel decode chunk, the packed K-parallel SD body and B1's two
-# schedules; PERF.md's kernel table).  Printed beside
+# row-parallel decode chunk, the packed K-parallel SD body, B1's two
+# schedules and B8's packed tiles; PERF.md's kernel table).  Printed beside
 # the kernel's time in the [kernels] lines only; the JSON line carries
 # this run's numbers alone.
 BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
@@ -160,7 +177,10 @@ BEFORE_MS = {"flash_attention[qwen3]": 0.380, "flash_attention[zamba2]": 0.362,
            "rns_matmul[zamba2,2048,3584,14336]": 4.0197,
            "rns_matmul[zamba2,2048,14336,3584]": 4.0,
            "rns_matmul[zamba2,8,3584,32000]": 0.3112,
-           "rns_matmul[zamba2,step]": 47.959}
+           "rns_matmul[zamba2,step]": 47.959,
+           # B8, a thread a digit vector, at check_sd_add's shape
+           "sd_add[pow2m1]": 0.805, "sd_add[pow2]": 0.648,
+           "sd_add[pow2p1]": 0.802, "sd_add[plain]": 0.688}
 
 
 # the earlier times taken on other kv_len draws than this run's: the same
@@ -269,6 +289,37 @@ def _int_mm_same(torch, a_mm, b_mm, moduli, M):
     return torch.stack(outs)
 
 
+def _int_mm_best(torch, timer, a, b, moduli, ref, what):
+    """The library time of B1's function: ``torch._int_mm`` per channel
+    (A padded to 32 rows where M is smaller, which ``_int_mm`` refuses) on
+    B as stored and on a K-contiguous copy made outside the timed region,
+    each held equal to the plain version; returns the faster time and its
+    layout."""
+    C, M, K = a.shape
+    pad = max(M, 32)
+    a_mm = a if pad == M else torch.cat(
+        [a, a.new_zeros((C, pad - M, K))], dim=1)
+    lib, layout = None, None
+    for name, b_mm in (("B as stored (N contiguous)", b),
+                       ("B copied K-contiguous, copy not timed",
+                        b.transpose(1, 2).contiguous().transpose(1, 2))):
+        try:
+            lib_out = _int_mm_same(torch, a_mm, b_mm, moduli, M)
+        except RuntimeError:
+            continue
+        if not torch.equal(lib_out, ref):
+            raise AssertionError(f"{what}: torch._int_mm differs from the "
+                                 f"plain version")
+        del lib_out
+        t = timer(lambda: _int_mm_same(torch, a_mm, b_mm, moduli, M), 10)
+        if lib is None or t < lib:
+            lib, layout = t, name
+        del b_mm
+    if lib is None:
+        raise AssertionError(f"{what}: torch._int_mm refused both layouts")
+    return lib, layout
+
+
 def check_rns_matmul(torch, timer, gen, mset, label, step):
     """B1 on the planes of ``mset`` at one model's shapes, operands drawn
     over the full centred range of its widest modulus.  ``step`` lists each
@@ -303,31 +354,8 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
                                  f"kernel differs from the plain version "
                                  f"({err})")
         pad = max(M, 32)
-        a_mm = a if pad == M else torch.cat(
-            [a, a.new_zeros((C, pad - M, K))], dim=1)
-        # _int_mm on B as stored and on a K-contiguous copy (made here, not
-        # timed); the faster layout is the library time
-        lib, layout = None, None
-        for name, b_mm in (("B as stored (N contiguous)", b),
-                           ("B copied K-contiguous, copy not timed",
-                            b.transpose(1, 2).contiguous().transpose(1, 2))):
-            try:
-                lib_out = _int_mm_same(torch, a_mm, b_mm, mset.moduli, M)
-            except RuntimeError:
-                continue
-            if not torch.equal(lib_out, ref):
-                raise AssertionError(f"rns_matmul[{label}] M={M} K={K} "
-                                     f"N={N}: torch._int_mm differs from "
-                                     f"the plain version")
-            del lib_out
-            t = timer(lambda: _int_mm_same(torch, a_mm, b_mm, mset.moduli,
-                                           M), 10)
-            if lib is None or t < lib:
-                lib, layout = t, name
-            del b_mm
-        if lib is None:
-            raise AssertionError(f"rns_matmul[{label}] M={M} K={K} N={N}: "
-                                 f"torch._int_mm refused both layouts")
+        lib, layout = _int_mm_best(torch, timer, a, b, mset.moduli, ref,
+                                   f"rns_matmul[{label}] M={M} K={K} N={N}")
         del out, ref
         ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ms = timer(lambda: rns_matmul_cuda(a, b, mset.moduli), 10)
@@ -345,7 +373,7 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
               f"{earlier(key)} plain_ms={plain:.4f} library_ms(_int_mm"
               f"{padded}, {layout})={lib:.4f} yardstick bf16_bmm_ms="
               f"{bmm:.4f} bound_ms={bms:.4f} ({by})", flush=True)
-        del a, b, ab, bb, a_mm
+        del a, b, ab, bb
         torch.cuda.empty_cache()
     n = sum(c for _, c in step)
     keys = ("ms", "plain_ms", "library_ms", "yardstick_bf16_bmm_ms",
@@ -370,6 +398,199 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
                            "timed)",
                 shapes={f"{M},{K},{N}": {k: v[k] for k in keys + (
                     "bound_by",)} for (M, K, N), v in per.items()})
+
+
+def _segments(K, qmax, mset):
+    """The K segments ``numerics.runners.rns_run`` cuts a matmul into at
+    operand bound ``qmax``: as few as the dynamic range allows, rounded up
+    to 128 terms."""
+    from repro_torch.numerics.runners import segment_count
+
+    segs = segment_count(K, qmax, qmax, mset)
+    seg_len = -(-(-(-K // segs)) // 128) * 128
+    return [(lo, min(lo + seg_len, K)) for lo in range(0, K, seg_len)]
+
+
+def draft_step_launches(n_layers):
+    """B1 launches of one rns-drafter step (P16 at 3 bits, K segments)."""
+    from repro_torch.core.moduli import P16
+
+    per_layer = sum(len(_segments(K, 3, P16)) * n
+                    for (K, N), n in LAYER_MATMULS)
+    return n_layers * per_layer + len(_segments(LOGITS[0], 3, P16))
+
+
+def check_rns_matmul_spec(torch, timer, gen):
+    """B1 on the shapes speculative decoding gives it, bit for bit against
+    its plain version and timed at every qwen3 shape: the target's verify,
+    M = B (k + 1) = 40 rows of P21 planes (above the decode schedule's 16
+    rows: the prefill tile), with ``torch._int_mm`` beside it; and the rns
+    drafter's P16 = (31, 32, 33) planes at 3 bits, each matmul cut into the
+    K segments ``rns_run`` cuts it into (3 at K 4096, 7 at K 12288; strided
+    views of one operand), at M 8 (its decode steps) and M 40.  Operands
+    over the full centred range of the widest modulus (32's +16 included).
+    Returns one entry a (planes, M) with its step total."""
+    from repro_torch.core.moduli import P16, P21
+    from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+
+    mv = SERVE_B * (SPEC_K + 1)
+    res = {}
+    for label, mset, qmax, Ms in (("P21", P21, 7, (mv,)),
+                                  ("P16", P16, 3, (8, mv))):
+        C, h = mset.num_channels, max(mset.moduli) // 2
+        for M in Ms:
+            per, launches = {}, 0
+            for (K, N), cnt in QWEN3_STEP:
+                segs = _segments(K, qmax, mset)
+                launches += len(segs) * cnt
+                a = torch.randint(-h, h + 1, (C, M, K), generator=gen,
+                                  device="cuda", dtype=torch.int32).to(
+                                      torch.int8)
+                b = torch.randint(-h, h + 1, (C, K, N), generator=gen,
+                                  device="cuda", dtype=torch.int32).to(
+                                      torch.int8)
+                views = [(a[:, :, lo:hi], b[:, lo:hi]) for lo, hi in segs]
+                for av, bv in views:
+                    out = rns_matmul_cuda(av, bv, mset.moduli)
+                    if not torch.equal(out, rns_matmul_ref(av, bv,
+                                                           mset.moduli)):
+                        raise AssertionError(
+                            f"rns_matmul[{label}] M={M} K={K} N={N} segment "
+                            f"{av.shape[2]} at {av.storage_offset()}: "
+                            f"kernel differs from the plain version")
+                    del out
+
+                def run(fn=rns_matmul_cuda):
+                    return [fn(av, bv, mset.moduli) for av, bv in views]
+
+                ms = timer(run, 10)
+                plain = timer(lambda: run(rns_matmul_ref), 3)
+                lib = layout = None
+                if len(segs) == 1:
+                    ref = rns_matmul_ref(a, b, mset.moduli)
+                    lib, layout = _int_mm_best(
+                        torch, timer, a, b, mset.moduli, ref,
+                        f"rns_matmul[{label}] M={M} K={K} N={N}")
+                    del ref
+                nbytes = C * (M * K + K * N + 4 * M * N * len(segs))
+                bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+                per[(K, N)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound_ms=bms, bound_by=by,
+                                   segments=len(segs))
+                libtxt = ("" if lib is None else
+                          f" library_ms(_int_mm, {layout})={lib:.4f}")
+                print(f"[kernels] rns_matmul[{label},{mset.moduli}] C={C} "
+                      f"M={M} K={K} N={N} in {len(segs)} K segment(s): "
+                      f"bit-exact; kernel_ms={ms:.4f} plain_ms={plain:.4f}"
+                      f"{libtxt} bound_ms={bms:.4f} ({by})", flush=True)
+                del a, b, views
+                torch.cuda.empty_cache()
+            keys = ("ms", "plain_ms", "bound_ms")
+            total = {k: sum(per[s][k] * c for s, c in QWEN3_STEP)
+                     for k in keys}
+            if all(v["library_ms"] is not None for v in per.values()):
+                total["library_ms"] = sum(per[s]["library_ms"] * c
+                                          for s, c in QWEN3_STEP)
+            what = "verify" if label == "P21" else "draft"
+            print(f"[kernels] rns_matmul[{label}] one {what} step at M={M} "
+                  f"({launches} launches): " + " ".join(
+                      f"{k}={v:.3f}" for k, v in total.items()), flush=True)
+            res[f"{label},M={M}"] = dict(
+                total, launches_per_step=launches, max_abs_err=0,
+                shapes={f"{M},{K},{N}": v for (K, N), v in per.items()})
+    return res
+
+
+def check_paged_verify(torch, timer, gen):
+    """B3 at the folded shape of [serve-spec]'s verify: B (k + 1) = 40 rows,
+    each slot's block-table row repeated k + 1 times and its kv_len stepping
+    by one a row (slots at 257..316, qwen3 heads), on rns8 pages (the
+    target's) and bf16 pages (the draft's).  The folded launch's partials
+    equal, bit for bit, those of k + 1 launches of 8 rows (row j of every
+    slot), and its merged output its plain version's within the tolerance
+    of ``check_paged_decode``; timed beside SDPA over the gathered cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import (paged_decode_cuda,
+                                                paged_decode_ref)
+    from repro_torch.numerics import kv_pages as kvp
+    from repro_torch.numerics.attention import merge_decode_partials
+
+    B, V, H, Kv, hd, ps, n_pmax = SERVE_B, SPEC_K + 1, 32, 8, 128, 64, 6
+    P = 1 + B * n_pmax
+    base = torch.randint(257, 317, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    kv_len = (base[:, None] + torch.arange(V, device="cuda",
+                                           dtype=torch.int32)).reshape(-1)
+    tab1 = (1 + torch.randperm(B * n_pmax, generator=gen, device="cuda")
+            ).reshape(B, n_pmax).to(torch.int32)
+    tab = torch.repeat_interleave(tab1, V, dim=0)
+    q = torch.randn(B * V, H, hd, generator=gen, device="cuda").bfloat16()
+    dense = torch.randn(2, 1, B, n_pmax * ps, Kv, hd, generator=gen,
+                        device="cuda").bfloat16()
+    results = {}
+    for name in ("rns8", "bf16"):
+        fmt = kvp.KV_FORMATS[name]
+        pool = kvp.make_paged_kv(1, P, ps, Kv, hd, fmt=fmt, device="cuda")
+        kvp.scatter_prefill(pool, dense[0], dense[1], tab1, ps)
+        lay = kvp.layer_slice(pool, 0)
+        if fmt.is_residue:
+            pages = (lay.k.planes.select(-3, 0), lay.v.planes.select(-3, 0),
+                     lay.k.scale, lay.v.scale)
+            pack, row_bytes, kind = fmt.pack, hd + 4, "f32"
+        else:
+            pages, pack, row_bytes, kind = (lay.k, lay.v, None, None), None, \
+                2 * hd, "bf16"
+        args = (*pages, tab, kv_len, ps, pack)
+        parts = paged_decode_cuda(q, *args)
+        rows = torch.arange(B * V, device="cuda").reshape(B, V)
+        for j in range(V):
+            r = rows[:, j]
+            alone = paged_decode_cuda(q[r].contiguous(), *pages, tab1,
+                                      kv_len[r].contiguous(), ps, pack)
+            for a, b in zip(alone, parts):
+                if not torch.equal(a, b[r]):
+                    raise AssertionError(f"paged_decode[{name}, folded]: "
+                                         f"row {j} differs from its own "
+                                         f"launch")
+        out = merge_decode_partials(*parts)
+        ref = merge_decode_partials(*paged_decode_ref(q, *args))
+        err = float((out - ref).abs().max())
+        tol = 2e-3 if name == "bf16" else 1e-4
+        if not err <= tol:
+            raise AssertionError(f"paged_decode[{name}, folded]: max error "
+                                 f"{err} > {tol}")
+        vals = []
+        for leaf in (lay.k, lay.v):
+            rows_kv = leaf.to_int().float() * leaf.scale if fmt.is_residue \
+                else leaf.float()
+            vals.append(rows_kv[tab.long()].reshape(
+                B * V, n_pmax * ps, Kv, hd).transpose(1, 2).bfloat16()
+                .contiguous())
+        mask = (torch.arange(n_pmax * ps, device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        ms = timer(lambda: paged_decode_cuda(q, *args), 20)
+        plain = timer(lambda: paged_decode_ref(q, *args), 5)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], vals[0], vals[1], attn_mask=mask,
+            enable_gqa=True), 20)
+        n_rows = int(kv_len.sum())
+        # each slot's pages are read once for its V rows
+        uniq = int(kv_len.reshape(B, V)[:, -1].sum())
+        nbytes = (2 * q.numel() + 2 * uniq * Kv * row_bytes
+                  + 4 * B * V * H * n_pmax * (hd + 2) + 4 * tab1.numel()
+                  + 4 * B * V)
+        bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, kind)
+        print(f"[kernels] paged_decode[{name}, folded verify] {B} slots x "
+              f"V={V} rows, kv_len {int(kv_len.min())}..{int(kv_len.max())}"
+              f" stepping by one a row: rows equal their own launches bit "
+              f"for bit; max_abs_err={err:.3e} (tol {tol}); kernel_ms="
+              f"{ms:.4f} plain_ms={plain:.4f} library_ms(sdpa gathered)="
+              f"{lib:.4f} bound_ms={bms:.5f} ({by})", flush=True)
+        results[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bms, bound_by=by, max_abs_err=err)
+        del pool, lay, pages, args, parts, vals
+    return results
 
 
 def check_flash_attention(torch, timer, gen):
@@ -759,12 +980,17 @@ def check_sd_add(torch, timer):
     n = wa.digit_width
     x, y = wa.planes.reshape(-1, n), wb.planes.reshape(-1, n)
     res = {}
+    # the same digits from an odd storage offset (bases off every alignment)
+    cut = (x.numel() - 5) // n * n
+    xu, yu = (t.reshape(-1)[5:5 + cut].view(-1, n) for t in (x, y))
     for kind in KINDS:
-        out = sd_add_cuda(x, y, kind)
-        if not torch.equal(out, sd_add_ref(x, y, kind)):
-            raise AssertionError(f"sd_add[{kind}]: differs from the plain "
-                                 f"version")
-        del out
+        for a, b in ((x, y), (xu, yu)):
+            out = sd_add_cuda(a, b, kind)
+            if not torch.equal(out, sd_add_ref(a, b, kind)):
+                raise AssertionError(f"sd_add[{kind}] (storage offset "
+                                     f"{a.storage_offset()}): differs from "
+                                     f"the plain version")
+            del out
         ms = timer(lambda: sd_add_cuda(x, y, kind), 10)
         plain = timer(lambda: sd_add_ref(x, y, kind), 3)
         yard = timer(lambda: torch.add(x, y), 10)
@@ -773,7 +999,9 @@ def check_sd_add(torch, timer):
         res[kind] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                          yardstick_int8_add_ms=yard)
         print(f"[kernels] sd_add[{kind}] {x.shape[0]} vectors of {n} "
-              f"digits: bit-exact; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"digits: bit-exact (and from storage offset 5); kernel_ms="
+              f"{ms:.4f}"
+              f"{earlier(f'sd_add[{kind}]')} plain_ms={plain:.4f} "
               f"bound_ms={bms:.4f} ({by}); yardstick int8 torch.add_ms="
               f"{yard:.4f}", flush=True)
     kernels.reset_launch_counts()
@@ -1058,7 +1286,148 @@ def serve_full_width(torch):
             res.prefill_logits).all():
         raise AssertionError("prefill logits not finite or misshapen")
     print(f"[serve] seq0 tokens {res.tokens[0, :16].tolist()}", flush=True)
-    return counts
+    return counts, (model, engine.params, prompts, res.tokens)
+
+
+def _pool_leaves(kv):
+    out = []
+    for t in kv:
+        out += [t.planes, t.scale] if hasattr(t, "planes") else [t]
+    return out
+
+
+def serve_spec(torch, model, params, prompts, plain):
+    """Phase [serve-spec]: speculative decoding on [serve]'s model, weights
+    and prompts (qwen3-8b at full width and depth, P21 planes, rns8 pages,
+    B 8, 256-token prompts; ``plain`` its greedy tokens).
+
+    1. One ``verify_paged`` call of V = k + 1 tokens a slot (the first V of
+       ``plain``) against V ``decode_paged`` steps on a copy of the same
+       pool: logits rows and final page bytes equal bit for bit, the rows'
+       argmax equal [serve]'s next tokens, and the verify launches B1 253
+       times (M 40) and B3 36 times (40 folded rows).
+    2. ``spec="ngram:4"`` and ``spec="rns:4"`` (the draft derived from the
+       target's planes: P16 at 3 bits) for ``SPEC_NEW`` tokens each: tokens
+       equal ``plain``'s (0 differ), launch counts exact per verify and per
+       propose.
+    """
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models.api import resident_bytes
+    from repro_torch.numerics import kv_pages as kvp
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = model.cfg
+    B, plen = prompts.shape
+    V, ps = SPEC_K + 1, 64
+    s_max = plen + SERVE_NEW + 1
+    n_pmax = -(-s_max // ps)
+    L = cfg.n_layers
+    per_step = 7 * L + 1
+    out = {}
+
+    # 1. the verify against sequential decode steps
+    logits, cache = model.prefill(params, prompts, s_max=s_max)
+    del logits
+    pool = kvp.make_paged_kv(L, 1 + B * n_pmax, ps, cfg.n_kv, cfg.hd,
+                             fmt="rns8", device="cuda")
+    tab = torch.arange(1, 1 + B * n_pmax, dtype=torch.int32,
+                       device="cuda").reshape(B, n_pmax)
+    kvp.scatter_prefill(pool, cache[0], cache[1], tab, ps)
+    del cache
+    seq = kvp.make_paged_kv(L, 1 + B * n_pmax, ps, cfg.n_kv, cfg.hd,
+                            fmt="rns8", device="cuda")
+    for a, b in zip(_pool_leaves(seq), _pool_leaves(pool)):
+        a.copy_(b)
+    toks = torch.as_tensor(plain[:, :V], device="cuda").long()
+    pos0 = torch.full((B,), plen, dtype=torch.int32, device="cuda")
+    rows = []
+    for j in range(V):
+        lg, seq = model.decode_paged(params, toks[:, j:j + 1], seq, tab,
+                                     pos0 + j, page_size=ps)
+        rows.append(lg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lv, pool = model.verify_paged(params, toks, pool, tab, pos0,
+                                  page_size=ps)
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = dict(NO_LAUNCHES, rns_matmul=per_step, paged_decode=L)
+    if counts != want:
+        raise AssertionError(f"verify launch counts {counts}, expected "
+                             f"{want}")
+    for j in range(V):
+        if not torch.equal(lv[:, j], rows[j]):
+            raise AssertionError(f"serve-spec: verify row {j} differs from "
+                                 f"decode step {j}")
+    for a, b in zip(_pool_leaves(seq), _pool_leaves(pool)):
+        if not torch.equal(a[:, 1:], b[:, 1:]):
+            raise AssertionError("serve-spec: page bytes after the verify "
+                                 "differ from the sequential steps'")
+    nxt = torch.argmax(lv, dim=-1).cpu().numpy()
+    if not np.array_equal(nxt, plain[:, 1:V + 1]):
+        raise AssertionError("serve-spec: the verify's argmax rows differ "
+                             "from [serve]'s next tokens")
+    print(f"[serve-spec] verify_paged V={V} ({B * V} rows): logits rows and "
+          f"page bytes equal {V} decode_paged steps bit for bit; argmax "
+          f"rows equal [serve]'s tokens 1..{V}; launches "
+          f"{json.dumps(counts)}; host_s={t_verify:.3f}", flush=True)
+    del pool, seq, lv, rows
+    torch.cuda.empty_cache()
+
+    # 2. the two drafters through the engine
+    d_step = draft_step_launches(L)
+    for spec, new in SPEC_NEW.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = ServingEngine(model, params, batch=B, s_max=s_max,
+                               page_size=ps, kv_format="rns8", device="cuda",
+                               spec=spec)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        rns = spec.startswith("rns")
+        draft_bytes = resident_bytes(engine._drafter.params) if rns else 0
+        kernels.reset_launch_counts()
+        res = engine.generate({"tokens": prompts}, max_new=new)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sp, st = res.stats.spec, res.stats
+        steps = sp.verify_steps
+        want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                    flash_attention=L, paged_decode=L * steps)
+        if rns:     # the draft's prefill, then k + 1 draft steps a propose
+            want["rns_matmul"] += d_step * (1 + V * steps)
+            want["flash_attention"] += L
+            want["paged_decode"] += L * V * steps
+        print(f"[serve-spec] spec={spec} new={new}: {sp}; acceptance="
+              f"{sp.acceptance_rate:.3f} mean_block={sp.mean_accepted_len:.2f}"
+              f"; prefill_s={st.prefill_s:.3f} decode_s={st.decode_s:.3f} "
+              f"decode_tok_s={sp.emitted / st.decode_s:.2f} ms_per_verify="
+              f"{1e3 * st.decode_s / max(steps, 1):.1f}; engine_build_s="
+              f"{t_build:.2f} draft resident bytes={draft_bytes} "
+              f"max_memory_allocated={peak}", flush=True)
+        print(f"[serve-spec] spec={spec} launches {json.dumps(counts)}",
+              flush=True)
+        if counts != want:
+            raise AssertionError(f"serve-spec {spec}: launch counts {counts},"
+                                 f" expected {want}")
+        differ = int((res.tokens != plain[:, :new]).sum())
+        if res.tokens.shape != (B, new) or differ:
+            raise AssertionError(f"serve-spec {spec}: {differ} tokens differ "
+                                 f"from plain greedy decoding")
+        print(f"[serve-spec] spec={spec}: 0 of {B * new} tokens differ from "
+              f"[serve]'s greedy tokens", flush=True)
+        out[spec] = dict(counts=counts, verify_steps=steps,
+                         launches_b1_per_verify=per_step
+                         + (V * d_step if rns else 0))
+        del engine, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def serve_redundant(torch):
@@ -1497,11 +1866,16 @@ def main() -> int:
     fd = check_flash_decode(torch, timer, gen)
     sdm, sdv = check_sdrns_matmul(torch, timer, gen)
     sda = check_sd_add(torch, timer)
+    rm_s = check_rns_matmul_spec(torch, timer, gen)
+    pv = check_paged_verify(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()
     check_small(torch)
     check_small_hybrid(torch)
-    counts = serve_full_width(torch)
+    counts, ctx = serve_full_width(torch)
+    spec = serve_spec(torch, *ctx)
+    del ctx
+    gc.collect()
     torch.cuda.empty_cache()
     counts_r = serve_redundant(torch)
     gc.collect()
@@ -1560,6 +1934,12 @@ def main() -> int:
     # B1 at zamba2-7b's shapes, one decode step of [serve-hybrid]
     line["kernels"][0]["zamba2"] = dict(rm_h,
                                         launches=counts_hy["rns_matmul"])
+    # [serve-spec]: B1 at the verify's M 40 and on the draft's P16 planes,
+    # B3 at the folded verify shape, with the launches of each drafter's run
+    line["kernels"][0]["spec"] = dict(
+        rm_s, launches={k: v["counts"]["rns_matmul"] for k, v in spec.items()})
+    line["kernels"][2]["spec"] = dict(
+        pv, launches={k: v["counts"]["paged_decode"] for k, v in spec.items()})
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-// Signed-digit (SD) residue arithmetic shared by sdrns_matmul.cu and
-// sd_add.cu: the two-step carry-free rule, the Eq. 2 rotations and the
-// pairwise adder trees of repro/core/sd.py and repro/core/sdrns.py.
+// Signed-digit (SD) residue arithmetic of sdrns_matmul.cu: the two-step
+// carry-free rule, the Eq. 2 rotations and the pairwise adder trees of
+// repro/core/sd.py and repro/core/sdrns.py (sd_add_tiles.cuh runs the same
+// rule on lanes of any width for kernel B8).
 //
 // The kernels take and give int8 digits in {-1, 0, 1}, LSB first.  The
 // end-around transfer sign WS is +1 for 2^n - 1, 0 for 2^n and -1 for
@@ -418,46 +419,6 @@ SD_HD void join_word(const MatmulArgs& g, int c, int m, int w) {
       }
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Batched addition (kernel B8): one digit vector per call, n <= 16 digits
-// at run time (the unrolled loops keep the arrays in registers).  ws is
-// the end-around sign; plain (ws 0) writes the transfer out of the top
-// position as digit n (sd.carry_free_add).
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxAddDigits = 16;
-
-template <int WS>
-SD_HD void add_vector(const int8_t* x, const int8_t* y, int8_t* out, int n,
-                      bool plain) {
-  int p[kMaxAddDigits], t[kMaxAddDigits];
-  int ptop = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxAddDigits; ++i) {
-    if (i < n) {
-      p[i] = (int)x[i] + (int)y[i];
-      if (i == n - 1) ptop = p[i];
-    }
-  }
-  int ttop = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxAddDigits; ++i) {
-    if (i < n) {
-      const int prev = i == 0 ? WS * ptop : p[i - 1];
-      t[i] = (p[i] + (prev >= 0 ? 1 : 0)) >> 1;
-      if (i == n - 1) ttop = t[i];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxAddDigits; ++i) {
-    if (i < n) {
-      const int w = p[i] - 2 * t[i];
-      out[i] = (int8_t)(w + (i == 0 ? WS * ttop : t[i - 1]));
-    }
-  }
-  if (plain) out[n] = (int8_t)ttop;
 }
 
 }  // namespace sdk

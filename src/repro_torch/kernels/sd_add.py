@@ -6,9 +6,12 @@ end-around transfer of ``kind`` (``"pow2m1"`` / ``"pow2"`` / ``"pow2p1"``),
 or for ``"plain"`` no wrap and the transfer out kept as digit n
 (``(B, n + 1)`` out).
 
-* :func:`sd_add_cuda` launches ``csrc/sd_add.cu``, one thread per digit
-  vector (the reference pads the digit axis to 128 lanes; here the vectors
-  stay n bytes).  Bound by bytes on the H100.
+* :func:`sd_add_cuda` launches ``csrc/sd_add.cu``: a block stages a tile of
+  1024 vectors through shared memory with 16-byte copies, and each thread
+  adds four vectors at once on packed (nonzero, sign) masks
+  (``csrc/sd_add_tiles.cuh``).  The reference pads the digit axis to 128
+  lanes; here the vectors stay n bytes, at any base address (a view on a
+  storage offset).  Bound by bytes on the H100.
 * :func:`sd_add_ref` is the plain version, a port of
   ``repro/kernels/ref.py::sd_add_ref`` (``sd.carry_free_add`` for
   ``"plain"``, else ``sdrns.modular_add``).

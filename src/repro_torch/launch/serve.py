@@ -14,6 +14,11 @@ multiple of the SSM chunk (256) long, or shorter than one chunk.
 weight: at full width only a cut depth fits one card (``chip_smoke.py``
 cuts qwen3-8b to 8 of 36 layers through the Python API).
 
+``--spec ngram:4`` (or ``rns:4``) decodes speculatively: a drafter
+proposes 4 tokens a slot and the target verifies them in one batched step
+(paged serving and greedy sampling only; the tokens equal plain decoding),
+and a summary line gives the verify steps and the acceptance.
+
 Weights are random, made from ``--seed``.  ``--device cpu`` runs the plain
 PyTorch versions of the kernels (use ``--reduced`` there).
 """
@@ -43,6 +48,10 @@ def main(argv=None):
     ap.add_argument("--kv-format", default="bf16",
                     choices=("bf16", "rns8", "rns4"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spec", default=None, metavar="DRAFTER[:K]",
+                    help='speculative decoding drafter: "ngram[:k]" or '
+                         '"rns[:k]" (greedy only; paged engines). Output '
+                         "tokens equal plain decoding")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -53,7 +62,8 @@ def main(argv=None):
     B, P = args.batch, args.prompt_len
     engine = ServingEngine(model, params, batch=B,
                            s_max=P + args.max_new + 1,
-                           kv_format=args.kv_format, device=args.device)
+                           kv_format=args.kv_format, device=args.device,
+                           spec=args.spec)
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
@@ -68,6 +78,11 @@ def main(argv=None):
     print(f"[serve] {args.arch} system={args.system} kv={kv} "
           f"device={model.device} B={B} prompt={P} new={args.max_new}: "
           f"{dt:.2f}s ({B * args.max_new / dt:.1f} tok/s)")
+    if engine.stats.spec is not None:
+        sp = engine.stats.spec
+        print(f"[serve] spec={args.spec}: {sp.verify_steps} verify steps "
+              f"for {sp.emitted} tokens (accept={sp.acceptance_rate:.2f}, "
+              f"mean block={sp.mean_accepted_len:.2f})")
     for b in range(min(B, 2)):
         print(f"  seq{b}: {res.tokens[b].tolist()}")
     return 0

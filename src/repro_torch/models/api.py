@@ -11,6 +11,9 @@ families:
   by their planes);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
   float tree (identity for ``bns``; idempotent on prepared trees);
+* ``prepare_weight(w)`` -- one float ``(K, N)`` weight made resident as
+  ``prepare_params`` makes each (the speculative drafter re-encodes the
+  target's weights one at a time through it);
 * ``prefill(params, tokens, s_max=None, logits_at=None)`` -- logits and
   the family's cache (``models/transformer.py``);
 * ``init_cache(batch, s_max)`` -- a zeroed cache of that layout;
@@ -19,7 +22,10 @@ families:
 * ``decode_paged(params, token, kv, block_tab, pos, page_size=...,
   with_syndrome=False)`` -- dense family only (``None`` for hybrid); with
   the syndrome it also returns the ``(B, L)`` count of KV elements whose
-  witnesses disagree (rns8r pages).
+  witnesses disagree (rns8r pages);
+* ``verify_paged(params, tokens, kv, block_tab, pos, page_size=...)`` --
+  the speculative verify of ``tokens (B, V)`` at ``pos .. pos + V - 1``,
+  ``(logits (B, V, vocab), kv)``; dense family only.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -59,11 +65,14 @@ class Model:
     device: torch.device
     init: Callable[..., Any]
     prepare_params: Callable[[Any], Any]
+    prepare_weight: Callable[[torch.Tensor], Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
-    # paged serving; None for families without a paged decode (hybrid)
+    # paged serving and its speculative verify; None for families without
+    # a paged decode (hybrid)
     decode_paged: Callable[..., Any] | None = None
+    verify_paged: Callable[..., Any] | None = None
 
 
 def build_model(cfg: ArchConfig, *, system: str = "bns",
@@ -109,6 +118,11 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
                 out["table"].to(torch.float32).T, **prep_kw)
         return out
 
+    def prepare_weight(w):
+        if system == "bns":
+            return w
+        return residency.prepare_weight(w, **prep_kw)
+
     def prepare_params(params):
         """Every dense weight and the tied logits weight (``table.T``,
         stored as ``embed.logits_w``) become residue-resident."""
@@ -150,11 +164,21 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             dense_kw=dense_kw, cache_dtype=cache_dtype,
             with_syndrome=with_syndrome)
 
+    @torch.no_grad()
+    def verify_paged(params, tokens, kv, block_tab, pos, *, page_size,
+                     cache_dtype=torch.bfloat16):
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        return tf_mod.lm_verify_paged(
+            params, cfg, tokens, kv, block_tab, pos, page_size=page_size,
+            dense_kw=dense_kw, cache_dtype=cache_dtype)
+
+    dense = cfg.family == "dense"
     return Model(cfg=cfg, device=dev, init=init,
-                 prepare_params=prepare_params, prefill=prefill,
+                 prepare_params=prepare_params,
+                 prepare_weight=prepare_weight, prefill=prefill,
                  decode=decode, init_cache=init_cache,
-                 decode_paged=decode_paged if cfg.family == "dense"
-                 else None)
+                 decode_paged=decode_paged if dense else None,
+                 verify_paged=verify_paged if dense else None)
 
 
 def resident_bytes(params: Any) -> int:

@@ -5,7 +5,9 @@ the causal flash attention kernel and hands back this layer's KV cache
 (zero-padded to ``s_max``); dense decode writes the new token's K/V into
 the layer's contiguous cache in place and runs the split-KV decode kernel
 over it; paged decode appends them to the slot's page and runs the
-split-KV paged decode kernel over the slot's page list.  KV heads stay
+split-KV paged decode kernel over the slot's page list; the speculative
+verify appends a block of V tokens a slot and runs the same kernel with the
+V rows folded into its batch.  KV heads stay
 ungrouped ``(B, T, Kv, hd)``; the kernels map query head ``h`` onto KV
 head ``h // (H // Kv)``.
 """
@@ -21,7 +23,8 @@ from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as nxkv
 
 __all__ = ["KVCache", "init_attention", "prefill_attention",
-           "decode_attention", "paged_decode_attention"]
+           "decode_attention", "paged_decode_attention",
+           "paged_verify_attention"]
 
 
 class KVCache(NamedTuple):
@@ -152,3 +155,42 @@ def paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",
     if with_syndrome:
         return out, kv_layer, syn
     return out, kv_layer
+
+
+def paged_verify_attention(params, x, kv_layer: "nxkv.PagedKV",
+                           block_tab: torch.Tensor, positions: torch.Tensor,
+                           *, page_size: int, n_heads, n_kv, head_dim,
+                           qk_norm=False, rope_theta=1e4, dense_kw=None,
+                           cache_dtype=torch.bfloat16):
+    """The speculative verify step over one layer's paged pool.
+
+    x: (B, V, D), each slot's current last token and ``V - 1`` drafted ones
+    at ``positions (B, V)``.  All V rows' K/V go into the slot's pages in
+    one write (:func:`nxkv.append_token` with (B, V) page and offset
+    grids), then each row attends over its own prefix in one folded launch
+    (:func:`nxattn.paged_verify`).  Row ``j`` equals a sequential decode
+    that had emitted rows ``< j``: it reads only rows the acceptance rule
+    has already pinned.  Positions past the block table go to the dump page
+    (page 0), not into the slot's last page as the one-token decode's clamp
+    would: a speculative tail may overshoot the allocation, and clamping
+    would overwrite live rows.  Returns ``(out (B, V, D), kv_layer)``.
+    """
+    dense_kw = dense_kw or {}
+    B, V, _ = x.shape
+    positions = positions.to(device=x.device, dtype=torch.int32)
+    q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
+                           head_dim=head_dim, qk_norm=qk_norm,
+                           positions=positions, rope_theta=rope_theta,
+                           dense_kw=dense_kw)
+    n_pmax = block_tab.shape[1]
+    page_idx = (positions // page_size).long()
+    pages = torch.gather(block_tab.long(), 1,
+                         torch.clamp(page_idx, 0, n_pmax - 1))
+    pages = torch.where(page_idx < n_pmax, pages, 0)   # overshoot: dump
+    kv_layer = nxkv.append_token(kv_layer, k.to(cache_dtype),
+                                 v.to(cache_dtype), pages,
+                                 positions % page_size)
+    o = nxattn.paged_verify(q, kv_layer, block_tab, positions + 1,
+                            page_size=page_size)
+    out = o.to(q.dtype).reshape(B, V, n_heads * head_dim)
+    return linear.dense(params["wo"], out, **dense_kw), kv_layer

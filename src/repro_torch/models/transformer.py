@@ -1,5 +1,5 @@
 """Decoder-only LM, dense and hybrid families: init, prefill, dense-cache
-decode and paged decode.
+decode, paged decode and the paged speculative verify.
 
 Port of the dense- and hybrid-family paths of
 ``repro/models/transformer.py``.  The reference's ``lax.scan`` over stacked
@@ -37,7 +37,7 @@ from repro_torch.models.ssm import Mamba2Dims, SsmCache
 from repro_torch.numerics import kv_pages as kvp
 
 __all__ = ["init_lm", "init_lm_cache", "lm_prefill", "lm_decode",
-           "lm_decode_paged", "ssm_dims", "hybrid_groups"]
+           "lm_decode_paged", "lm_verify_paged", "ssm_dims", "hybrid_groups"]
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -361,3 +361,38 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     if with_syndrome:
         return logits, kv, torch.stack(syns, dim=1)
     return logits, kv
+
+
+def lm_verify_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
+                    kv: "kvp.PagedKV", block_tab: torch.Tensor,
+                    pos: torch.Tensor, *, page_size: int, dense_kw=None,
+                    cache_dtype=torch.bfloat16):
+    """Speculative verify: V tokens a slot in one batched paged step (the
+    pool updated in place).
+
+    tokens: (B, V) int, each slot's current last token then ``V - 1``
+    drafted ones, at positions ``pos[b] .. pos[b] + V - 1``.  Returns
+    ``(logits (B, V, vocab), kv)``: row ``j`` is the target's distribution
+    after ``tokens[:, j]``, over the prefix a sequential decode would have
+    seen.  The layers are :func:`lm_decode_paged`'s with the token axis
+    widened from 1 to V: every weight matmul runs over ``B * V`` rows.
+    """
+    if cfg.family != "dense":
+        raise ValueError(f"paged verify supports the dense family, not "
+                         f"{cfg.family!r}")
+    _check_family(cfg)
+    dense_kw = dense_kw or {}
+    cd = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], tokens, cd)
+    V = tokens.shape[1]
+    positions = pos.to(device=x.device, dtype=torch.int32)[:, None] + \
+        torch.arange(V, dtype=torch.int32, device=x.device)[None, :]
+    akw = dict(_attn_kw(cfg, dense_kw), cache_dtype=cache_dtype)
+    for i, lp in enumerate(params["layers"]):
+        h, lay = attn_mod.paged_verify_attention(
+            lp["attn"], rmsnorm(lp["attn_norm"], x), kvp.layer_slice(kv, i),
+            block_tab, positions, page_size=page_size, **akw)
+        kv = kvp.layer_update(kv, i, lay)
+        x = x + h
+        x = x + _mlp_block(lp, x, dense_kw)
+    return _logits(params, cfg, x, dense_kw), kv

@@ -11,7 +11,10 @@
   entry; on rns8r pages it can also count witness mismatches in the same
   pass (``syndrome=True``).
 
-Both decodes combine their partials with :func:`merge_decode_partials`.
+* :func:`paged_verify` -- the speculative verify's V rows a slot over the
+  paged pool: the V axis folded into the paged decode's batch, one launch.
+
+The decodes combine their partials with :func:`merge_decode_partials`.
 
 The implementation follows the device of ``q`` (numerics/registry).
 """
@@ -30,7 +33,7 @@ from repro_torch.kernels.flash_attn import (
 from repro_torch.numerics import kv_pages as _kv
 from repro_torch.numerics.registry import get_impl, register_impl
 
-__all__ = ["flash_attention", "flash_decode", "paged_decode",
+__all__ = ["flash_attention", "flash_decode", "paged_decode", "paged_verify",
            "merge_decode_partials", "pick_block", "set_decode_block"]
 
 DEFAULT_DECODE_BLOCK = 512     # the reference's DEFAULT_BLOCKS[1]
@@ -145,3 +148,22 @@ def paged_decode(q: torch.Tensor, kv_layer: "_kv.PagedKV",
         # nonzero only on GQA lead heads: the sum counts each element once
         return out, parts[3].sum(dim=(1, 2), dtype=torch.int32)
     return out
+
+
+def paged_verify(q: torch.Tensor, kv_layer: "_kv.PagedKV",
+                 block_tab: torch.Tensor, kv_len: torch.Tensor, *,
+                 page_size: int) -> torch.Tensor:
+    """Multi-token attention over one layer's paged pool (the speculative
+    verify step).
+
+    q: (B, V, H, hd); block_tab: (B, n_pmax); kv_len: (B, V) per-row valid
+    lengths.  Row ``(b, j)`` becomes row ``b * V + j`` of one
+    :func:`paged_decode` with its slot's block-table row repeated and its
+    own ``kv_len``, so every row runs the one-token kernel's arithmetic on
+    its own prefix: one launch, no new kernel.  Returns (B, V, H, hd) f32.
+    """
+    B, V, H, hd = q.shape
+    tab = torch.repeat_interleave(block_tab, V, dim=0)
+    out = paged_decode(q.reshape(B * V, H, hd), kv_layer, tab,
+                       kv_len.reshape(B * V), page_size=page_size)
+    return out.reshape(B, V, H, hd)

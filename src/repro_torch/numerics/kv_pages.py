@@ -213,10 +213,14 @@ def repair_pages(t: ResidueTensor, layers, pages):
 
 def append_token(kv_layer: PagedKV, k_new: torch.Tensor, v_new: torch.Tensor,
                  pages: torch.Tensor, offs: torch.Tensor) -> PagedKV:
-    """Write one token per slot into one layer's pool, in place.
+    """Write one token per slot, or a block of them, into one layer's pool,
+    in place.
 
-    ``k_new``/``v_new``: (B, Kv, hd) in the cache dtype; ``pages``/``offs``:
-    (B,) int positions in the pool.
+    ``k_new``/``v_new``: (B, Kv, hd) in the cache dtype with ``pages`` /
+    ``offs`` (B,) int positions in the pool; the speculative verify writes
+    a block at once with (B, V, Kv, hd) values and (B, V) grids (the
+    indexed write and the page quantizer work over any leading axes).
+    Rows meant to land nowhere point at the dump page, page 0.
     """
     fmt = kv_format_of(kv_layer)
     pages, offs = pages.long(), offs.long()

@@ -30,6 +30,16 @@ The fault layer (DESIGN.md §12 and §15) rides on the segment:
   (``kv_pages.verify_pages``) are checked and repaired; the counts are read
   after the segment.
 
+Speculative decoding (``spec="ngram:k"`` / ``"rns:k"``, paged and greedy
+only, no ``policy``): a drafter (``serving/drafters.py``) proposes ``k``
+tokens a slot, the target verifies them with its current token in one
+batched ``verify_paged`` step (``k + 1`` rows a slot, one folded paged
+decode launch a layer), and the greedy rule (``serving/spec.py``) emits the
+longest agreed prefix plus the target's next token.  Slots advance by
+ragged blocks; the tokens equal plain greedy decoding.  The pages get
+``k`` positions of headroom for the verify's overshoot.  The loop reads the
+device once a verify step, for the halt test.
+
 Dense: ``generate`` keeps the cache the prefill made (KV padded to
 ``s_max``, and the hybrid family's SSM state) and decodes every slot at
 the uniform position ``prompt_len + i``, one ``model.decode`` per token, in
@@ -57,8 +67,10 @@ from repro_torch.numerics import api as nx
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant.residency import map_resident
+from repro_torch.serving.drafters import make_drafter
 from repro_torch.serving.kv_pool import KVPagePool
-from repro_torch.serving.stats import EngineStats, RequestStats
+from repro_torch.serving.spec import SpecConfig, accept_blocks
+from repro_torch.serving.stats import EngineStats, RequestStats, SpecStats
 
 __all__ = ["ServingEngine", "GenerateResult"]
 
@@ -79,7 +91,7 @@ class ServingEngine:
                  num_pages: int | None = None, cache_dtype=torch.bfloat16,
                  device: torch.device | str = "cuda", scrub: str = "off",
                  policy: str = "off", quarantine_after: int = 3,
-                 paged: bool | None = None):
+                 paged: bool | None = None, spec=None):
         """``paged``: ``None`` serves from the page pool when the model has
         a paged decode, else from the dense cache; ``False`` pins the
         dense cache (a ``True`` the model cannot serve falls back to it,
@@ -95,6 +107,12 @@ class ServingEngine:
         ``"correct"`` or ``"strict"`` escalation of the in-kernel KV
         syndromes (needs ``kv_format="rns8r"``); ``quarantine_after`` is
         the number of faults after which ``"strict"`` retires a page.
+
+        ``spec``: speculative decoding, a :class:`SpecConfig` or a
+        ``"ngram"`` / ``"ngram:k"`` / ``"rns"`` / ``"rns:k"`` string (module
+        docstring).  It needs paged serving, greedy sampling and
+        ``policy="off"``; the ``rns`` drafter derives its draft weights
+        from this engine's resident ones here.
         """
         dev = resolve_device(device)
         if dev != model.device:
@@ -127,6 +145,22 @@ class ServingEngine:
                                    cfg.n_kv, cfg.hd, fmt=kv_format,
                                    dtype=cache_dtype, device=dev)
             self.stats.pool = self.pool.stats
+
+        self.spec = None
+        self._drafter = None
+        if spec is not None:
+            if not self.paged:
+                raise ValueError("spec= needs paged serving (a family with a "
+                                 "paged decode, and paged not False)")
+            if policy != "off":
+                raise ValueError("policy= is not supported with speculative "
+                                 "decoding (the verify step is syndrome-free)")
+            self.spec = SpecConfig.parse(spec)
+            self._drafter = make_drafter(
+                self.spec, model, self.params, num_pages=self.pool.num_pages,
+                page_size=page_size, n_pmax=self.n_pmax,
+                cache_dtype=cache_dtype)
+            self.stats.spec = SpecStats()
 
         self._scrub_groups = 0      # rotate:k group count (0: everything)
         self._scrub_cursor = 0      # the group the next segment checks
@@ -318,6 +352,103 @@ class ServingEngine:
         self.stats.decode_dispatches += n
         return buf.cpu().numpy(), n, done
 
+    # -- the speculative segment ---------------------------------------------
+
+    def _spec_begin(self, prompts: torch.Tensor, tok: torch.Tensor,
+                    tabs: np.ndarray) -> None:
+        """Register the batch's prompts with the drafter (the rns drafter
+        prefills its shadow pages through the same block tables)."""
+        B, S = prompts.shape
+        p_np, t_np = prompts.cpu().numpy(), tok[:, 0].cpu().numpy()
+        self._spec_state = self._drafter.begin(
+            self._drafter.init_state(B), {b: p_np[b] for b in range(B)},
+            {b: int(t_np[b]) for b in range(B)}, prompts,
+            torch.as_tensor(tabs, device=self.device), S)
+
+    def _run_spec_segment(self, tok0, tab, pos0, eos, done, remaining, seg):
+        """Speculative decode from ``tok0`` (already emitted) at per-slot
+        positions ``pos0``, all operands device tensors.
+
+        Each step: the drafter proposes ``k`` tokens, the target verifies
+        ``tok + drafts`` in one ``verify_paged`` call (all ``k + 1`` KV rows
+        written; rejected rows are rewritten by the next step at the same
+        positions and masked by ``kv_len`` until then), and the greedy rule
+        emits ``m`` tokens a live slot into ``buf`` at its own count.
+        Finished slots freeze.  Returns ``(buf (B, seg + 1), counts (B,),
+        steps, done (B,), proposed, accepted)``, the counters on the device;
+        row ``b`` holds ``counts[b]`` tokens (column ``seg`` takes the
+        rejected rows' writes).
+        """
+        drafter, k = self._drafter, self._drafter.k
+        B = tok0.shape[0]
+        dev = self.device
+        j = torch.arange(k + 1, device=dev)[None, :]
+        done = done | ((eos >= 0) & (tok0[:, 0] == eos)) | (remaining <= 0)
+        buf = torch.zeros((B, seg + 1), dtype=torch.long, device=dev)
+        cnt = torch.zeros(B, dtype=torch.long, device=dev)
+        prop = torch.zeros((), dtype=torch.long, device=dev)
+        acc = torch.zeros((), dtype=torch.long, device=dev)
+        tok, pos, state, it = tok0, pos0, self._spec_state, 0
+        halt = seg <= 0 or bool(done.all())
+        while not halt:
+            live = ~done
+            drafts, state = drafter.propose(state, tok, pos, tab)
+            logits, _ = self.model.verify_paged(
+                self.params, torch.cat([tok, drafts], dim=1), self.pool.kv,
+                tab, pos, page_size=self.page_size,
+                cache_dtype=self.cache_dtype)
+            blk = torch.argmax(logits, dim=-1)                  # (B, k + 1)
+            m, n_acc = accept_blocks(drafts, blk, eos=eos,
+                                     budget=remaining - cnt, live=live)
+            emit = j < m[:, None]
+            buf.scatter_(1, torch.where(emit, cnt[:, None] + j, seg), blk)
+            cnt = cnt + m
+            pos = pos + m
+            last = blk.gather(1, (m - 1).clamp(min=0)[:, None])
+            tok = torch.where(live[:, None], last, tok)
+            hit_eos = (emit & (eos[:, None] >= 0)
+                       & (blk == eos[:, None])).any(dim=1)
+            done = done | (live & (hit_eos | (cnt >= remaining)))
+            state = drafter.observe(state, blk, m, pos - m, tab)
+            prop = prop + k * live.sum()
+            acc = acc + torch.where(live, torch.minimum(
+                n_acc, (m - 1).clamp(min=0)), 0).sum()
+            it += 1
+            # the one host read of a verify step: the halt test
+            halt = it >= seg or bool(done.all())
+        self._spec_state = state
+        return buf, cnt, it, done, prop, acc
+
+    def _dispatch_spec_segment(self, tok0, pos0, eos_vec, done0, remaining,
+                               tabs, seg):
+        """One speculative segment under the scrub: host arrays in, as
+        :meth:`_dispatch_segment`.  Returns ``(tokens (B, n) host, steps,
+        done (B,), SpecStats)``; row ``b`` holds its ``counts[b]`` tokens
+        and zeros after them, ``n`` the largest count."""
+        dev = self.device
+        as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
+        pending = self._scrub_launch()
+        buf, cnt, steps, done, prop, acc = self._run_spec_segment(
+            tok0, as_dev(tabs, np.int32), as_dev(pos0, np.int64),
+            as_dev(np.clip(eos_vec, -1, 2**31 - 1), np.int64),
+            as_dev(done0, bool), as_dev(remaining, np.int64), seg)
+        self._last_scrub = self._drain_scrub(pending)
+        self._last_recompute = np.zeros(tok0.shape[0], bool)
+        counts = cnt.cpu().numpy()
+        n = int(counts.max()) if counts.size else 0
+        prop, acc = int(prop), int(acc)
+        st = SpecStats(proposed=prop, accepted=acc, emitted=int(counts.sum()),
+                       verify_steps=steps, blocks=prop // self._drafter.k)
+        sp = self.stats.spec
+        sp.proposed += st.proposed
+        sp.accepted += st.accepted
+        sp.emitted += st.emitted
+        sp.verify_steps += st.verify_steps
+        sp.blocks += st.blocks
+        self.stats.decode_steps += steps
+        self.stats.decode_dispatches += steps
+        return buf[:, :n].cpu().numpy(), steps, done.cpu().numpy(), st
+
     # -- fault escalation ----------------------------------------------------
 
     def _fault_repair(self, layers, tabs_np, slots) -> dict[int, list[int]]:
@@ -475,6 +606,10 @@ class ServingEngine:
         else:
             eos_vec = np.full(B, -1, np.int64)
             done0 = np.zeros(B, bool)
+        greedy = temperature <= 0.0 or generator is None
+        if self._drafter is not None and not greedy:
+            raise ValueError("speculative decoding (spec=) is greedy "
+                             "acceptance only; run with temperature=0")
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(
             self.params, tokens, s_max=self.s_max,
@@ -491,7 +626,12 @@ class ServingEngine:
         pool = self.pool
         pool.reset()    # generate() owns the whole pool for this call
         a0 = pool.stats.snapshot()
-        n_pages = min(-(-(plen + max_new) // self.page_size), self.n_pmax)
+        # a verify writes up to k rows past the last emitted one: the
+        # headroom keeps them on the slot's own pages (rows past the table
+        # go to the dump page)
+        k_spec = self._drafter.k if self._drafter is not None else 0
+        n_pages = min(-(-(plen + max_new + k_spec) // self.page_size),
+                      self.n_pmax)
 
         def place(dense):
             """Fresh pages for every slot, with the prefill KV ``dense``
@@ -507,13 +647,21 @@ class ServingEngine:
         slot_pages, tabs = place(dense)
         if self.policy != "strict":
             dense = None    # only a strict recompute scatters it again
+        if self._drafter is not None:
+            self._spec_begin(tokens, tok, tabs)
         g_state = None if generator is None else generator.get_state()
         recomputes = 0
+        spec_stats = None
         while True:
-            buf, steps, _ = self._dispatch_segment(
-                tok, np.full(B, plen, np.int32), eos_vec, done0,
-                np.full(B, max_new - 1, np.int64), tabs, max_new - 1,
-                temperature, generator)
+            if self._drafter is not None:
+                buf, steps, _, spec_stats = self._dispatch_spec_segment(
+                    tok, np.full(B, plen), eos_vec, done0,
+                    np.full(B, max_new - 1), tabs, max_new - 1)
+            else:
+                buf, steps, _ = self._dispatch_segment(
+                    tok, np.full(B, plen, np.int32), eos_vec, done0,
+                    np.full(B, max_new - 1, np.int64), tabs, max_new - 1,
+                    temperature, generator)
             if not (self.policy == "strict" and self._last_recompute.any()
                     and recomputes < 2):
                 break
@@ -542,4 +690,4 @@ class ServingEngine:
                 pages_freed=pool.stats.pages_freed - a0.pages_freed,
                 prefill_s=t1 - t0, decode_s=t2 - t1,
                 faults_detected=f_det, faults_corrected=f_cor,
-                recomputes=recomputes))
+                recomputes=recomputes, spec=spec_stats))

@@ -1,11 +1,12 @@
 """Serving telemetry (the counters of ``repro/serving/stats.py`` that the
 ported paged path keeps, the corruption counters of :class:`FaultStats`
-included)."""
+and the speculative counters of :class:`SpecStats` included)."""
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["FaultStats", "PoolStats", "RequestStats", "EngineStats"]
+__all__ = ["FaultStats", "PoolStats", "SpecStats", "RequestStats",
+           "EngineStats"]
 
 
 @dataclasses.dataclass
@@ -37,6 +38,36 @@ class PoolStats:
 
 
 @dataclasses.dataclass
+class SpecStats:
+    """Speculative-decoding telemetry.
+
+    One verify step is one batched target call over ``k + 1`` rows a slot;
+    it emits 1 to ``k + 1`` tokens per live slot, so ``mean_accepted_len``
+    above 1 is what drafting buys.
+    """
+
+    proposed: int = 0       # draft tokens proposed (k per live slot a step)
+    accepted: int = 0       # ... accepted by the greedy verify rule
+    emitted: int = 0        # tokens emitted by the speculative segment
+    verify_steps: int = 0   # batched verify steps (target calls)
+    blocks: int = 0         # accepted blocks emitted (live slot-steps)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of the proposed draft tokens the target accepted."""
+        return self.accepted / max(self.proposed, 1)
+
+    @property
+    def mean_accepted_len(self) -> float:
+        """Tokens emitted per accepted block (1.0: drafting bought
+        nothing)."""
+        return self.emitted / max(self.blocks, 1)
+
+    def snapshot(self) -> "SpecStats":
+        return dataclasses.replace(self)
+
+
+@dataclasses.dataclass
 class RequestStats:
     """Per-generate() telemetry."""
 
@@ -52,6 +83,7 @@ class RequestStats:
     faults_corrected: int = 0    # ... and repaired before decoding on
     recomputes: int = 0          # times a slot was recomputed after an
     #                              unrepairable fault
+    spec: SpecStats | None = None  # the speculative segment's counters
 
 
 @dataclasses.dataclass
@@ -62,3 +94,4 @@ class EngineStats:
     decode_dispatches: int = 0
     pool: PoolStats | None = None
     faults: FaultStats = dataclasses.field(default_factory=FaultStats)
+    spec: SpecStats | None = None   # set when the engine runs with spec=

@@ -323,6 +323,115 @@ def test_sd_add_kernel_bit_exact(gen, n, kind):
     assert torch.equal(sda.sd_add_cuda(x, y, kind), sda.sd_add_ref(x, y, kind))
 
 
+@pytest.mark.parametrize("n", range(1, 17))
+def test_sd_add_kernel_offsets_and_tiles(gen, n):
+    """B8 in every kind on views at storage offsets 0, 1, 5 and 13 (bases
+    off 16- and 4-byte alignment), vector counts around the 1024-vector
+    tile and past the grid."""
+    for B in (1, 1023, 1025, 3 * 1024 + 7, 600_001):
+        for off in (0, 1, 5, 13):
+            flat = _digits(gen, 2, B * n + off + 1)
+            x = flat[0, off:off + B * n].view(B, n)
+            y = flat[1, off + 1:off + 1 + B * n].view(B, n)
+            assert x.storage_offset() == off
+            for kind in sda.KINDS:
+                assert torch.equal(sda.sd_add_cuda(x, y, kind),
+                                   sda.sd_add_ref(x, y, kind)), (B, off, kind)
+
+
+@pytest.mark.parametrize("M", [8, 40])
+@pytest.mark.parametrize("K", [4096, 12288])
+def test_rns_matmul_kernel_p16_segments(gen, M, K):
+    """B1 on P16 = (31, 32, 33) at the rns drafter's 3 bits: each K segment
+    ``rns_run`` cuts (3 at K 4096, 7 at K 12288; views at offsets of
+    1408 / 1792 terms) against its plain version, operands over 32's
+    centred range (+16 included), on the decode schedule (M 8) and the
+    prefill tile (M 40); and ``rns_run`` on the card equals it on the
+    CPU."""
+    from repro_torch.core.moduli import P16
+    from repro_torch.numerics import runners
+
+    a = torch.randint(-16, 17, (3, M, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-16, 17, (3, K, 300), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    segs = runners.segment_count(K, 3, 3, P16)
+    seg_len = -(-(-(-K // segs)) // 128) * 128
+    assert -(-K // seg_len) == (3 if K == 4096 else 7)
+    for lo in range(0, K, seg_len):
+        av, bv = a[:, :, lo:lo + seg_len], b[:, lo:lo + seg_len]
+        assert torch.equal(rm.rns_matmul_cuda(av, bv, P16.moduli),
+                           rm.rns_matmul_ref(av, bv, P16.moduli))
+    x = torch.randint(-3, 4, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    w = torch.randint(-3, 4, (K, 300), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    planes = runners.encode_rns_planes(w, P16)
+    out = runners.rns_run(x, planes, mset=P16, max_abs_a=3, max_abs_b=3)
+    assert torch.equal(out.cpu(), x.cpu().long().matmul(w.cpu().long())
+                       .to(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", ["rns8", "bf16"])
+def test_verify_paged_equals_sequential_decode_on_card(gen, fmt):
+    """One folded verify of V = 5 tokens a slot equals 5 decode steps bit
+    for bit on the card (logits and page bytes), and launches B3 once a
+    layer."""
+    from repro_torch import kernels
+
+    cfg = get_config("qwen3-8b").reduced()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.prepare_params(from_jax_params(load_npz(CKPT), cfg,
+                                                  "cuda"))
+    nb, ps, n_pmax, V, plen = 3, 8, 3, 5, 12
+    rng = np.random.default_rng(3)
+    _, cache = model.prefill(params, rng.integers(0, cfg.vocab, (nb, plen)),
+                             s_max=n_pmax * ps)
+    pools = [kvp.make_paged_kv(cfg.n_layers, 1 + nb * n_pmax, ps, cfg.n_kv,
+                               cfg.hd, fmt=fmt, device="cuda")
+             for _ in range(2)]
+    tab = torch.arange(1, 1 + nb * n_pmax, dtype=torch.int32,
+                       device="cuda").reshape(nb, n_pmax)
+    for pool in pools:
+        kvp.scatter_prefill(pool, cache[0], cache[1], tab, ps)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (nb, V))).cuda()
+    pos0 = torch.full((nb,), plen, dtype=torch.int32, device="cuda")
+    rows = [model.decode_paged(params, toks[:, j:j + 1], pools[0], tab,
+                               pos0 + j, page_size=ps)[0] for j in range(V)]
+    kernels.reset_launch_counts()
+    logits, _ = model.verify_paged(params, toks, pools[1], tab, pos0,
+                                   page_size=ps)
+    assert kernels.launch_counts()["paged_decode"] == cfg.n_layers
+    for j in range(V):
+        assert torch.equal(logits[:, j], rows[j])
+    for a, b in zip(*pools):
+        la = [a.planes, a.scale] if fmt != "bf16" else [a]
+        lb = [b.planes, b.scale] if fmt != "bf16" else [b]
+        for x, y in zip(la, lb):
+            assert torch.equal(x[:, 1:], y[:, 1:])
+
+
+@pytest.mark.parametrize("spec", ["ngram:4", "rns:3"])
+def test_spec_serving_card_matches_cpu(gen, spec):
+    """Speculative tokens on the card equal the CPU's and plain decoding's
+    on the reduced checkpoint (rns8 pages)."""
+    cfg = get_config("qwen3-8b").reduced()
+    tree = load_npz(CKPT)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 10))
+    res = {}
+    for dev, sp in (("cuda", spec), ("cpu", spec), ("cuda", None)):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, from_jax_params(tree, cfg, dev), batch=3,
+                            s_max=23, page_size=8, kv_format="rns8",
+                            device=dev, spec=sp)
+        res[dev, sp] = eng.generate({"tokens": prompts}, max_new=12)
+    np.testing.assert_array_equal(res["cuda", spec].tokens,
+                                  res["cpu", spec].tokens)
+    np.testing.assert_array_equal(res["cuda", spec].tokens,
+                                  res["cuda", None].tokens)
+    assert res["cuda", spec].stats.spec == res["cpu", spec].stats.spec
+
+
 def test_sdrns_serving_card_matches_cpu(gen):
     """The reduced checkpoint under system="sdrns" (P21 digit planes, rns8
     pages): the card's tokens equal the CPU's and the rns serve's, and the
