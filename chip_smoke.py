@@ -61,11 +61,35 @@ Phases (each prints its lines; any failure raises and the exit code is not
    launches of the first decode step equal to the plain version on that
    step's own inputs.
 
+10. serve-configs -- yi-6b, phi3-medium-14b and granite-20b at full width
+   with the depth cut to 4 layers each under ``system="rns"`` on rns8
+   pages, batch 8, 256-token prompts, 16 new tokens, greedy: finite
+   logits, exact launch counts, the B1 and B3 launches of the first decode
+   step (granite's B3: 48 query heads on one KV head) equal to the plain
+   version on their own inputs, and every B1 and B2 launch of the prefill,
+   run again untimed, held against its plain version as it returns.
+11. serve-ssm -- mamba2-780m at full width and depth (48 Mamba2 layers, no
+   attention) under ``system="rns"`` from its SSM state alone, batch 8,
+   256-token prompts, 64 new tokens: finite logits, exact B1 counts, and
+   the B1 launches of the first decode step equal to the plain version.
+12. serve-moe -- moonshot-v1-16b-a3b at full width (64 experts, top-6)
+   with the depth cut to 38 of 48 layers under ``system="rns"`` on rns8
+   pages, batch 8, 256-token prompts, 32 new tokens: finite logits, exact
+   launch counts with each stacked expert einsum one B1 launch, the B3
+   launches of the first decode step equal to the plain version, the
+   prefill and that step run again untimed with every B1, B2 and B3
+   launch held against its plain version as it returns, and the step
+   bit-identical to the same step run with one B1 launch per expert (both
+   timed warm).
+
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
 shapes the two dense serves launch it with, at the qwen3 and zamba2 decode
 shapes in one chunk, a split shape with all-masked chunks and in f32, B2 at
-zamba2's head_dim 112 and B1 at every zamba2 shape, decode and prefill.
+zamba2's head_dim 112 and B1 at every zamba2 shape, decode and prefill;
+B1 in stack mode at moonshot's expert einsums (64 slices, M 8 and M 240)
+against its plain version and 64 launches of one slice; B2 and B3 at
+granite-20b's heads.  Every phase prints its command time ([time]).
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result JSON.
@@ -118,6 +142,19 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
 # nothing): 16 new tokens, not 64, keep the smoke near half its time limit
 SPEC_K = 4
 SPEC_NEW = {"ngram:4": SERVE_NEW, "rns:4": 16}
+# moonshot-v1-16b-a3b's expert einsums: 64 experts, top-6; (K, N) and their
+# count per layer (gate and up, then down)
+MOE_E, MOE_TOPK = 64, 6
+MOE_EINSUMS = [((2048, 1408), 2), ((1408, 2048), 1)]
+# [serve-moe]: depth cut to 38 of 48 layers for memory (1.711 GB of P21
+# planes a layer; 48 layers and the logits planes would need ~84 GB; at 40
+# the serve's peak, 79.28 GB, left 5.74 GB of the card's 85.02 GB free,
+# under an 8 GB margin)
+MOE_LAYERS, MOE_NEW = 38, 32
+# [serve-configs]: yi-6b, phi3-medium-14b and granite-20b at full width,
+# depth cut to 4 layers each for time (granite whole would need ~84 GB)
+CONFIG_ARCHS = ("yi-6b", "phi3-medium-14b", "granite-20b")
+CONFIG_LAYERS, CONFIG_NEW = 4, 16
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
 # kernel ms of the bodies B1-B8 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
@@ -411,6 +448,21 @@ def _segments(K, qmax, mset):
     return [(lo, min(lo + seg_len, K)) for lo in range(0, K, seg_len)]
 
 
+def forward_launches(cfg):
+    """B1 launches of one forward of a dense or moe config on int4 P21
+    planes: one a K segment of each projection (granite's down projection,
+    K 24576, takes two), each stacked expert einsum one launch a segment,
+    and the logits."""
+    from repro_torch.core.moduli import P21
+
+    def n(K):
+        return len(_segments(K, 7, P21))
+
+    d = cfg.d_model
+    layer = 5 * n(d) + n(cfg.n_heads * cfg.hd) + n(cfg.d_ff)
+    return cfg.n_layers * layer + n(d)
+
+
 def draft_step_launches(n_layers):
     """B1 launches of one rns-drafter step (P16 at 3 bits, K segments)."""
     from repro_torch.core.moduli import P16
@@ -424,10 +476,11 @@ def check_rns_matmul_spec(torch, timer, gen):
     """B1 on the shapes speculative decoding gives it, bit for bit against
     its plain version and timed at every qwen3 shape: the target's verify,
     M = B (k + 1) = 40 rows of P21 planes (above the decode schedule's 16
-    rows: the prefill tile), with ``torch._int_mm`` beside it; and the rns
-    drafter's P16 = (31, 32, 33) planes at 3 bits, each matmul cut into the
-    K segments ``rns_run`` cuts it into (3 at K 4096, 7 at K 12288; strided
-    views of one operand), at M 8 (its decode steps) and M 40.  Operands
+    rows: the prefill tile); and the rns drafter's P16 = (31, 32, 33)
+    planes at 3 bits, each matmul cut into the K segments ``rns_run`` cuts
+    it into (3 at K 4096, 7 at K 12288; strided views of one operand), at
+    M 8 (its decode steps) and M 40.  ``torch._int_mm`` beside each, per
+    channel and per K segment (the same function).  Operands
     over the full centred range of the widest modulus (32's +16 included).
     Returns one entry a (planes, M) with its step total."""
     from repro_torch.core.moduli import P16, P21
@@ -465,32 +518,37 @@ def check_rns_matmul_spec(torch, timer, gen):
 
                 ms = timer(run, 10)
                 plain = timer(lambda: run(rns_matmul_ref), 3)
-                lib = layout = None
-                if len(segs) == 1:
-                    ref = rns_matmul_ref(a, b, mset.moduli)
-                    lib, layout = _int_mm_best(
-                        torch, timer, a, b, mset.moduli, ref,
-                        f"rns_matmul[{label}] M={M} K={K} N={N}")
-                    del ref
+                # the library's time: _int_mm per channel and per K segment
+                # (each a contiguous copy, made outside the timed region),
+                # with the same rem and centring, summed over the segments
+                lib, layouts = 0.0, set()
+                for (lo, hi), (av, bv) in zip(segs, views):
+                    a_s, b_s = av.contiguous(), bv.contiguous()
+                    ref = rns_matmul_ref(a_s, b_s, mset.moduli)
+                    t, lay_s = _int_mm_best(
+                        torch, timer, a_s, b_s, mset.moduli, ref,
+                        f"rns_matmul[{label}] M={M} K={K} N={N} segment "
+                        f"{lo}:{hi}")
+                    lib += t
+                    layouts.add(lay_s)
+                    del a_s, b_s, ref
+                layout = "; ".join(sorted(layouts))
                 nbytes = C * (M * K + K * N + 4 * M * N * len(segs))
                 bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
                 per[(K, N)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                    bound_ms=bms, bound_by=by,
                                    segments=len(segs))
-                libtxt = ("" if lib is None else
-                          f" library_ms(_int_mm, {layout})={lib:.4f}")
+                libtxt = (f" library_ms(_int_mm, {len(segs)} segment(s), "
+                          f"{layout})={lib:.4f}")
                 print(f"[kernels] rns_matmul[{label},{mset.moduli}] C={C} "
                       f"M={M} K={K} N={N} in {len(segs)} K segment(s): "
                       f"bit-exact; kernel_ms={ms:.4f} plain_ms={plain:.4f}"
                       f"{libtxt} bound_ms={bms:.4f} ({by})", flush=True)
                 del a, b, views
                 torch.cuda.empty_cache()
-            keys = ("ms", "plain_ms", "bound_ms")
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms")
             total = {k: sum(per[s][k] * c for s, c in QWEN3_STEP)
                      for k in keys}
-            if all(v["library_ms"] is not None for v in per.values()):
-                total["library_ms"] = sum(per[s]["library_ms"] * c
-                                          for s, c in QWEN3_STEP)
             what = "verify" if label == "P21" else "draft"
             print(f"[kernels] rns_matmul[{label}] one {what} step at M={M} "
                   f"({launches} launches): " + " ".join(
@@ -498,6 +556,87 @@ def check_rns_matmul_spec(torch, timer, gen):
             res[f"{label},M={M}"] = dict(
                 total, launches_per_step=launches, max_abs_err=0,
                 shapes={f"{M},{K},{N}": v for (K, N), v in per.items()})
+    return res
+
+
+def check_rns_matmul_moe(torch, timer, gen):
+    """B1 in stack mode at moonshot-v1-16b-a3b's expert einsums: E = 64
+    slices of P21 planes in one launch, at the decode capacity (M =
+    moe_capacity(8, 64, 6) = 8) and the prefill's (M = moe_capacity(2048,
+    64, 6) = 240), (K, N) (2048, 1408) for gate and up and (1408, 2048) for
+    down, operands over the full centred range of the widest modulus.  Each
+    is one launch, bit for bit its plain version (a loop over the slices)
+    and 64 launches of one slice each; timed with the L2 flushed beside the
+    plain version, the 64 launches, ``torch._int_mm`` per slice and channel
+    with the same rem and centring (the same function) and a bf16 bmm
+    yardstick.  Returns one entry a phase with its layer total (3 einsums).
+    """
+    from repro_torch.core.moduli import P21
+    from repro_torch.kernels import rns_matmul as rmk
+    from repro_torch.models.moe import moe_capacity
+
+    E, C, h = MOE_E, P21.num_channels, max(P21.moduli) // 2
+    res = {}
+    for phase, T in (("decode", SERVE_B), ("prefill", SERVE_B * SERVE_PROMPT)):
+        M = moe_capacity(T, E, MOE_TOPK)
+        per = {}
+        for (K, N), _ in MOE_EINSUMS:
+            a = torch.randint(-h, h + 1, (E, C, M, K), generator=gen,
+                              device="cuda", dtype=torch.int32).to(torch.int8)
+            b = torch.randint(-h, h + 1, (E, C, K, N), generator=gen,
+                              device="cuda", dtype=torch.int32).to(torch.int8)
+            what = f"rns_matmul[moe {phase}] E={E} M={M} K={K} N={N}"
+            before = rmk.launches
+            out = rmk.rns_matmul_cuda(a, b, P21.moduli)
+            if rmk.launches != before + 1:
+                raise AssertionError(f"{what}: {rmk.launches - before} "
+                                     f"launches, expected one")
+            ref = rmk.rns_matmul_ref(a, b, P21.moduli)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{what}: kernel differs from the plain "
+                                     f"version")
+            alone = torch.stack([rmk.rns_matmul_cuda(a[e], b[e], P21.moduli)
+                                 for e in range(E)])
+            if not torch.equal(out, alone):
+                raise AssertionError(f"{what}: the stacked launch differs "
+                                     f"from {E} launches of one slice")
+            del out, alone
+            lib, layout = _int_mm_best(
+                torch, timer, a.reshape(E * C, M, K), b.reshape(E * C, K, N),
+                P21.moduli * E, ref.reshape(E * C, M, N), what)
+            del ref
+            ms = timer(lambda: rmk.rns_matmul_cuda(a, b, P21.moduli), 10)
+            sep = timer(lambda: [rmk.rns_matmul_cuda(a[e], b[e], P21.moduli)
+                                 for e in range(E)], 5)
+            plain = timer(lambda: rmk.rns_matmul_ref(a, b, P21.moduli), 3)
+            ab = a.reshape(E * C, M, K).bfloat16()
+            bb = b.reshape(E * C, K, N).bfloat16()
+            bmm = timer(lambda: torch.bmm(ab, bb), 10)
+            nbytes = E * C * (M * K + K * N + 4 * M * N)
+            ops = 2 * E * C * M * K * N
+            bms, by = bound_ms(nbytes, ops, "int8")
+            print(f"[kernels] {what} P21, one stacked launch: bit-exact "
+                  f"against the plain version and {E} launches; kernel_ms="
+                  f"{ms:.4f} ({E} launches: {sep:.4f}) plain_ms={plain:.4f} "
+                  f"library_ms(_int_mm per slice and channel, {layout})="
+                  f"{lib:.4f} yardstick bf16_bmm_ms={bmm:.4f} bound_ms="
+                  f"{bms:.4f} ({by}; {nbytes / 1e6:.1f} MB, ops "
+                  f"{1e3 * ops / PEAK['int8']:.4f} ms)", flush=True)
+            per[f"{M},{K},{N}"] = dict(
+                ms=ms, slices_ms=sep, plain_ms=plain, library_ms=lib,
+                yardstick_bf16_bmm_ms=bmm, bound_ms=bms, bound_by=by)
+            del a, b, ab, bb
+            torch.cuda.empty_cache()
+        keys = ("ms", "slices_ms", "plain_ms", "library_ms",
+                "yardstick_bf16_bmm_ms", "bound_ms")
+        layer = {k: sum(per[f"{M},{K},{N}"][k] * c
+                        for (K, N), c in MOE_EINSUMS) for k in keys}
+        print(f"[kernels] rns_matmul[moe {phase}] one layer's 3 expert "
+              f"einsums at M={M}: " + " ".join(
+                  f"{k}={v:.4f}" for k, v in layer.items()), flush=True)
+        res[phase] = dict(layer, bound_by="bytes", max_abs_err=0,
+                          launches_per_layer=sum(c for _, c in MOE_EINSUMS),
+                          shapes=per)
     return res
 
 
@@ -597,7 +736,8 @@ def check_flash_attention(torch, timer, gen):
     """B2's bf16 tensor-core route at the prefill shapes of qwen3-8b (hd
     128, g 4) and zamba2-7b's shared block (hd 112, g 1), at a ragged qwen3
     shape (S 200, not a multiple of the 64-row tiles, kv_len < S) and at a
-    long qwen3 prompt (S 2048, where the operations bound it)."""
+    long qwen3 prompt (S 2048, where the operations bound it), and at
+    granite-20b's heads (H 48 on one KV head: g 48)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (flash_attention_cuda,
@@ -610,7 +750,8 @@ def check_flash_attention(torch, timer, gen):
     for label, (B, S, H, Kv, hd) in (("qwen3", (8, 256, 32, 8, 128)),
                                      ("zamba2", (8, 256, 32, 32, 112)),
                                      ("ragged", (8, 200, 32, 8, 128)),
-                                     ("long", (1, 2048, 32, 8, 128))):
+                                     ("long", (1, 2048, 32, 8, 128)),
+                                     ("granite", (8, 256, 48, 1, 128))):
         if label == "ragged":
             gen = extra
         q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
@@ -667,7 +808,10 @@ def check_flash_attention(torch, timer, gen):
                                       if k != "qwen3"})
 
 
-def check_paged_decode(torch, timer, gen):
+def check_paged_decode(torch, timer, gen, H=32, Kv=8,
+                       names=("bf16", "rns8", "rns4"), tag=""):
+    """B3 over the page formats ``names`` at qwen3-8b's heads (H 32, Kv 8),
+    or others (``tag`` names them: granite-20b's H 48 on one KV head)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (paged_decode_cuda,
@@ -675,7 +819,7 @@ def check_paged_decode(torch, timer, gen):
     from repro_torch.numerics import kv_pages as kvp
     from repro_torch.numerics.attention import merge_decode_partials
 
-    B, H, Kv, hd, ps, n_pmax = 8, 32, 8, 128, 64, 5
+    B, hd, ps, n_pmax = 8, 128, 64, 5
     P = 1 + B * n_pmax
     kv_len = torch.randint(1, n_pmax * ps + 1, (B,), generator=gen,
                            device="cuda", dtype=torch.int32)
@@ -686,7 +830,7 @@ def check_paged_decode(torch, timer, gen):
     dense = torch.randn(2, 1, B, n_pmax * ps, Kv, hd, generator=gen,
                         device="cuda").bfloat16()
     results = {}
-    for name in ("bf16", "rns8", "rns4"):
+    for name in names:
         fmt = kvp.KV_FORMATS[name]
         pool = kvp.make_paged_kv(1, P, ps, Kv, hd, fmt=fmt, device="cuda")
         kvp.scatter_prefill(pool, dense[0], dense[1], tab, ps)
@@ -729,10 +873,11 @@ def check_paged_decode(torch, timer, gen):
         nbytes = (2 * q.numel() + 2 * n_rows * Kv * row_bytes
                   + 4 * B * H * n_pmax * (hd + 2) + 4 * tab.numel() + 4 * B)
         bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, kind)
-        print(f"[kernels] paged_decode[{name}] B={B} H={H} Kv={Kv} hd={hd} "
+        key = f"paged_decode[{name}{tag}]"
+        print(f"[kernels] {key} B={B} H={H} Kv={Kv} hd={hd} "
               f"ps={ps} kv_len 1..{n_pmax * ps} (sum {n_rows}): "
               f"max_abs_err={err:.3e} (tol {tol}); kernel_ms={ms:.4f}"
-              f"{earlier(f'paged_decode[{name}]')} plain_ms={plain:.4f} "
+              f"{earlier(key)} plain_ms={plain:.4f} "
               f"library_ms(sdpa gathered)={lib:.4f} bound_ms={bms:.5f} "
               f"({by})", flush=True)
         results[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1618,28 +1763,168 @@ def serve_sd(torch, smi):
     return counts
 
 
-def record_first_decode(n, run):
-    """``run()`` with B5's card implementation wrapped to keep the inputs
-    and outputs of its first ``n`` launches (one decode step's).  K and V
-    are the cache itself, not copies: later steps write only rows at or past
-    each launch's kv_len, which B5 and its plain version mask."""
+def record_launches(name, n, run, skip=0, keep=lambda *args: args):
+    """``run()`` with kernel ``name``'s card implementation wrapped to keep
+    the arguments (through ``keep``) and a copy of the outputs of its
+    launches ``skip`` .. ``skip + n - 1``: one decode step's, after the
+    prefill's ``skip``.  Weights, pages and caches are kept as they are,
+    not copied: later steps write only rows at or past each launch's
+    kv_len, which the kernels and their plain versions mask."""
     from repro_torch.numerics import registry
 
-    kernel = registry.get_impl("flash_decode", "cuda")
-    first = []
+    kernel = registry.get_impl(name, "cuda")
+    seen, kept = [0], []
 
-    def recording(q, k, v, kv_len, bk):
-        out = kernel(q, k, v, kv_len, bk)
-        if len(first) < n:
-            first.append(((q.clone(), k, v, kv_len.clone(), bk),
-                          tuple(t.clone() for t in out)))
+    def recording(*args, **kw):
+        out = kernel(*args, **kw)
+        if skip <= seen[0] < skip + n:
+            kept.append((keep(*args), out.clone() if hasattr(out, "clone")
+                         else tuple(t.clone() for t in out)))
+        seen[0] += 1
         return out
 
-    registry.register_impl("flash_decode", "cuda", recording)
+    registry.register_impl(name, "cuda", recording)
     try:
-        return run(), first
+        return run(), kept
     finally:
-        registry.register_impl("flash_decode", "cuda", kernel)
+        registry.register_impl(name, "cuda", kernel)
+
+
+def record_first_decode(n, run):
+    """B5's launches of the first decode step (see ``record_launches``)."""
+    return record_launches(
+        "flash_decode", n, run,
+        keep=lambda q, k, v, kv_len, bk: (q.clone(), k, v, kv_len.clone(),
+                                          bk))
+
+
+def hold_launches(checks, run):
+    """``run()`` with the card implementation of each kernel named in
+    ``checks`` wrapped so that every launch is held against its plain
+    version on its own inputs as it returns: ``checks[name](out, *args,
+    **kw)`` gives the launch's error.  Returns ``run()``'s result and
+    ``{name: (launches, worst error)}``.  For untimed runs: the plain
+    versions run in line."""
+    from repro_torch.numerics import registry
+
+    cards = {name: registry.get_impl(name, "cuda") for name in checks}
+    held = {name: [0, 0.0] for name in checks}
+
+    def holding(name):
+        kernel, check, rec = cards[name], checks[name], held[name]
+
+        def launch(*args, **kw):
+            out = kernel(*args, **kw)
+            rec[0] += 1
+            rec[1] = max(rec[1], check(out, *args, **kw))
+            return out
+
+        return launch
+
+    for name in checks:
+        registry.register_impl(name, "cuda", holding(name))
+    try:
+        return run(), {name: tuple(rec) for name, rec in held.items()}
+    finally:
+        for name, kernel in cards.items():
+            registry.register_impl(name, "cuda", kernel)
+
+
+# B1 bit for bit; B2 within the reference's own bf16 tolerance
+# (tests/test_flash_attn.py: assert_allclose, rtol = atol = 2e-2), as the
+# serves' outputs reach |o| >= 4, where one bf16 ulp of output rounding on
+# either side is 2^-5; B3 on rns8 pages as in [kernels]
+HELD_TOL = {"rns_matmul": 0.0, "flash_attention": 2e-2, "paged_decode": 1e-4}
+HELD_ERR = {"rns_matmul": "max_abs_err", "paged_decode": "max_abs_err",
+            "flash_attention": "max |out - ref| / (1 + |ref|)"}
+
+
+def held_checks(*names):
+    """``hold_launches`` checks of B1 (the exact integer difference), B2
+    (the largest difference over 1 + |ref|: atol = rtol) and B3 (the
+    largest difference of the merged outputs)."""
+    from repro_torch.kernels.flash_attn import (flash_attention_ref,
+                                                paged_decode_ref)
+    from repro_torch.kernels.rns_matmul import rns_matmul_ref
+    from repro_torch.numerics.attention import merge_decode_partials
+
+    def b1(out, a, b, moduli):
+        return float((out.long() - rns_matmul_ref(a, b, moduli).long()
+                      ).abs().max())
+
+    def b2(out, q, k, v, kv_len=None, *, causal=True):
+        ref = flash_attention_ref(q, k, v, kv_len, causal=causal).float()
+        return float(((out.float() - ref).abs() / (1 + ref.abs())).max())
+
+    def b3(out, *args, **kw):
+        return float((merge_decode_partials(*out[:3]) - merge_decode_partials(
+            *paged_decode_ref(*args, **kw)[:3])).abs().max())
+
+    every = {"rns_matmul": b1, "flash_attention": b2, "paged_decode": b3}
+    return {name: every[name] for name in names}
+
+
+def check_held(held, want, label, what):
+    """Each held kernel launched ``want[name]`` times and within
+    ``HELD_TOL``."""
+    for name, (n, worst) in held.items():
+        tol = HELD_TOL[name]
+        print(f"[{label}] {what}: {n} {name} launches against the plain "
+              f"version on their own inputs, {HELD_ERR[name]}={worst:.3e} "
+              f"(tol {tol})", flush=True)
+        if n != want[name]:
+            raise AssertionError(f"{label}: {what} made {n} {name} launches, "
+                                 f"expected {want[name]}")
+        if not worst <= tol:
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 f"version on {what}'s inputs")
+
+
+def check_first_b3(first, n, kv_len0, label, cfg):
+    """Hold the recorded B3 launches of the first decode step (rns8 pages)
+    against the plain version on their own inputs."""
+    from repro_torch.kernels.flash_attn import paged_decode_ref
+    from repro_torch.numerics.attention import merge_decode_partials
+
+    if len(first) != n:
+        raise AssertionError(f"{label}: recorded {len(first)} B3 launches of "
+                             f"the first step, expected {n}")
+    worst = 0.0
+    for args, parts in first:
+        if args[6].tolist() != [kv_len0] * len(args[6]):
+            raise AssertionError(f"{label}: first step kv_len "
+                                 f"{args[6].tolist()}, expected {kv_len0}")
+        ref = paged_decode_ref(*args)
+        worst = max(worst, float((merge_decode_partials(*parts[:3])
+                                  - merge_decode_partials(*ref[:3])
+                                  ).abs().max()))
+    tol = HELD_TOL["paged_decode"]
+    print(f"[{label}] the {n} B3 launches of the first decode step (H "
+          f"{cfg.n_heads}, Kv {cfg.n_kv}, rns8 pages, kv_len {kv_len0}) "
+          f"against the plain version on their own inputs: "
+          f"max_abs_err={worst:.3e} (tol {tol})", flush=True)
+    if not worst <= tol:
+        raise AssertionError(f"{label}: B3 differs from the plain version on "
+                             f"the serve's inputs")
+
+
+def check_first_b1(first, n, B, label):
+    """Hold the recorded B1 launches of the first decode step against the
+    plain version on their own inputs, bit for bit."""
+    from repro_torch.kernels.rns_matmul import rns_matmul_ref
+
+    if len(first) != n:
+        raise AssertionError(f"{label}: recorded {len(first)} B1 launches "
+                             f"of the first step, expected {n}")
+    for (a, b, moduli), out in first:
+        if a.shape[-2] != B or not out.equal(rns_matmul_ref(a, b, moduli)):
+            raise AssertionError(f"{label}: a B1 launch of the first "
+                                 f"decode step ({tuple(a.shape)} x "
+                                 f"{tuple(b.shape)}) differs from the plain "
+                                 f"version")
+    print(f"[{label}] the {n} B1 launches of the first decode step "
+          f"equal the plain version on their own inputs bit for bit",
+          flush=True)
 
 
 def check_first_decode(first, n, kv_len0, label):
@@ -1666,6 +1951,19 @@ def check_first_decode(first, n, kv_len0, label):
     if not worst <= tol:
         raise AssertionError(f"{label}: B5 differs from the plain version on "
                              f"the serve's inputs")
+
+
+def _finite_wrap(torch, fn):
+    """``fn`` with every logits tensor it returns folded into a device flag
+    (read once at the end)."""
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        flag.logical_and_(torch.isfinite(out[0]).all())
+        return out
+
+    return wrapped, flag
 
 
 def serve_dense(torch):
@@ -1772,13 +2070,7 @@ def serve_hybrid(torch, smi):
     t_init = time.perf_counter() - t0
 
     # every decode logit finite, folded on the device and read once
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-
-    def decode(*a, **k):
-        logits, cache = model.decode(*a, **k)
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, cache
-
+    decode, finite = _finite_wrap(torch, model.decode)
     engine = ServingEngine(dataclasses.replace(model, decode=decode), params,
                            batch=B, s_max=plen + max_new + 1, device="cuda")
     del params
@@ -1826,7 +2118,341 @@ def serve_hybrid(torch, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the dense configs, the ssm family and the moe family
+# ---------------------------------------------------------------------------
+
+
+def _keep_b3(q, k_pages, v_pages, k_scale, v_scale, tab, kv_len, *rest):
+    """A B3 launch's arguments, the per-step tensors copied (the pages are
+    the pool's own)."""
+    return (q.clone(), k_pages, v_pages, k_scale, v_scale, tab.clone(),
+            kv_len.clone(), *rest)
+
+
+def _serve_line(label, st, B, steps, t_init, rb, peak, extra=""):
+    print(f"[{label}] init_s={t_init:.2f} prefill_s={st.prefill_s:.3f} "
+          f"decode_s={st.decode_s:.3f} decode_tok_s="
+          f"{B * steps / st.decode_s:.2f} step_ms="
+          f"{1e3 * st.decode_s / steps:.1f}; resident weight bytes={rb} "
+          f"max_memory_allocated={peak}{extra}", flush=True)
+
+
+def serve_configs(torch, smi):
+    """Phase 10: yi-6b, phi3-medium-14b and granite-20b at full width, the
+    depth cut to CONFIG_LAYERS layers each, under system="rns" on rns8
+    pages: B 8, 256-token prompts, CONFIG_NEW new tokens, greedy.  Gates:
+    every logit finite, exact launch counts, the B1 and B3 launches of the
+    first decode step (granite's B3: 48 query heads on one KV head) equal
+    to the plain version on their own inputs, and the prompt's prefill run
+    again, untimed, with each B1 and B2 launch held against its plain
+    version as it returns."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.serving.engine import ServingEngine
+
+    out = {}
+    for arch in CONFIG_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=CONFIG_LAYERS)
+        L, B, plen, max_new = cfg.n_layers, SERVE_B, SERVE_PROMPT, CONFIG_NEW
+        per_step = forward_launches(cfg)
+        label = f"serve-configs {arch}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, system="rns", device="cuda")
+        params = model.init(SEED)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        decode_paged, finite = _finite_wrap(torch, model.decode_paged)
+        engine = ServingEngine(
+            dataclasses.replace(model, decode_paged=decode_paged), params,
+            batch=B, s_max=plen + max_new + 1, page_size=64,
+            kv_format="rns8", device="cuda")
+        params = engine.params
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (B, plen)).astype(np.int32)
+        kernels.reset_launch_counts()
+        (res, first_b3), first_b1 = record_launches(
+            "rns_matmul", per_step, lambda: record_launches(
+                "paged_decode", L, lambda: engine.generate(
+                    {"tokens": prompts}, max_new=max_new), keep=_keep_b3),
+            skip=per_step)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rb = resident_bytes(engine.params)
+        steps = max_new - 1
+        print(f"[{label}] cut: depth {L} of {full.n_layers} (full width: "
+              f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads, "
+              f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}); "
+              f"system=rns kv=rns8 B={B} prompt={plen} new={max_new}; {smi}",
+              flush=True)
+        _serve_line(label, res.stats, B, steps, t_init, rb, peak,
+                    f" kv pool bytes={engine.pool.pool_bytes()}")
+        print(f"[{label}] launches {json.dumps(counts)}", flush=True)
+        want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                    flash_attention=L, paged_decode=L * steps)
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts}, expected "
+                                 f"{want}")
+        check_first_b3(first_b3, L, plen + 1, label, cfg)
+        check_first_b1(first_b1, per_step, B, label)
+        del engine, first_b3, first_b1
+        _, held = hold_launches(
+            held_checks("rns_matmul", "flash_attention"),
+            lambda: model.prefill(params, prompts, s_max=plen + max_new + 1))
+        check_held(held, {"rns_matmul": per_step, "flash_attention": L},
+                   label, "the prefill")
+        if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+            raise AssertionError(f"{label}: a logit is not finite")
+        if res.tokens.shape != (B, max_new) or not (
+                0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+            raise AssertionError(f"{label}: tokens misshapen or out of "
+                                 f"[0, vocab)")
+        print(f"[{label}] every logit finite; seq0 tokens "
+              f"{res.tokens[0].tolist()}", flush=True)
+        out[arch] = counts
+        del params, res, held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_ssm(torch, smi):
+    """Phase 11: mamba2-780m at full width and depth (48 Mamba2 layers, no
+    attention) under system="rns", served from its SSM state alone: B 8,
+    256-token prompts (one SSM chunk), 64 new tokens, greedy.  Gates:
+    every logit finite, exact launch counts (B1 only), and the B1 launches
+    of the first decode step equal to the plain version on their own
+    inputs."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.models.transformer import ssm_dims
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("mamba2-780m")
+    B, plen, max_new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    L, dims = cfg.n_layers, ssm_dims(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    decode, finite = _finite_wrap(torch, model.decode)
+    engine = ServingEngine(dataclasses.replace(model, decode=decode), params,
+                           batch=B, s_max=plen + max_new + 1, device="cuda")
+    del params
+    if engine.paged or engine.pool is not None:
+        raise AssertionError("the ssm family serves without a KV pool")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    per_step = 2 * L + 1
+    kernels.reset_launch_counts()
+    res, first = record_launches(
+        "rns_matmul", per_step, lambda: engine.generate(
+            {"tokens": prompts}, max_new=max_new), skip=per_step)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    ssm_bytes = 4 * L * B * (dims.n_heads * dims.headdim * dims.d_state
+                             + (dims.d_conv - 1) * dims.conv_dim)
+    print(f"[serve-ssm] mamba2-780m L={L} d={cfg.d_model} (d_inner "
+          f"{dims.d_inner}, {dims.n_heads} heads of {dims.headdim}, state "
+          f"{dims.d_state}) system=rns, no KV, B={B} prompt={plen} "
+          f"new={max_new}; {smi}", flush=True)
+    _serve_line("serve-ssm", res.stats, B, steps, t_init, rb, peak,
+                f" SSM state + conv bytes={ssm_bytes}")
+    print(f"[serve-ssm] launches {json.dumps(counts)}", flush=True)
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps))
+    if counts != want:
+        raise AssertionError(f"serve-ssm: launch counts {counts}, expected "
+                             f"{want}")
+    check_first_b1(first, per_step, B, "serve-ssm")
+    if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+        raise AssertionError("serve-ssm: a logit is not finite")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError("serve-ssm: tokens misshapen or out of "
+                             "[0, vocab)")
+    print(f"[serve-ssm] every logit finite; seq0 tokens "
+          f"{res.tokens[0, :16].tolist()}", flush=True)
+    return counts
+
+
+def serve_moe(torch, smi):
+    """Phase 12: moonshot-v1-16b-a3b at full width (d 2048, 16 heads of
+    128, 64 experts of d_ff 1408, top-6, vocab 163840), the depth cut to
+    MOE_LAYERS of 48, under system="rns" on rns8 pages: B 8, 256-token
+    prompts, MOE_NEW new tokens, greedy.  Gates: every logit finite; exact
+    launch counts, each stacked expert einsum one B1 launch; the B3
+    launches of the first decode step equal to the plain version on their
+    own inputs; the prefill and the first decode step run again, untimed,
+    with each B1, B2 and B3 launch held against its plain version as it
+    returns; and that decode step with the stacked launches gives logits
+    bit-identical to the same step with one B1 launch per expert (the
+    reference's scan), each step's time taken warm."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.numerics import kv_pages as kvp
+    from repro_torch.numerics import registry
+    from repro_torch.serving.engine import ServingEngine
+
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    L, B, plen, max_new, ps = cfg.n_layers, SERVE_B, SERVE_PROMPT, MOE_NEW, 64
+    s_max = plen + max_new + 1
+    per_step = forward_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    decode_paged, finite = _finite_wrap(torch, model.decode_paged)
+    engine = ServingEngine(
+        dataclasses.replace(model, decode_paged=decode_paged), params,
+        batch=B, s_max=s_max, page_size=ps, kv_format="rns8", device="cuda")
+    params = engine.params
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    kernels.reset_launch_counts()
+    res, first_b3 = record_launches(
+        "paged_decode", L, lambda: engine.generate(
+            {"tokens": prompts}, max_new=max_new), keep=_keep_b3)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = max(peak_init, torch.cuda.max_memory_allocated())
+    total = torch.cuda.get_device_properties(0).total_memory
+    rb = resident_bytes(params)
+    steps = max_new - 1
+    print(f"[serve-moe] cut: depth {L} of {full.n_layers}, for memory (full "
+          f"width: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
+          f"{cfg.hd}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+          f"{cfg.top_k}, vocab {cfg.vocab}); system=rns kv=rns8 B={B} "
+          f"prompt={plen} new={max_new}; {smi}", flush=True)
+    _serve_line("serve-moe", res.stats, B, steps, t_init, rb, peak,
+                f" (at init {peak_init}) kv pool bytes="
+                f"{engine.pool.pool_bytes()} device total={total} free at "
+                f"the peak={total - peak}")
+    print(f"[serve-moe] the step's byte bound: {rb} resident bytes (every "
+          f"expert's planes are read) at {HBM_BPS / 1e12:.2f} TB/s = "
+          f"{1e3 * rb / HBM_BPS:.2f} ms", flush=True)
+    print(f"[serve-moe] launches {json.dumps(counts)}", flush=True)
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=L, paged_decode=L * steps)
+    if counts != want:
+        raise AssertionError(f"serve-moe: launch counts {counts}, expected "
+                             f"{want}")
+    check_first_b3(first_b3, L, plen + 1, "serve-moe", cfg)
+    if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+        raise AssertionError("serve-moe: a logit is not finite")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError("serve-moe: tokens misshapen or out of "
+                             "[0, vocab)")
+    print(f"[serve-moe] every logit finite; seq0 tokens "
+          f"{res.tokens[0, :16].tolist()}", flush=True)
+    del engine, res, first_b3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the prefill again, each B1 and B2 launch held against its plain
+    # version; then the first decode step from copies of one pool, held the
+    # same way, and timed warm stacked and with one launch per expert
+    (logits, cache), held = hold_launches(
+        held_checks("rns_matmul", "flash_attention"),
+        lambda: model.prefill(params, prompts, s_max=s_max))
+    check_held(held, {"rns_matmul": per_step, "flash_attention": L},
+               "serve-moe", "the prefill")
+    tok = torch.argmax(logits, dim=-1, keepdim=True)
+    del logits
+    n_pmax = -(-s_max // ps)
+    tab = torch.arange(1, 1 + B * n_pmax, dtype=torch.int32,
+                       device="cuda").reshape(B, n_pmax)
+    pools = []
+    for _ in range(2):
+        pool = kvp.make_paged_kv(L, 1 + B * n_pmax, ps, cfg.n_kv, cfg.hd,
+                                 fmt="rns8", device="cuda")
+        kvp.scatter_prefill(pool, cache[0], cache[1], tab, ps)
+        pools.append(pool)
+    del cache
+    pos = torch.full((B,), plen, dtype=torch.int32, device="cuda")
+
+    def step(pool):
+        # rewrites the same KV row at pos with the same values: repeatable
+        return model.decode_paged(params, tok, pool, tab, pos,
+                                  page_size=ps)[0]
+
+    def timed(pool, n=3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            out = step(pool)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t) / n
+
+    _, held = hold_launches(held_checks("rns_matmul", "paged_decode"),
+                            lambda: step(pools[0]))
+    check_held(held, {"rns_matmul": per_step, "paged_decode": L},
+               "serve-moe", "the first decode step")
+    n_stacked = held["rns_matmul"][0]
+    kernels.reset_launch_counts()
+    stacked, ms_stacked = timed(pools[0])
+    if kernels.launch_counts()["rns_matmul"] != 3 * n_stacked:
+        raise AssertionError("serve-moe: the timed stacked steps launched B1 "
+                             f"{kernels.launch_counts()['rns_matmul']} times")
+    kernel = registry.get_impl("rns_matmul", "cuda")
+
+    def per_expert(a, b, moduli):
+        if a.dim() == 4:
+            return torch.stack([kernel(a[e], b[e], moduli)
+                                for e in range(a.shape[0])])
+        return kernel(a, b, moduli)
+
+    registry.register_impl("rns_matmul", "cuda", per_expert)
+    try:
+        kernels.reset_launch_counts()
+        step(pools[1])                          # warm
+        n_scanned = kernels.launch_counts()["rns_matmul"]
+        scanned, ms_scanned = timed(pools[1])
+    finally:
+        registry.register_impl("rns_matmul", "cuda", kernel)
+    want_scan = per_step + 3 * L * (cfg.n_experts - 1)
+    print(f"[serve-moe] one decode step, warm, host clock, mean of 3: "
+          f"{ms_stacked:.1f} ms with {n_stacked} B1 launches (the stacked "
+          f"einsums) against {ms_scanned:.1f} ms with {n_scanned} (one "
+          f"launch per expert): logits bit-identical "
+          f"{torch.equal(stacked, scanned)}", flush=True)
+    if (n_stacked, n_scanned) != (per_step, want_scan):
+        raise AssertionError(f"serve-moe: {n_stacked} / {n_scanned} B1 "
+                             f"launches, expected {per_step} / {want_scan}")
+    if not torch.equal(stacked, scanned):
+        raise AssertionError("serve-moe: the stacked step's logits differ "
+                             "from the per-expert step's")
+    return counts
+
+
 def main() -> int:
+    # [serve-moe] makes and encodes 38 layers of 2.2 GB f32 expert stacks one
+    # after another beside their planes: fixed-size segments fragment (out
+    # of memory on an H100 80GB with 26.7 GB reserved but free)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1854,9 +2480,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    def phase(label, fn, *args):
+        """Run one phase, print its command time, free what it left."""
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        print(f"[time] {label}: {time.perf_counter() - t:.1f}s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     from repro_torch.core.moduli import P21, P21R2
+    t_kernels = time.perf_counter()
     rm = check_rns_matmul(torch, timer, gen, P21, "P21", QWEN3_STEP)
     rm_r = check_rns_matmul(torch, timer, gen, P21R2, "P21R2", QWEN3_STEP)
     rm_h = check_rns_matmul(torch, timer, gen, P21, "zamba2", HYBRID_MATMULS)
@@ -1868,25 +2505,31 @@ def main() -> int:
     sda = check_sd_add(torch, timer)
     rm_s = check_rns_matmul_spec(torch, timer, gen)
     pv = check_paged_verify(torch, timer, gen)
+    # the new slices' shapes draw from their own generators, so that the
+    # checks above draw what they drew before these were added
+    rm_moe = check_rns_matmul_moe(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 2))
+    pd_g = check_paged_decode(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 3),
+        H=48, Kv=1, names=("rns8",), tag=",granite")
     del timer
     torch.cuda.empty_cache()
-    check_small(torch)
-    check_small_hybrid(torch)
-    counts, ctx = serve_full_width(torch)
-    spec = serve_spec(torch, *ctx)
+    print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
+          flush=True)
+    phase("small", check_small, torch)
+    phase("small-hybrid", check_small_hybrid, torch)
+    counts, ctx = phase("serve", serve_full_width, torch)
+    spec = phase("serve-spec", serve_spec, torch, *ctx)
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    counts_r = serve_redundant(torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts_sd = serve_sd(torch, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts_dense = serve_dense(torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    counts_hy = serve_hybrid(torch, smi)
+    counts_r = phase("serve-r + faults", serve_redundant, torch)
+    counts_sd = phase("serve-sd", serve_sd, torch, smi)
+    counts_dense = phase("serve-dense", serve_dense, torch)
+    counts_hy = phase("serve-hybrid", serve_hybrid, torch, smi)
+    counts_cfg = phase("serve-configs", serve_configs, torch, smi)
+    counts_ssm = phase("serve-ssm", serve_ssm, torch, smi)
+    counts_moe = phase("serve-moe", serve_moe, torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -1922,6 +2565,9 @@ def main() -> int:
          "launches_serve_sd": counts_sd[name],
          "launches_serve_dense": counts_dense[name],
          "launches_serve_hybrid": counts_hy[name],
+         "launches_serve_configs": {a: c[name] for a, c in counts_cfg.items()},
+         "launches_serve_ssm": counts_ssm[name],
+         "launches_serve_moe": counts_moe[name],
          **{k: r[k] for k in fixed},
          **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
         for name, source, rep, r in entries]}
@@ -1940,6 +2586,12 @@ def main() -> int:
         rm_s, launches={k: v["counts"]["rns_matmul"] for k, v in spec.items()})
     line["kernels"][2]["spec"] = dict(
         pv, launches={k: v["counts"]["paged_decode"] for k, v in spec.items()})
+    # B1 in stack mode at moonshot's expert einsums (decode and prefill
+    # capacity), with [serve-moe]'s launches; B3 at granite-20b's heads
+    line["kernels"][0]["moe"] = dict(rm_moe,
+                                     launches=counts_moe["rns_matmul"])
+    line["kernels"][2]["granite"] = dict(
+        pd_g["rns8"], launches=counts_cfg["granite-20b"]["paged_decode"])
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

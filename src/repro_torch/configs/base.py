@@ -3,8 +3,10 @@
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig`` and its ``reduced()`` are kept field for field and value for
 value: the parity tests build the same reduced model in both packages and
-load the same committed checkpoint into each.  Ported: ``qwen3-8b`` (dense)
-and ``zamba2-7b`` (hybrid).
+load the same committed checkpoint into each.  Ported: the dense
+``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b`` and ``granite-20b``, the hybrid
+``zamba2-7b``, the ssm ``mamba2-780m`` and the moe ``moonshot-v1-16b-a3b``
+and ``grok-1-314b``.
 """
 from __future__ import annotations
 
@@ -101,7 +103,16 @@ class ArchConfig:
         return dataclasses.replace(self, **r)
 
 
-ARCH_IDS: tuple[str, ...] = ("qwen3-8b", "zamba2-7b")
+ARCH_IDS: tuple[str, ...] = (
+    "zamba2-7b",
+    "granite-20b",
+    "qwen3-8b",
+    "yi-6b",
+    "phi3-medium-14b",
+    "grok-1-314b",
+    "moonshot-v1-16b-a3b",
+    "mamba2-780m",
+)
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_") for a in ARCH_IDS}
 

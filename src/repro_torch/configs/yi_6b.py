@@ -1,0 +1,20 @@
+"""yi-6b — dense llama-arch GQA.
+
+[arXiv:2403.04652; hf]  32L d_model=4096 32H (kv=4) d_ff=11008 vocab=64000.
+"""
+from repro_torch.configs.base import ArchConfig
+
+
+def get_config() -> ArchConfig:
+    return ArchConfig(
+        name="yi-6b",
+        family="dense",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv=4,
+        d_ff=11008,
+        vocab=64000,
+        head_dim=128,
+        microbatch=8,
+    )

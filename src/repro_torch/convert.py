@@ -4,8 +4,12 @@
 ``repro/train/checkpoint.py`` into a nested dict of numpy arrays;
 :func:`from_jax_params` turns such a tree (layers stacked on axis 0, as in
 the npz) into the port's parameters (a list of per-layer dicts of tensors;
-the hybrid family's ``shared`` block, not stacked, comes across as it is).
-Residue preparation then runs in the port (``Model.prepare_params``).
+the hybrid family's ``shared`` block, not stacked, comes across as it is;
+the moe family's router and ``(E, K, N)`` expert stacks and the ssm
+family's Mamba2 layers are per-layer leaves like any other).  bfloat16
+leaves (a ``param_dtype="bfloat16"`` config such as grok-1-314b) come
+across as float32, which holds them exactly.  Residue preparation then
+runs in the port (``Model.prepare_params``).
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ def load_npz(path: str) -> dict[str, Any]:
 def _to_torch(node, device):
     if isinstance(node, dict):
         return {k: _to_torch(v, device) for k, v in node.items()}
-    return torch.as_tensor(np.asarray(node)).to(device)
+    arr = np.asarray(node)
+    if arr.dtype.name == "bfloat16":     # numpy has no bf16 of its own
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(arr).to(device)
 
 
 def _layer(node, i: int):

@@ -51,6 +51,11 @@
 //   The 128 x 256 tile (a quarter less L2 traffic an operation than 128 x
 //   128) was the faster of those tried; 64 x 64 warps were slower.
 //
+// A stack of S products (S, C, M, K) x (S, C, K, N) runs as one launch over
+// S x C folded channels (rns_tiles.cuh: a_base, b_base, mod_of): the
+// plans see S x C channels and nothing else changes, so every slice is
+// bit-identical to a launch of its own.
+//
 // Ragged M, N and K edges load zeros and skip stores.  Views whose base or
 // strides are not 16-byte aligned (a K segment at an odd offset, N 65) take
 // byte loads inside the same kernels.
@@ -65,6 +70,7 @@ namespace {
 using rnt::Args;
 using rnt::Row16;
 
+// the moduli of one product (kMaxC bounds them, not the folded channels)
 struct Moduli {
   int m[rnt::kMaxC];
 };
@@ -183,7 +189,7 @@ rns_decode_kernel(Args g, Moduli mod, rnt::DecodePlan pl, int* counters,
   for (long long f = rnt::dec_run_begin(pl, blockIdx.x); f < f1;) {
     const rnt::Segment sg = rnt::dec_segment(pl, blockIdx.x, f);
     f += sg.s1 - sg.s0;
-    const int c = rnt::dec_channel(pl, sg.t), m_c = mod.m[c];
+    const int c = rnt::dec_channel(pl, sg.t), m_c = mod.m[rnt::mod_of(g, c)];
     const int n0 = rnt::dec_strip(pl, sg.t);
     int acc[MT][8][4];
 #pragma unroll
@@ -192,7 +198,7 @@ rns_decode_kernel(Args g, Moduli mod, rnt::DecodePlan pl, int* counters,
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[mt][i][r] = 0;
-    dec_segment_mma<MT>(g, g.a + c * g.a_sc, g.b + c * g.b_sc, n0, sg.s0,
+    dec_segment_mma<MT>(g, rnt::a_base(g, c), rnt::b_base(g, c), n0, sg.s0,
                         sg.s1, warp, lane, acc);
 
     __syncthreads();  // s_acc is zero
@@ -252,8 +258,8 @@ rns_prefill_kernel(Args g, Moduli mod) {
   const rnt::PreTile tile = rnt::pre_tile(g.M, g.N, blockIdx.x);
   const int c = tile.c, m0 = tile.m0, n0 = tile.n0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int8_t* a = g.a + c * g.a_sc;
-  const int8_t* b = g.b + c * g.b_sc;
+  const int8_t* a = rnt::a_base(g, c);
+  const int8_t* b = rnt::b_base(g, c);
   const bool vec_a = g.a_vec == 16, vec_b = g.b_vec == 16;
   const int ktiles = rnt::ceil_div(g.K, rnt::kPreBK);
 
@@ -305,7 +311,7 @@ rns_prefill_kernel(Args g, Moduli mod) {
   cp_async_wait<0>();
 
   // Epilogue: a lane holds 8 consecutive columns of each of its rows.
-  const int m_c = mod.m[c];
+  const int m_c = mod.m[rnt::mod_of(g, c)];
   int32_t* o = g.out + (long long)c * g.M * g.N;
   const bool vec_o = g.N % 4 == 0;
 #pragma unroll
@@ -360,34 +366,41 @@ cudaError_t set_smem_limit() {
 }  // namespace
 
 // Bytes of workspace rns_matmul_s8 needs for this shape (zeroed once by the
-// caller, left zero by every launch); 0 when it needs none.
-extern "C" long long rns_matmul_workspace(int C, int M, int N, int K) {
+// caller, left zero by every launch); 0 when it needs none.  F: the folded
+// channels, S x C.
+extern "C" long long rns_matmul_workspace(int F, int M, int N, int K) {
   if (M > rnt::kDecodeMaxM) return 0;
-  return rnt::decode_workspace_bytes(C, M, N,
-                                     rnt::decode_plan(C, N, K, sm_count()));
+  return rnt::decode_workspace_bytes(F, M, N,
+                                     rnt::decode_plan(F, N, K, sm_count()));
 }
 
+// S stacked products of C channels: A (S, C, M, K) and B (S, C, K, N) views
+// with strides (a_ss, a_sc, lda, 1) and (b_ss, b_sc, ldb, 1), out (S, C, M,
+// N) contiguous.  S = 1 is one product.
 extern "C" int rns_matmul_s8(const void* a, const void* b, void* out,
                              void* ws, long long ws_bytes,
-                             const int* moduli, int C, int M, int N, int K,
-                             long long a_sc, long long lda, long long b_sc,
+                             const int* moduli, int S, int C, int M, int N,
+                             int K, long long a_ss, long long a_sc,
+                             long long lda, long long b_ss, long long b_sc,
                              long long ldb, void* stream) {
-  if (C < 1 || C > rnt::kMaxC || M < 1 || N < 1 || K < 0)
+  if (S < 1 || C < 1 || C > rnt::kMaxC || M < 1 || N < 1 || K < 0 ||
+      (long long)S * C > (1 << 20))
     return (int)cudaErrorInvalidValue;
   Moduli mod = {};
   for (int c = 0; c < C; ++c) mod.m[c] = moduli[c];
-  Args g{(const int8_t*)a, (const int8_t*)b, (int32_t*)out, M, N, K,
-         a_sc, lda, b_sc, ldb,
-         rnt::vec_width(reinterpret_cast<uintptr_t>(a), a_sc, lda),
-         rnt::vec_width(reinterpret_cast<uintptr_t>(b), b_sc, ldb)};
+  Args g{(const int8_t*)a, (const int8_t*)b, (int32_t*)out, C, M, N, K,
+         a_ss, a_sc, lda, b_ss, b_sc, ldb,
+         rnt::vec_width(reinterpret_cast<uintptr_t>(a), a_ss, a_sc, lda),
+         rnt::vec_width(reinterpret_cast<uintptr_t>(b), b_ss, b_sc, ldb)};
+  const int F = S * C;
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= rnt::kDecodeMaxM) {
-    const rnt::DecodePlan pl = rnt::decode_plan(C, N, K, sm_count());
-    const long long need = rnt::decode_workspace_bytes(C, M, N, pl);
+    const rnt::DecodePlan pl = rnt::decode_plan(F, N, K, sm_count());
+    const long long need = rnt::decode_workspace_bytes(F, M, N, pl);
     if (need > ws_bytes || (need > 0 && ws == nullptr))
       return (int)cudaErrorInvalidValue;
     int* counters = (int*)ws;
-    int* partial = counters + (rnt::decode_counter_ints(C, pl) + 3) / 4 * 4;
+    int* partial = counters + (rnt::decode_counter_ints(F, pl) + 3) / 4 * 4;
     if (M <= 8)
       rns_decode_kernel<1><<<pl.blocks, rnt::kDecThreads, 0, s>>>(
           g, mod, pl, counters, partial);
@@ -398,7 +411,7 @@ extern "C" int rns_matmul_s8(const void* a, const void* b, void* out,
   }
   const cudaError_t e = set_smem_limit();
   if (e != cudaSuccess) return (int)e;
-  rns_prefill_kernel<<<rnt::prefill_blocks(C, M, N), rnt::kPreThreads,
+  rns_prefill_kernel<<<rnt::prefill_blocks(F, M, N), rnt::kPreThreads,
                        rnt::kPreSmem, s>>>(g, mod);
   return (int)cudaGetLastError();
 }

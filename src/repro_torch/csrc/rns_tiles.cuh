@@ -3,7 +3,12 @@
 //
 // Two schedules compute out[c] = center(A[c] @ B[c] mod m_c) for int8
 // centred residues A (C, M, K) (K contiguous) and B (C, K, N) (N
-// contiguous), both as strided views:
+// contiguous), both as strided views.  A stack of S such products (the
+// MoE expert einsums: A (S, C, M, K), B (S, C, K, N), out (S, C, M, N))
+// runs as one launch of S x C folded channels: channel f is stack slice
+// f / C and modulus f % C (a_base, b_base, mod_of), so both schedules
+// index folded channels exactly as they index the channels of one
+// product, and every slice equals a launch of its own bit for bit.
 //
 // - decode (M <= kDecodeMaxM): out^T = B^T A^T per channel on
 //   mma.m16n8k32, the weight tile as the 16-row A operand and the
@@ -52,11 +57,11 @@ constexpr int kMaxC = 8;
 // ---- both schedules ------------------------------------------------------
 
 struct Args {
-  const int8_t* a;     // (C, M, K) view, K contiguous
-  const int8_t* b;     // (C, K, N) view, N contiguous
-  int32_t* out;        // (C, M, N) contiguous
-  int M, N, K;
-  long long a_sc, lda, b_sc, ldb;
+  const int8_t* a;     // (S, C, M, K) view, K contiguous
+  const int8_t* b;     // (S, C, K, N) view, N contiguous
+  int32_t* out;        // (S, C, M, N) contiguous
+  int C, M, N, K;      // C: the moduli; S x C folded channels in all
+  long long a_ss, a_sc, lda, b_ss, b_sc, ldb;
   int a_vec, b_vec;    // 16, 4 or 1: the widest aligned load of each operand
 };
 
@@ -65,11 +70,21 @@ struct Row16 {
 };
 
 // The widest power-of-two load (16, 4 or 1 bytes) that every row of a view
-// allows: base address and both strides divisible by it.
-RT_HD int vec_width(uintptr_t base, long long sc, long long ld) {
+// allows: base address and every stride divisible by it.
+RT_HD int vec_width(uintptr_t base, long long ss, long long sc,
+                    long long ld) {
   for (int v = 16; v > 1; v /= 4)
-    if (base % v == 0 && sc % v == 0 && ld % v == 0) return v;
+    if (base % v == 0 && ss % v == 0 && sc % v == 0 && ld % v == 0) return v;
   return 1;
+}
+
+// Folded channel f: stack slice f / C, modulus f % C; its operand bases.
+RT_HD int mod_of(const Args& g, int f) { return f % g.C; }
+RT_HD const int8_t* a_base(const Args& g, int f) {
+  return g.a + (long long)(f / g.C) * g.a_ss + (long long)(f % g.C) * g.a_sc;
+}
+RT_HD const int8_t* b_base(const Args& g, int f) {
+  return g.b + (long long)(f / g.C) * g.b_ss + (long long)(f % g.C) * g.b_sc;
 }
 
 RT_HD int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
@@ -137,7 +152,7 @@ constexpr int kDecUnroll = 2;      // steps a warp loads before it computes
 constexpr int kDecBlocksPerSM = 1; // ~170 registers a thread: one an SM
 
 // Stream-K: the work is C x ceil(N / kStripN) tiles (128 columns of one
-// channel) of ksteps K steps each, taken in order (tile-major) as one
+// channel; C counts the folded channels of a stacked launch) of ksteps K steps each, taken in order (tile-major) as one
 // sequence of total steps and cut into `blocks` runs that differ by at
 // most one step (block b: [b T / B, (b + 1) T / B)), as many blocks as the
 // card holds at once.  A block walks its run tile segment by tile segment,
@@ -352,7 +367,8 @@ constexpr int kStageB = kPreBK * kPreBN;      // 16384 B: 64 rows of 256 B
 constexpr int kStageBytes = kStageA + kStageB;
 constexpr int kPreSmem = kPreStages * kStageBytes;
 
-// The grid is one dimension: channel-major, then groups of kPreGroupM M
+// The grid is one dimension (C folded channels, as the decode's):
+// channel-major, then groups of kPreGroupM M
 // tiles, inside a group M tiles fastest.  Blocks that run at once then
 // share their B tiles (16 blocks each) and a group's A rows, and each B
 // tile is read from device memory about once, not once per M tile (the

@@ -30,10 +30,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C entry points: every one runs on the given stream, allocates nothing,
 # and returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # a, b, out, workspace, workspace bytes, moduli (host int[C]), C, M, N,
-    # K, a_sc, lda, b_sc, ldb, stream
-    "rns_matmul_s8": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _L, _L, _L,
-                      _L, _P],
+    # a, b, out, workspace, workspace bytes, moduli (host int[C]), S, C, M,
+    # N, K, a_ss, a_sc, lda, b_ss, b_sc, ldb, stream
+    "rns_matmul_s8": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _L, _L,
+                      _L, _L, _L, _L, _P],
     # a, b, out, roots workspace, wrap_signs (host int[C]), C, M, N, K, n,
     # a_cs, lda, b_cs, ldb, matvec, stream
     "sdrns_matmul_s8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
@@ -58,7 +58,7 @@ _SIGNATURES = {
 
 # Queries that launch nothing: name -> (argument types, result type).
 _QUERIES = {
-    # C, M, N, K -> bytes of rns_matmul_s8's workspace (0: none)
+    # S x C, M, N, K -> bytes of rns_matmul_s8's workspace (0: none)
     "rns_matmul_workspace": ([_I, _I, _I, _I], _L),
     # C, M, N, K, matvec -> bytes of sdrns_matmul_s8's roots workspace
     "sdrns_matmul_workspace": ([_I, _I, _I, _I, _I], _L),

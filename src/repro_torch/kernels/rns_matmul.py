@@ -21,6 +21,12 @@ int8 centered residues, with no reduction inside the K loop.
 
 Both take strided views: a K segment of ``(C, M, K)`` and ``(C, K, N)`` is
 passed as it lies in memory, so no operand is padded or copied per call.
+
+Stack mode (the MoE expert einsums): ``(S, C, M, K) x (S, C, K, N) ->
+(S, C, M, N)``, S independent products in one launch.  The kernel folds
+the stack into its channel loop (folded channel ``f`` is slice ``f // C``
+with modulus ``f % C``), so each slice is bit-identical to a launch of its
+own; the plain version loops over the slices.
 """
 from __future__ import annotations
 
@@ -65,7 +71,12 @@ def _center_rem(acc: torch.Tensor, m: int) -> torch.Tensor:
 
 def rns_matmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
                    moduli: Sequence[int]) -> torch.Tensor:
-    """(C, M, K) x (C, K, N) residues -> (C, M, N) int32 centered residues."""
+    """(C, M, K) x (C, K, N) residues -> (C, M, N) int32 centered residues;
+    a stack ``(S, C, M, K) x (S, C, K, N) -> (S, C, M, N)`` slice by
+    slice."""
+    if a_res.dim() == 4:
+        return torch.stack([rns_matmul_ref(a_res[s], b_res[s], moduli)
+                            for s in range(a_res.shape[0])])
     outs = []
     for c, m in enumerate(moduli):
         acc = torch.matmul(a_res[c].to(torch.float64),
@@ -76,7 +87,8 @@ def rns_matmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
 
 def rns_matmul_cuda(a_res: torch.Tensor, b_res: torch.Tensor,
                     moduli: Sequence[int]) -> torch.Tensor:
-    """The Hopper kernel; same contract as :func:`rns_matmul_ref`."""
+    """The Hopper kernel; same contract as :func:`rns_matmul_ref`, one
+    launch for a stack too."""
     global launches
     if not (a_res.is_cuda and b_res.is_cuda):
         raise ValueError("rns_matmul_cuda takes CUDA tensors")
@@ -85,28 +97,36 @@ def rns_matmul_cuda(a_res: torch.Tensor, b_res: torch.Tensor,
     if a_res.dtype != torch.int8 or b_res.dtype != torch.int8:
         raise TypeError(f"rns_matmul_cuda takes int8 planes, got "
                         f"{a_res.dtype} and {b_res.dtype}")
-    if a_res.dim() != 3 or b_res.dim() != 3:
-        raise ValueError("rns_matmul_cuda takes (C, M, K) and (C, K, N)")
-    C, M, K = a_res.shape
-    C2, K2, N = b_res.shape
-    if C2 != C or K2 != K or len(moduli) != C:
+    if a_res.dim() != b_res.dim() or a_res.dim() not in (3, 4):
+        raise ValueError("rns_matmul_cuda takes (C, M, K) and (C, K, N), or "
+                         "(S, C, M, K) and (S, C, K, N)")
+    stacked = a_res.dim() == 4
+    a4 = a_res if stacked else a_res.unsqueeze(0)
+    b4 = b_res if stacked else b_res.unsqueeze(0)
+    S, C, M, K = a4.shape
+    S2, C2, K2, N = b4.shape
+    if S2 != S or C2 != C or K2 != K or len(moduli) != C:
         raise ValueError(f"shape mismatch: {tuple(a_res.shape)} x "
                          f"{tuple(b_res.shape)} with {len(moduli)} moduli")
-    if a_res.stride(2) != 1 or b_res.stride(2) != 1:
+    if a4.stride(3) != 1 or b4.stride(3) != 1:
         raise ValueError("the innermost axis of both operands must be "
                          "contiguous")
-    out = torch.empty((C, M, N), dtype=torch.int32, device=a_res.device)
-    if M == 0 or N == 0:
+    out = torch.empty((S, C, M, N), dtype=torch.int32, device=a_res.device)
+    if not stacked:
+        out = out[0]
+    if S == 0 or M == 0 or N == 0:
         return out
     lib = build.library()
     mods = (ctypes.c_int * C)(*(int(m) for m in moduli))
     stream = torch.cuda.current_stream(a_res.device).cuda_stream
-    nbytes = lib.rns_matmul_workspace(C, M, N, K)
+    nbytes = lib.rns_matmul_workspace(S * C, M, N, K)
     ws = _workspace(a_res.device, stream, nbytes)
+    # one slice has no stack stride (it would only narrow the loads)
+    a_ss, b_ss = (a4.stride(0), b4.stride(0)) if S > 1 else (0, 0)
     err = lib.rns_matmul_s8(
-        a_res.data_ptr(), b_res.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), nbytes, mods, C, M, N, K,
-        a_res.stride(0), a_res.stride(1), b_res.stride(0), b_res.stride(1),
+        a4.data_ptr(), b4.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), nbytes, mods, S, C, M, N, K,
+        a_ss, a4.stride(1), a4.stride(2), b_ss, b4.stride(1), b4.stride(2),
         stream)
     build.check(err, "rns_matmul_s8")
     launches += 1

@@ -4,11 +4,17 @@ Example (one H100):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --system rns --kv-format rns8 --batch 8 --prompt-len 256 --max-new 64
 
-The dense family (``qwen3-8b``) decodes over the paged KV pool in
-``--kv-format``; the hybrid family (``zamba2-7b``: Mamba2 layers and a
-shared attention block) has no paged decode and serves from the dense bf16
-cache, where ``--kv-format`` does not apply.  Its prompts must be a
-multiple of the SSM chunk (256) long, or shorter than one chunk.
+The dense family (``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b``,
+``granite-20b``) and the moe family (``moonshot-v1-16b-a3b``,
+``grok-1-314b``) decode over the paged KV pool in ``--kv-format``; the
+hybrid family (``zamba2-7b``: Mamba2 layers and a shared attention block)
+has no paged decode and serves from the dense bf16 cache, and the ssm
+family (``mamba2-780m``) from its SSM state alone; ``--kv-format`` does not
+apply to either.  Their prompts must be a multiple of the SSM chunk (256)
+long, or shorter than one chunk.  At full width one card holds yi-6b,
+phi3-medium-14b and mamba2-780m whole; granite-20b and moonshot need a
+depth cut (``chip_smoke.py`` makes it through the Python API), grok-1-314b
+runs reduced only.
 
 ``--system sdrns`` serves on P21 signed-digit weight planes, 21 B per
 weight: at full width only a cut depth fits one card (``chip_smoke.py``
@@ -30,14 +36,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import ServingEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--system", default="bns", choices=("bns", "rns", "sdrns"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

@@ -1,7 +1,7 @@
 """Model API: ``build_model(cfg, system=..., device=...)``.
 
-The returned :class:`Model` bundles the functions of the dense and hybrid
-families:
+The returned :class:`Model` bundles the functions of the dense, moe, ssm
+and hybrid families:
 
 * ``init(seed)`` -- random parameters on the model's device.  Under
   ``system="rns"`` and ``"sdrns"`` each layer is made residue-resident
@@ -10,22 +10,26 @@ families:
   resident size, ~26 GB, instead of ~58 GB for all float weights followed
   by their planes);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
-  float tree (identity for ``bns``; idempotent on prepared trees);
+  float tree (identity for ``bns``; idempotent on prepared trees): every
+  ``{"w": ...}`` weight but the moe router's (routing stays float), the
+  bare ``(E, K, N)`` expert stacks ``w_gate`` / ``w_up`` / ``w_down`` (the
+  stack kept), and the tied logits weight;
 * ``prepare_weight(w)`` -- one float ``(K, N)`` weight made resident as
   ``prepare_params`` makes each (the speculative drafter re-encodes the
   target's weights one at a time through it);
 * ``prefill(params, tokens, s_max=None, logits_at=None)`` -- logits and
   the family's cache (``models/transformer.py``);
-* ``init_cache(batch, s_max)`` -- a zeroed cache of that layout;
+* ``init_cache(batch, s_max)`` -- a zeroed cache of that layout (the ssm
+  family's is an ``SsmCache`` alone, no KV);
 * ``decode(params, token, cache, pos)`` -- one step over the dense cache
   (updated in place), every slot at position ``pos``;
 * ``decode_paged(params, token, kv, block_tab, pos, page_size=...,
-  with_syndrome=False)`` -- dense family only (``None`` for hybrid); with
-  the syndrome it also returns the ``(B, L)`` count of KV elements whose
-  witnesses disagree (rns8r pages);
+  with_syndrome=False)`` -- the dense and moe families (``None`` for ssm
+  and hybrid); with the syndrome it also returns the ``(B, L)`` count of
+  KV elements whose witnesses disagree (rns8r pages);
 * ``verify_paged(params, tokens, kv, block_tab, pos, page_size=...)`` --
   the speculative verify of ``tokens (B, V)`` at ``pos .. pos + V - 1``,
-  ``(logits (B, V, vocab), kv)``; dense family only.
+  ``(logits (B, V, vocab), kv)``; the dense and moe families.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -70,7 +74,7 @@ class Model:
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
     # paged serving and its speculative verify; None for families without
-    # a paged decode (hybrid)
+    # a paged decode (ssm, hybrid)
     decode_paged: Callable[..., Any] | None = None
     verify_paged: Callable[..., Any] | None = None
 
@@ -106,10 +110,12 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
     def prepare_tree(node, name=None):
         if isinstance(node, list):
             return [prepare_tree(v) for v in node]
+        if residency.makes_resident(name, node):
+            if isinstance(node, dict):
+                return residency.prepare_dense(node, **prep_kw)
+            return residency.prepare_weight(node, **prep_kw)
         if not isinstance(node, dict):
             return node
-        if set(node) == {"w"}:
-            return residency.prepare_dense(node, **prep_kw)
         out = {k: prepare_tree(v, k) for k, v in node.items()}
         if name == "embed" and "logits_w" not in out:
             # tied-embedding logits matmul; the f32 table stays for the
@@ -124,8 +130,9 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         return residency.prepare_weight(w, **prep_kw)
 
     def prepare_params(params):
-        """Every dense weight and the tied logits weight (``table.T``,
-        stored as ``embed.logits_w``) become residue-resident."""
+        """Every dense weight, the moe expert stacks and the tied logits
+        weight (``table.T``, stored as ``embed.logits_w``) become
+        residue-resident; the moe router stays float."""
         if system == "bns":
             return params
         return {k: prepare_tree(v, k) for k, v in params.items()}
@@ -172,13 +179,13 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             params, cfg, tokens, kv, block_tab, pos, page_size=page_size,
             dense_kw=dense_kw, cache_dtype=cache_dtype)
 
-    dense = cfg.family == "dense"
+    paged = cfg.family in ("dense", "moe")
     return Model(cfg=cfg, device=dev, init=init,
                  prepare_params=prepare_params,
                  prepare_weight=prepare_weight, prefill=prefill,
                  decode=decode, init_cache=init_cache,
-                 decode_paged=decode_paged if dense else None,
-                 verify_paged=verify_paged if dense else None)
+                 decode_paged=decode_paged if paged else None,
+                 verify_paged=verify_paged if paged else None)
 
 
 def resident_bytes(params: Any) -> int:

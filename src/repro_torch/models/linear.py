@@ -12,6 +12,9 @@
   ``"sd"``), through the fused signed-digit matmul kernels; the int32
   product equals ``rns``'s bit for bit.
 
+:func:`stacked_qmatmul` is the expert-stacked sibling ``models/moe.py``
+runs its three einsums through.
+
 Prepared weights are inference-only; the per-call quantizing path for float
 weights under ``rns`` waits for the training slice.
 """
@@ -27,7 +30,7 @@ from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant import residency
 from repro_torch.quant.quant import qmax_for_bits, quantize_symmetric
 
-__all__ = ["dense", "init_dense"]
+__all__ = ["dense", "init_dense", "stacked_qmatmul"]
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int,
@@ -38,17 +41,18 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def _check_resident(w: ResidueTensor, bits: int, mset: ModuliSet,
-                    system: str) -> None:
+                    system: str, where: str = "dense") -> None:
     if residency.prepared_kind(w) != system:
         raise ValueError(f"params are residue-resident (layout "
-                         f"{w.layout!r}) but dense() was called with "
+                         f"{w.layout!r}) but {where}() was called with "
                          f"system {system!r}")
     if w.qbits is not None and w.qbits != bits:
         raise ValueError(f"residue-resident params were prepared with "
-                         f"bits={w.qbits}, dense() called with bits={bits}")
+                         f"bits={w.qbits}, {where}() called with "
+                         f"bits={bits}")
     if w.mset.moduli != mset.moduli:
         raise ValueError(f"planes prepared under moduli {w.mset.moduli}, "
-                         f"dense() called with {mset.moduli}")
+                         f"{where}() called with {mset.moduli}")
     if w.scale is None:
         raise ValueError("residue-resident weight carries no scale")
 
@@ -80,3 +84,26 @@ def dense(params: dict[str, Any], x: torch.Tensor, *, system: str = "bns",
                          " run the parameters through Model.prepare_params "
                          "first")
     raise ValueError(f"unknown system {system!r}")
+
+
+def stacked_qmatmul(subscripts: str, x: torch.Tensor, w: ResidueTensor, *,
+                    system: str, bits: int = 4,
+                    mset: ModuliSet = P21) -> torch.Tensor:
+    """Quantized stacked einsum over resident planes: x (*stack, M, K) f32,
+    w prepared (*stack, K, N) -> (*stack, M, N) f32.
+
+    Per-row int4 codes of ``x`` (an all-zero row, an empty expert slot,
+    quantizes to zeros), ``nx.einsum`` on the resident planes, then
+    ``acc * sx * w.scale``.
+    """
+    if not isinstance(w, ResidueTensor):
+        if system in residency.SYSTEM_LAYOUT:
+            raise ValueError(f"system={system!r} needs residue-resident "
+                             "expert stacks: run the parameters through "
+                             "Model.prepare_params first")
+        raise ValueError(f"unknown system {system!r}")
+    _check_resident(w, bits, mset, system, where="stacked_qmatmul")
+    qmax = qmax_for_bits(bits)
+    qx, sx = quantize_symmetric(x.to(torch.float32), bits, axis=-1)
+    acc = nx.einsum(subscripts, qx, w, max_abs_a=qmax)
+    return acc.to(torch.float32) * sx * w.scale

@@ -1,0 +1,157 @@
+"""Top-k mixture of experts with capacity-based dispatch (port of
+``repro/models/moe.py``).
+
+1. router logits (a plain matmul, rounded to f32: routing is not
+   quantized arithmetic) -> softmax -> top-k expert ids and renormalised
+   gates;
+2. each (token, slot) gets its position inside its expert from an
+   exclusive cumsum over the flattened ``(T·k, E)`` one-hot; positions at
+   or past the capacity ``C = moe_capacity(T, E, k, cf)`` are dropped;
+3. the kept slots are scattered into ``(E, C, d)`` buffers, the stacked
+   expert SwiGLU runs as three einsums, and the outputs are gathered back
+   and summed over the k slots, weighted by their gates.
+
+Under ``system="rns"`` the three einsums run on the resident expert stacks
+through ``linear.stacked_qmatmul`` (one residue matmul launch for the whole
+stack, where the reference scans its kernel over the experts).
+
+Where the reference's semantics are kept on purpose:
+
+* ``lax.top_k`` breaks ties toward the lower expert index, which
+  ``torch.topk`` does not promise: a stable descending sort, first k;
+* the reference adds dropped slots into the buffer as zeros at (0, 0);
+  only kept slots are written here (dropped ones go to a spare row that is
+  cut off), which gives the same buffer with no atomics;
+* dtypes: ``h = silu(g) u`` in ``x.dtype``, the down einsum's output in
+  ``x.dtype``, the gates cast to ``x.dtype`` before the k-sum;
+* the router's matmul sums in float64 and rounds once to f32, so no TF32
+  setting and no summation order moves its logits (one flipped ulp can
+  change the top-k), on the card as on the CPU.
+
+The switch-transformer load-balance loss ``E sum_e f_e p_e``, a training
+term, is :func:`load_balance_loss`; serving calls :func:`moe` alone.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import linear
+from repro_torch.numerics.tensor import ResidueTensor
+
+__all__ = ["init_moe", "load_balance_loss", "moe", "moe_capacity"]
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             device="cuda") -> dict[str, Any]:
+    scale_in = (2.0 / (d_model + d_ff)) ** 0.5
+
+    def stack(*shape):
+        return torch.randn(*shape, generator=gen, device=device) * scale_in
+
+    return {
+        "router": {"w": torch.randn(d_model, n_experts, generator=gen,
+                                    device=device) * 0.02},
+        "w_gate": stack(n_experts, d_model, d_ff),
+        "w_up": stack(n_experts, d_model, d_ff),
+        "w_down": stack(n_experts, d_ff, d_model),
+    }
+
+
+def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25, *, multiple: int = 8) -> int:
+    """Static per-expert capacity, rounded up to a multiple of 8."""
+    c = math.ceil(n_tokens * top_k / n_experts * capacity_factor)
+    return max(multiple, (c + multiple - 1) // multiple * multiple)
+
+
+def route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int):
+    """(T, d) tokens -> ``(probs (T, E), gates (T, k), expert_idx (T, k))``.
+
+    f32 logits (summed in float64), softmax, the k largest probabilities
+    (ties to the lower index), gates renormalised to sum to one.
+    """
+    logits = torch.matmul(xt.to(torch.float64),
+                          router_w.to(torch.float64)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = top.values[:, :top_k]
+    expert_idx = top.indices[:, :top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, expert_idx
+
+
+def place(expert_idx: torch.Tensor, n_experts: int, capacity: int):
+    """Each (token, slot)'s expert and position inside it, flattened to
+    ``(T·k,)``, and which of them fit the capacity."""
+    flat_e = expert_idx.reshape(-1)
+    onehot = F.one_hot(flat_e, n_experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    return flat_e, pos_in_e, pos_in_e < capacity
+
+
+def load_balance_loss(router_w: torch.Tensor, x: torch.Tensor, *,
+                      n_experts: int, top_k: int) -> torch.Tensor:
+    """The switch-transformer aux loss of ``moe``'s routing of x (B, S, d):
+    ``E sum_e f_e p_e``, an f32 scalar."""
+    probs, _, expert_idx = route(router_w, x.reshape(-1, x.shape[-1]),
+                                 top_k)
+    frac_prob = probs.mean(dim=0)
+    frac_tok = F.one_hot(expert_idx, n_experts).to(torch.float32).sum(
+        1).mean(0)
+    return n_experts * (frac_prob * frac_tok).sum()
+
+
+def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
+        top_k: int, capacity_factor: float = 1.25,
+        dense_kw: dict[str, Any] | None = None) -> torch.Tensor:
+    """x: (B, S, d) -> y (B, S, d).
+
+    ``dense_kw`` picks the arithmetic of the expert einsums as it does for
+    ``linear.dense``: ``bns`` float einsums (bf16 operands, f32 sums), or
+    ``rns`` / ``sdrns`` on resident expert stacks.  The capacity follows
+    the token count, so a prefill must route all its prompts in one call.
+    """
+    dkw = dense_kw or {}
+    system = dkw.get("system", "bns")
+    qkw = {k: dkw[k] for k in ("bits", "mset") if k in dkw}
+
+    def expert_einsum(subscripts, operand, w, out_dtype):
+        if system in ("rns", "sdrns") or isinstance(w, ResidueTensor):
+            out = linear.stacked_qmatmul(subscripts, operand, w,
+                                         system=system, **qkw)
+        else:
+            out = torch.einsum(subscripts, operand.to(torch.float32),
+                               w.to(operand.dtype).to(torch.float32))
+        return out.to(out_dtype)
+
+    B, S, d = x.shape
+    T = B * S
+    E, K = n_experts, top_k
+    xt = x.reshape(T, d)
+    _, gates, expert_idx = route(params["router"]["w"], xt, K)
+    C = moe_capacity(T, E, K, capacity_factor)
+    flat_e, pos_in_e, keep = place(expert_idx, E, C)
+    # slot row in the flattened (E * C, d) buffer; dropped slots go to the
+    # spare row E * C, which is cut off
+    slot = torch.where(keep, flat_e * C + pos_in_e,
+                       torch.full_like(flat_e, E * C))
+    src = xt.repeat_interleave(K, dim=0)                  # (T K, d)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = src
+    buf = buf[:E * C].view(E, C, d)
+
+    g = expert_einsum("ecd,edf->ecf", buf, params["w_gate"], torch.float32)
+    u = expert_einsum("ecd,edf->ecf", buf, params["w_up"], torch.float32)
+    h = (F.silu(g) * u).to(x.dtype)
+    out_buf = expert_einsum("ecf,efd->ecd", h, params["w_down"], x.dtype)
+
+    out_tok = out_buf.reshape(E * C, d)[torch.where(keep, slot, 0)]
+    out_tok = torch.where(keep[:, None], out_tok, torch.zeros_like(out_tok))
+    y = (out_tok.reshape(T, K, d)
+         * gates.reshape(T, K, 1).to(x.dtype)).sum(dim=1)
+    return y.reshape(B, S, d)

@@ -1,12 +1,14 @@
-"""Decoder-only LM, dense and hybrid families: init, prefill, dense-cache
-decode, paged decode and the paged speculative verify.
+"""Decoder-only LM, the dense, moe, ssm and hybrid families: init,
+prefill, dense-cache decode, paged decode and the paged speculative verify.
 
-Port of the dense- and hybrid-family paths of
-``repro/models/transformer.py``.  The reference's ``lax.scan`` over stacked
-layer parameters becomes a Python loop over a list of per-layer parameter
-dicts.
+Port of the decoder paths of ``repro/models/transformer.py``.  The
+reference's ``lax.scan`` over stacked layer parameters becomes a Python
+loop over a list of per-layer parameter dicts.
 
-* dense -- pre-norm GQA attention (qk-norm) + SwiGLU.
+* dense -- pre-norm GQA attention (qk-norm where the config sets it) +
+  SwiGLU.
+* moe -- the same attention + a top-k expert layer (``models/moe.py``).
+* ssm (mamba2) -- Mamba2 blocks only, attention-free.
 * hybrid (zamba2) -- a Mamba2 backbone; after every ``attn_every`` layers a
   *shared* (weight-tied) attention + SwiGLU block runs on
   ``in_proj(concat(hidden, embeddings))`` and is added back to the residual
@@ -14,10 +16,10 @@ dicts.
 
 Caches (stacked over layers on axis 0, updated in place by decode):
 
-* dense: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
-* hybrid: ``{"ssm": SsmCache(conv (L, B, K-1, conv_dim), state (L, B, H,
-  P, N)), "attn": KVCache(k, v)}`` with KV leaves (G, B, S_max, Kv, hd),
-  G the number of shared-block applications.
+* dense, moe: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
+* ssm: ``SsmCache(conv (L, B, K-1, conv_dim), state (L, B, H, P, N))``;
+* hybrid: ``{"ssm": SsmCache(...), "attn": KVCache(k, v)}`` with KV leaves
+  (G, B, S_max, Kv, hd), G the number of shared-block applications.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
@@ -41,11 +44,12 @@ __all__ = ["init_lm", "init_lm_cache", "lm_prefill", "lm_decode",
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "hybrid" or (cfg.family == "dense"
-                                  and cfg.mlp_type == "swiglu"):
+    if cfg.family in ("ssm", "hybrid") or (cfg.family in ("dense", "moe")
+                                           and cfg.mlp_type == "swiglu"):
         return
-    raise ValueError(f"the port serves the dense swiglu and the hybrid "
-                     f"families, not {cfg.family!r}/{cfg.mlp_type!r}")
+    raise ValueError(f"the port serves the dense and moe swiglu, the ssm "
+                     f"and the hybrid families, not "
+                     f"{cfg.family!r}/{cfg.mlp_type!r}")
 
 
 def ssm_dims(cfg: ArchConfig) -> Mamba2Dims:
@@ -66,17 +70,22 @@ def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
 
 def _init_layer(gen: torch.Generator, cfg: ArchConfig,
                 device) -> dict[str, Any]:
-    if cfg.family == "hybrid":
+    if cfg.family in ("ssm", "hybrid"):
         return {"norm": init_rmsnorm(cfg.d_model, device),
                 "mamba": ssm_mod.init_mamba2(gen, ssm_dims(cfg), device)}
-    return {
+    p = {
         "attn_norm": init_rmsnorm(cfg.d_model, device),
         "attn": attn_mod.init_attention(gen, cfg.d_model, cfg.n_heads,
                                         cfg.n_kv, cfg.hd,
                                         qk_norm=cfg.qk_norm, device=device),
         "mlp_norm": init_rmsnorm(cfg.d_model, device),
-        "mlp": mlp_mod.init_swiglu(gen, cfg.d_model, cfg.d_ff, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.n_experts, device)
+    else:
+        p["mlp"] = mlp_mod.init_swiglu(gen, cfg.d_model, cfg.d_ff, device)
+    return p
 
 
 def _init_shared_block(gen: torch.Generator, cfg: ArchConfig,
@@ -120,7 +129,7 @@ def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
     state and conv history are f32 whatever ``dtype`` the KV cache has."""
     _check_family(cfg)
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         shape = (L, batch, s_max, cfg.n_kv, cfg.hd)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
@@ -130,6 +139,8 @@ def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
         torch.zeros((L, batch, dims.d_conv - 1, dims.conv_dim), **f32),
         torch.zeros((L, batch, dims.n_heads, dims.headdim, dims.d_state),
                     **f32))
+    if cfg.family == "ssm":
+        return ssm_cache
     shape = (hybrid_groups(cfg)[0], batch, s_max, cfg.n_kv, cfg.hd)
     return {"ssm": ssm_cache,
             "attn": KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -157,8 +168,37 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
     return torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
 
 
-def _mlp_block(lp, x, dense_kw):
-    return mlp_mod.swiglu(lp["mlp"], rmsnorm(lp["mlp_norm"], x), dense_kw)
+def _mlp_block(lp, x, cfg: ArchConfig, dense_kw):
+    """The layer's feed-forward half: SwiGLU, or the expert layer of the
+    moe family."""
+    h = rmsnorm(lp["mlp_norm"], x)
+    if cfg.family == "moe":
+        return moe_mod.moe(lp["moe"], h, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, capacity_factor=cfg.moe_cf,
+                           dense_kw=dense_kw)
+    return mlp_mod.swiglu(lp["mlp"], h, dense_kw)
+
+
+def _mamba_prefill(lp, x, ssm_c: SsmCache, i: int, cfg: ArchConfig,
+                   dense_kw):
+    """One Mamba2 layer over the prompt; its final conv history and state go
+    to layer ``i`` of the cache."""
+    h, c2 = ssm_mod.mamba2_forward(
+        lp["mamba"], rmsnorm(lp["norm"], x), ssm_dims(cfg),
+        chunk=cfg.ssm_chunk, dense_kw=dense_kw, return_cache=True)
+    ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
+    return x + h
+
+
+def _mamba_decode(lp, x, ssm_c: SsmCache, i: int, cfg: ArchConfig,
+                  dense_kw):
+    """One Mamba2 layer's decode step on layer ``i`` of the cache."""
+    h, c2 = ssm_mod.mamba2_decode(
+        lp["mamba"], rmsnorm(lp["norm"], x),
+        SsmCache(ssm_c.conv[i], ssm_c.state[i]), ssm_dims(cfg),
+        dense_kw=dense_kw)
+    ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
+    return x + h
 
 
 def _attn_kw(cfg: ArchConfig, dense_kw, *, shared: bool = False):
@@ -227,6 +267,10 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         return _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
                                logits_at)
     cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            x = _mamba_prefill(lp, x, cache, i, cfg, dense_kw)
+        return _read_logits(params, cfg, x, logits_at, dense_kw), cache
     akw = _attn_kw(cfg, dense_kw)
     for i, lp in enumerate(params["layers"]):
         h, (kc, vc) = attn_mod.prefill_attention(
@@ -234,7 +278,7 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
             cache_dtype=cache_dtype, **akw)
         cache.k[i], cache.v[i] = kc, vc
         x = x + h
-        x = x + _mlp_block(lp, x, dense_kw)
+        x = x + _mlp_block(lp, x, cfg, dense_kw)
     return _read_logits(params, cfg, x, logits_at, dense_kw), cache
 
 
@@ -243,18 +287,13 @@ def _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
     B = x.shape[0]
     cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
     ssm_c, kv = cache["ssm"], cache["attn"]
-    dims = ssm_dims(cfg)
     skw = _attn_kw(cfg, dense_kw, shared=True)
     sp = params["shared"]
     x0 = x
     for layers, g in _hybrid_schedule(cfg):
         for i in layers:
-            lp = params["layers"][i]
-            h, c2 = ssm_mod.mamba2_forward(
-                lp["mamba"], rmsnorm(lp["norm"], x), dims,
-                chunk=cfg.ssm_chunk, dense_kw=dense_kw, return_cache=True)
-            ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
-            x = x + h
+            x = _mamba_prefill(params["layers"][i], x, ssm_c, i, cfg,
+                               dense_kw)
         if g is None:
             continue
         h = _shared_in(params, x, x0, dense_kw)
@@ -283,31 +322,27 @@ def lm_decode(params, cfg: ArchConfig, token: torch.Tensor, cache, pos: int,
     pos = int(pos)
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, x, cache, pos, dense_kw)
+    elif cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            x = _mamba_decode(lp, x, cache, i, cfg, dense_kw)
     else:
         akw = _attn_kw(cfg, dense_kw)
         for i, lp in enumerate(params["layers"]):
             x = x + attn_mod.decode_attention(
                 lp["attn"], rmsnorm(lp["attn_norm"], x),
                 KVCache(cache.k[i], cache.v[i]), pos, **akw)
-            x = x + _mlp_block(lp, x, dense_kw)
+            x = x + _mlp_block(lp, x, cfg, dense_kw)
     return _logits(params, cfg, x, dense_kw)[:, 0], cache
 
 
 def _hybrid_decode(params, cfg, x, cache, pos, dense_kw):
     ssm_c, kv = cache["ssm"], cache["attn"]
-    dims = ssm_dims(cfg)
     skw = _attn_kw(cfg, dense_kw, shared=True)
     sp = params["shared"]
     x0 = x
     for layers, g in _hybrid_schedule(cfg):
         for i in layers:
-            lp = params["layers"][i]
-            h, c2 = ssm_mod.mamba2_decode(
-                lp["mamba"], rmsnorm(lp["norm"], x),
-                SsmCache(ssm_c.conv[i], ssm_c.state[i]), dims,
-                dense_kw=dense_kw)
-            ssm_c.conv[i], ssm_c.state[i] = c2.conv, c2.state
-            x = x + h
+            x = _mamba_decode(params["layers"][i], x, ssm_c, i, cfg, dense_kw)
         if g is None:
             continue
         h = _shared_in(params, x, x0, dense_kw)
@@ -319,7 +354,7 @@ def _hybrid_decode(params, cfg, x, cache, pos, dense_kw):
 
 
 # ---------------------------------------------------------------------------
-# Decode over the paged pool (dense family)
+# Decode over the paged pool (dense and moe families)
 # ---------------------------------------------------------------------------
 
 
@@ -334,9 +369,9 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     also the per-(slot, layer) in-kernel syndrome map ``(B, L)`` int32,
     which stays on the device.
     """
-    if cfg.family != "dense":
-        raise ValueError(f"paged decode supports the dense family, not "
-                         f"{cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged decode supports the dense and moe "
+                         f"families, not {cfg.family!r}")
     _check_family(cfg)
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
@@ -356,7 +391,7 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
             h, lay = att
         kv = kvp.layer_update(kv, i, lay)
         x = x + h
-        x = x + _mlp_block(lp, x, dense_kw)
+        x = x + _mlp_block(lp, x, cfg, dense_kw)
     logits = _logits(params, cfg, x, dense_kw)[:, 0]
     if with_syndrome:
         return logits, kv, torch.stack(syns, dim=1)
@@ -377,9 +412,9 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
     seen.  The layers are :func:`lm_decode_paged`'s with the token axis
     widened from 1 to V: every weight matmul runs over ``B * V`` rows.
     """
-    if cfg.family != "dense":
-        raise ValueError(f"paged verify supports the dense family, not "
-                         f"{cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged verify supports the dense and moe "
+                         f"families, not {cfg.family!r}")
     _check_family(cfg)
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
@@ -394,5 +429,5 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
             block_tab, positions, page_size=page_size, **akw)
         kv = kvp.layer_update(kv, i, lay)
         x = x + h
-        x = x + _mlp_block(lp, x, dense_kw)
+        x = x + _mlp_block(lp, x, cfg, dense_kw)
     return _logits(params, cfg, x, dense_kw), kv

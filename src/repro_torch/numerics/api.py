@@ -3,6 +3,7 @@
     spec = EncodeSpec(layout="rns", mset=P21, qbits=4)   # or layout="sd"
     t = encode(w, spec)            # quantize + forward-convert, paid once
     y = matmul(qx, t)              # exact int32 product of the integers
+    z = einsum("ecd,edf->ecf", qb, te)   # the same over a stack (MoE)
     s = add(t, u)                  # carry-free SD addition (sd layouts)
     v = decode(t)                  # reverse conversion (times the scale)
     t, det, cor = scrub(t)         # repair a redundant set's faulty channels
@@ -24,7 +25,8 @@ from repro_torch.numerics import runners
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant.quant import qmax_for_bits, quantize_symmetric
 
-__all__ = ["EncodeSpec", "encode", "decode", "scrub", "matmul", "add"]
+__all__ = ["EncodeSpec", "encode", "decode", "scrub", "matmul", "einsum",
+           "add"]
 
 ENCODE_LAYOUTS = ("rns", "sd", "sd_matvec")
 
@@ -167,6 +169,88 @@ def matmul(a: torch.Tensor, t: ResidueTensor, *,
                                  force_matvec=t.layout == "sd_matvec")
     return runners.rns_run(a, t.planes, mset=t.mset, max_abs_a=maa,
                            max_abs_b=t.max_abs)
+
+
+def _parse_stacked(subscripts: str) -> int:
+    """Validate a stacked-matmul einsum spec; return the stack rank.
+
+    Supported: ``<stack>mk,<stack>kn-><stack>mn`` with the same stack
+    letters on all three terms, e.g. ``"ecd,edf->ecf"`` (the MoE expert
+    stack) or ``"mk,kn->mn"`` (a plain matmul).
+    """
+    try:
+        lhs, out = subscripts.replace(" ", "").split("->")
+        a_sub, b_sub = lhs.split(",")
+    except ValueError as e:
+        raise ValueError(f"malformed einsum spec {subscripts!r}") from e
+    unsupported = ValueError(f"unsupported einsum spec {subscripts!r}: need "
+                             "'<stack>mk,<stack>kn-><stack>mn'")
+    if len(a_sub) < 2 or len(a_sub) != len(b_sub) or len(a_sub) != len(out):
+        raise unsupported
+    stack = a_sub[:-2]
+    m, k = a_sub[-2], a_sub[-1]
+    letters = stack + m + k + b_sub[-1]
+    if (b_sub[:-2] != stack or out[:-2] != stack
+            or b_sub[-2] != k or out[-2] != m or out[-1] != b_sub[-1]
+            or len(letters) != len(set(letters))):
+        raise unsupported
+    return len(stack)
+
+
+def einsum(subscripts: str, a: torch.Tensor, t: ResidueTensor, *,
+           max_abs_a: int | None = None) -> torch.Tensor:
+    """Stacked exact integer matmul: the residue-resident MoE expert
+    einsums.
+
+    ``"<stack>mk,<stack>kn-><stack>mn"`` specs, e.g. ``einsum("ecd,edf->ecf",
+    tokens, w_experts)`` for an (E, C, d) integer token buffer against
+    (E, d, f) expert-stacked encoded weights.  Every slice equals
+    :func:`matmul` of its own bit for bit.  ``rns`` planes run as one stack
+    through ``runners.rns_run`` (one kernel launch a K segment for the
+    whole stack, where the reference scans its runner over the slices);
+    the sd layouts run slice by slice through ``runners.sdrns_run``.
+    Returns ``(*stack, M, N)`` int32.
+    """
+    if not isinstance(t, ResidueTensor):
+        raise TypeError(f"einsum expects a ResidueTensor operand, got "
+                        f"{type(t)}")
+    stack_nd = _parse_stacked(subscripts)
+    if a.dim() != stack_nd + 2:
+        raise ValueError(f"activation rank {a.dim()} does not match spec "
+                         f"{subscripts!r} (want {stack_nd + 2})")
+    if len(t.stack_shape) != stack_nd:
+        raise ValueError(f"encoded operand stack {t.stack_shape} does not "
+                         f"match spec {subscripts!r} (want rank "
+                         f"{stack_nd})")
+    if stack_nd == 0:
+        return matmul(a, t, max_abs_a=max_abs_a)
+    stack_shape = tuple(a.shape[:stack_nd])
+    if tuple(t.stack_shape) != stack_shape:
+        raise ValueError(f"stack mismatch: activation {stack_shape} vs "
+                         f"encoded {t.stack_shape}")
+    if a.shape[-1] != t.shape[-2]:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} vs "
+                         f"encoded value {t.shape}")
+    if t.layout not in ENCODE_LAYOUTS:
+        raise ValueError(f"einsum needs one of the layouts {ENCODE_LAYOUTS}"
+                         f", got {t.layout!r}")
+    if t.max_abs is None:
+        raise ValueError("tensor has no magnitude bound (encode with "
+                         "qbits=); the bound drives K-segmentation")
+    maa = t.max_abs if max_abs_a is None else max_abs_a
+    S = 1
+    for n in stack_shape:
+        S *= n
+    a_r = a.reshape(S, *a.shape[stack_nd:])
+    p_r = t.planes.reshape(S, *t.planes.shape[stack_nd:])
+    if t.is_sd:
+        out = torch.stack([runners.sdrns_run(
+            a_r[i], p_r[i], mset=t.mset, max_abs_a=maa, max_abs_b=t.max_abs,
+            force_matvec=t.layout == "sd_matvec") for i in range(S)])
+    else:
+        out = runners.rns_run(a_r, p_r, mset=t.mset, max_abs_a=maa,
+                              max_abs_b=t.max_abs)
+    return out.reshape(*stack_shape, *out.shape[1:])
 
 
 def add(x, y, *, kind: str | None = None):

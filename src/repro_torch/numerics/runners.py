@@ -4,7 +4,10 @@
   channel-wise modular matmul over pre-encoded residue planes, then the
   per-segment reverse conversion.  Segments are strided views of the
   operands, so nothing is padded or copied per call (the reference pads
-  both operands into fresh tile-aligned buffers on every call).
+  both operands into fresh tile-aligned buffers on every call).  A stack
+  of S matmuls (the MoE expert einsums) runs as one: one forward
+  conversion, one kernel launch a K segment and one reverse conversion
+  over the whole stack (the reference scans the runner over the slices).
 * :func:`sdrns_run` -- the signed-digit sibling over pre-encoded digit
   planes: decode shapes (M <= :data:`DECODE_M`, or the ``sd_matvec`` tag)
   go to the matvec schedule (kernel B7), the rest to the tiled matmul (B6).
@@ -78,15 +81,18 @@ def encode_rns_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
 
     Channel by channel into the narrow planes, so the transient is one int32
     channel rather than all C (the tied logits weight of qwen3-8b is
-    4096 x 151936).
+    4096 x 151936), centred without a boolean-mask index (whose int64
+    indices would be three times the channel: 4.4 GB for a moonshot expert
+    stack).
     """
     w = w.to(torch.int32)
     out = torch.empty((*w.shape[:-2], mset.num_channels, *w.shape[-2:]),
                       dtype=_res_dtype(mset), device=w.device)
     for c, m in enumerate(mset.moduli):
         r = torch.remainder(w, m)
-        r[r > m // 2] -= m                               # centered
+        r.sub_((r > m // 2).to(torch.int32).mul_(m))     # centered
         out.select(-3, c).copy_(r)
+        del r
     return out
 
 
@@ -112,10 +118,13 @@ def encode_packed_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
 def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
             max_abs_a: int, max_abs_b: int,
             verify: bool = True) -> torch.Tensor:
-    """(M, K) integer activation x (C, K, N) planes -> exact (M, N) int32.
+    """(M, K) integer activation x (C, K, N) planes -> exact (M, N) int32;
+    a stack (S, M, K) x (S, C, K, N) -> (S, M, N), every slice equal to a
+    run of its own.
 
     Segment boundaries follow the reference exactly (``seg_len`` rounded up
-    to 128), so the result is bit-identical even where a bound is tight.
+    to 128; the same for every slice of a stack), so the result is
+    bit-identical even where a bound is tight.
 
     ``verify``: a redundant set's witness channels ride through the kernel
     (channels are independent) and each segment decodes with
@@ -124,9 +133,13 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
     and the set has two or more witness channels (enough to locate one
     fault); ``False`` decodes the information channels unchecked.
     """
-    M, K = a.shape
-    C, K2, N = b_res.shape
-    if K != K2:
+    stacked = a.dim() == 3
+    if a.dim() not in (2, 3) or b_res.dim() != a.dim() + 1:
+        raise ValueError(f"rns_run takes (M, K) x (C, K, N) or (S, M, K) x "
+                         f"(S, C, K, N), got {tuple(a.shape)} x "
+                         f"{tuple(b_res.shape)}")
+    K, K2 = a.shape[-1], b_res.shape[-2]
+    if K != K2 or (stacked and a.shape[0] != b_res.shape[0]):
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} x "
                          f"{tuple(b_res.shape)}")
     if a.device != b_res.device:
@@ -135,15 +148,18 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
     impl = get_impl("rns_matmul", a.device)
     decode = mset.corrected_decode if (verify and mset.redundant >= 2) \
         else mset.from_residues
+    # (C, [S,] M, K); a stack is seen as (S, C, M, K), not copied
     a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
+    if stacked:
+        a_res = a_res.movedim(0, 1)
     segs = segment_count(K, max_abs_a, max_abs_b, mset)
     seg_len = _round_up((K + segs - 1) // segs, 128)
     segs = (K + seg_len - 1) // seg_len
     total = None
     for s in range(segs):
         lo, hi = s * seg_len, min((s + 1) * seg_len, K)
-        out_res = impl(a_res[:, :, lo:hi], b_res[:, lo:hi, :], mset.moduli)
-        part = decode(out_res)
+        out_res = impl(a_res[..., lo:hi], b_res[..., lo:hi, :], mset.moduli)
+        part = decode(out_res.movedim(-3, 0))
         total = part if total is None else total + part
     return total
 

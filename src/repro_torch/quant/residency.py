@@ -18,12 +18,27 @@ from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import api as nx
 from repro_torch.numerics.tensor import ResidueTensor
 
-__all__ = ["SYSTEM_LAYOUT", "prepared_kind", "prepare_weight",
-           "prepare_dense", "map_resident"]
+__all__ = ["SYSTEM_LAYOUT", "EXPERT_STACKS", "makes_resident",
+           "prepared_kind", "prepare_weight", "prepare_dense",
+           "map_resident"]
 
 # model-level number system -> ResidueTensor layout tag (and back)
 SYSTEM_LAYOUT = {"rns": "rns", "sdrns": "sd"}
 _LAYOUT_SYSTEM = {"rns": "rns", "sd": "sdrns", "sd_matvec": "sdrns"}
+
+
+# the moe layer's bare (E, K, N) expert stacks
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def makes_resident(name: str | None, node: Any) -> bool:
+    """Whether the node under key ``name`` is a weight that a model's
+    ``prepare_params`` makes residue-resident: a dense ``{"w": weight}``
+    dict, but not the moe router's (routing stays float), or a bare moe
+    expert stack."""
+    if isinstance(node, dict):
+        return set(node) == {"w"} and name != "router"
+    return name in EXPERT_STACKS and isinstance(node, torch.Tensor)
 
 
 def prepared_kind(w: ResidueTensor) -> str | None:

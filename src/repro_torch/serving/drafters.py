@@ -36,6 +36,7 @@ from repro_torch.models.api import Model, build_model
 from repro_torch.numerics import api as nx
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.quant import residency
 from repro_torch.serving.spec import SpecConfig
 
 __all__ = ["NGramDrafter", "RNSDraftModel", "derive_draft_params",
@@ -116,18 +117,27 @@ def derive_draft_params(params, draft_model: Model):
     """Draft weights from the target's resident tree, one weight at a time.
 
     Each :class:`ResidueTensor` is decoded to its quantized values times
-    its scale (f32; a float weight is taken as it is), re-encoded through
-    ``draft_model.prepare_weight``, and the float copy freed before the
-    next, so the transient is one weight, not the tree.  Float leaves (norm scales, the embedding table) are
-    shared with the target, not copied.  The draft's tied logits weight is
-    made from the float table, as the reference's is (the target's
-    ``logits_w`` is not decoded).
+    its scale (f32; a float weight of a bns target, picked by
+    ``residency.makes_resident`` as ``prepare_params`` picks it, is taken
+    as it is), re-encoded through ``draft_model.prepare_weight``, and the
+    float copy freed before the next, so the transient is one weight, not
+    the tree.  Float leaves (norm scales, the embedding table, a moe
+    router) are shared with the target, not copied.  The draft's tied
+    logits weight is made from the float table, as the reference's is (the
+    target's ``logits_w`` is not decoded).
     """
+    def weight(w):
+        # a resident weight decoded, or a float weight of a bns target
+        if isinstance(w, ResidueTensor):
+            w = nx.decode(w)
+        return draft_model.prepare_weight(w)
+
     def walk(node, name=None):
         if isinstance(node, ResidueTensor):
-            return draft_model.prepare_weight(nx.decode(node))
-        if name == "w":     # a float weight of an unprepared (bns) target
-            return draft_model.prepare_weight(node)
+            return weight(node)
+        if residency.makes_resident(name, node):
+            return ({"w": weight(node["w"])} if isinstance(node, dict)
+                    else weight(node))
         if isinstance(node, list):
             return [walk(v) for v in node]
         if not isinstance(node, dict):

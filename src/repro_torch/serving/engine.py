@@ -2,8 +2,9 @@
 
 Port of the paged and the dense paths of ``repro/serving/engine.py``.
 ``paged=None`` (the default) serves from the page pool where the model has
-a paged decode (the dense family) and from the dense cache otherwise (the
-hybrid family); ``paged=False`` pins the dense cache.
+a paged decode (the dense and moe families) and from the dense cache
+otherwise (the hybrid family; the ssm family from its SSM state alone, no
+KV); ``paged=False`` pins the dense cache.
 
 Paged: ``generate`` prefills right-padded prompts in one pass, scatters
 the prefill KV into the page pool (``_scatter``), then runs one decode
@@ -41,7 +42,7 @@ ragged blocks; the tokens equal plain greedy decoding.  The pages get
 device once a verify step, for the halt test.
 
 Dense: ``generate`` keeps the cache the prefill made (KV padded to
-``s_max``, and the hybrid family's SSM state) and decodes every slot at
+``s_max``, and the ssm and hybrid families' SSM state) and decodes every slot at
 the uniform position ``prompt_len + i``, one ``model.decode`` per token, in
 the reference's host loop (its fused ``while_loop`` is that loop's twin):
 each token is emitted, then the ``eos`` / ``active`` mask is updated, and

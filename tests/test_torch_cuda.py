@@ -552,3 +552,80 @@ def _tree_to(node, dev):
     if isinstance(node, list):
         return [_tree_to(v, dev) for v in node]
     return node.to(dev)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 240])
+@pytest.mark.parametrize("S,K,N", [(5, 200, 130), (64, 256, 176),
+                                   (3, 4160, 300)])
+def test_rns_matmul_kernel_stack_mode(gen, S, M, K, N):
+    """Stack mode on both schedules: one launch for S slices, bit for bit
+    the plain version's slice loop and S launches of their own; the
+    activation passed channel-major as the stacked rns_run passes it, and
+    as a K segment view at an odd offset."""
+    a_cs = torch.randint(-64, 65, (3, S, M, K), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-64, 65, (S, 3, K, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    a = a_cs.movedim(0, 1)                    # (S, 3, M, K), not copied
+    for lo in (0, K // 3 + 1):
+        av, bv = a[..., lo:], b[:, :, lo:]
+        before = rm.launches
+        out = rm.rns_matmul_cuda(av, bv, P21.moduli)
+        assert rm.launches == before + 1
+        assert torch.equal(out, rm.rns_matmul_ref(av, bv, P21.moduli))
+        for s in range(0, S, max(1, S // 4)):
+            assert torch.equal(out[s], rm.rns_matmul_cuda(av[s], bv[s],
+                                                          P21.moduli))
+
+
+def test_moe_serving_card_matches_cpu(gen):
+    """Reduced moonshot (2 layers, 4 experts, top-2) under rns on rns8
+    pages: the card's prefill logits agree with the CPU's and its greedy
+    tokens are equal; every stacked expert einsum is one B1 launch."""
+    from repro_torch import kernels
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 10))
+    float_params = build_model(cfg, device="cpu").init(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                            s_max=17, page_size=8, kv_format="rns8",
+                            device=dev)
+        kernels.reset_launch_counts()
+        res[dev] = eng.generate({"tokens": prompts}, max_new=6)
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+    # per forward: 2 layers x (q, k, v, o + 3 stacked expert einsums) and
+    # the logits; 1 prefill + 5 decode steps
+    assert counts["rns_matmul"] == 6 * (2 * 7 + 1)
+    assert counts["flash_attention"] == 2
+    assert counts["paged_decode"] == 2 * 5
+    np.testing.assert_allclose(res["cuda"].prefill_logits,
+                               res["cpu"].prefill_logits, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+
+
+def test_ssm_serving_card_matches_cpu(gen):
+    """Reduced mamba2 (2 Mamba2 layers, no attention) under rns from its
+    SSM state: card == CPU, and only B1 ran."""
+    from repro_torch import kernels
+
+    cfg = get_config("mamba2-780m").reduced()
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (3, 8))
+    float_params = build_model(cfg, device="cpu").init(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                            s_max=15, device=dev)
+        kernels.reset_launch_counts()
+        res[dev] = eng.generate({"tokens": prompts}, max_new=6)
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+    assert counts == dict.fromkeys(counts, 0) | {
+        "rns_matmul": 6 * (2 * 2 + 1)}
+    np.testing.assert_allclose(res["cuda"].prefill_logits,
+                               res["cpu"].prefill_logits, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)

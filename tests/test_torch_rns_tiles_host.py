@@ -108,10 +108,10 @@ static void decode_block(const Args& g, const int* mods, const DecodePlan& pl,
   for (long long f = dec_run_begin(pl, blk); f < dec_run_end(pl, blk);) {
     const Segment sg = dec_segment(pl, blk, f);
     f += sg.s1 - sg.s0;
-    const int c = dec_channel(pl, sg.t), m_c = mods[c];
+    const int c = dec_channel(pl, sg.t), m_c = mods[mod_of(g, c)];
     const int n0 = dec_strip(pl, sg.t);
-    const int8_t* a = g.a + c * g.a_sc;
-    const int8_t* b = g.b + c * g.b_sc;
+    const int8_t* a = a_base(g, c);
+    const int8_t* b = b_base(g, c);
     for (int warp = 0; warp < kDecWarps; ++warp) {
       static int acc[32][MT][8][4];
       memset(acc, 0, sizeof(acc));
@@ -191,8 +191,8 @@ static void prefill_block(const Args& g, const int* mods, int bid) {
   std::vector<int8_t> smem(kPreSmem, 0x5a);
   const PreTile tile = pre_tile(g.M, g.N, bid);
   const int c = tile.c, m0 = tile.m0, n0 = tile.n0;
-  const int8_t* a = g.a + c * g.a_sc;
-  const int8_t* b = g.b + c * g.b_sc;
+  const int8_t* a = a_base(g, c);
+  const int8_t* b = b_base(g, c);
   const int ktiles = ceil_div(g.K, kPreBK);
   static int acc[kPreWarps][32][4][4 * kGroupsN][4];
   memset(acc, 0, sizeof(acc));
@@ -229,7 +229,7 @@ static void prefill_block(const Args& g, const int* mods, int bid) {
         }
       }
   }
-  const int m_c = mods[c];
+  const int m_c = mods[mod_of(g, c)];
   int32_t* o = g.out + (long long)c * g.M * g.N;
   for (int warp = 0; warp < kPreWarps; ++warp)
     for (int l = 0; l < 32; ++l)
@@ -246,26 +246,29 @@ static void prefill_block(const Args& g, const int* mods, int bid) {
         }
 }
 
-// rns_matmul_s8's arguments, run on the host with `sms` SMs.  Decode
-// blocks run in `order` when given.  Returns the decode plan's blocks (0
-// for the prefill), -1 for a workspace too small.
+// rns_matmul_s8's arguments (S stacked products of C channels), run on the
+// host with `sms` SMs.  Decode blocks run in `order` when given.  Returns
+// the decode plan's blocks (0 for the prefill), -1 for a workspace too
+// small.
 extern "C" int host_matmul(const int8_t* a, const int8_t* b, int32_t* out,
                            int* ws, long long ws_bytes, const int* mods,
-                           int C, int M, int N, int K, long long a_sc,
-                           long long lda, long long b_sc, long long ldb,
-                           int sms, const int* order) {
-  Args g{a, b, out, M, N, K, a_sc, lda, b_sc, ldb,
-         vec_width(reinterpret_cast<uintptr_t>(a), a_sc, lda),
-         vec_width(reinterpret_cast<uintptr_t>(b), b_sc, ldb)};
+                           int S, int C, int M, int N, int K, long long a_ss,
+                           long long a_sc, long long lda, long long b_ss,
+                           long long b_sc, long long ldb, int sms,
+                           const int* order) {
+  Args g{a, b, out, C, M, N, K, a_ss, a_sc, lda, b_ss, b_sc, ldb,
+         vec_width(reinterpret_cast<uintptr_t>(a), a_ss, a_sc, lda),
+         vec_width(reinterpret_cast<uintptr_t>(b), b_ss, b_sc, ldb)};
+  const int F = S * C;
   if (M > kDecodeMaxM) {
-    for (int bid = 0; bid < prefill_blocks(C, M, N); ++bid)
+    for (int bid = 0; bid < prefill_blocks(F, M, N); ++bid)
       prefill_block(g, mods, bid);
     return 0;
   }
-  const DecodePlan pl = decode_plan(C, N, K, sms);
-  if (decode_workspace_bytes(C, M, N, pl) > ws_bytes) return -1;
+  const DecodePlan pl = decode_plan(F, N, K, sms);
+  if (decode_workspace_bytes(F, M, N, pl) > ws_bytes) return -1;
   int* counters = ws;
-  int* partial = ws + (decode_counter_ints(C, pl) + 3) / 4 * 4;
+  int* partial = ws + (decode_counter_ints(F, pl) + 3) / 4 * 4;
   for (int i = 0; i < pl.blocks; ++i) {
     const int blk = order ? order[i] : i;
     if (M <= 8)
@@ -353,7 +356,8 @@ def lib(tmp_path_factory):
                    capture_output=True, timeout=300)
     h = ctypes.CDLL(str(so))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    h.host_matmul.argtypes = [P, P, P, P, L, P, I, I, I, I, L, L, L, L, I, P]
+    h.host_matmul.argtypes = [P, P, P, P, L, P, I, I, I, I, I, L, L, L, L,
+                              L, L, I, P]
     h.host_matmul.restype = I
     h.host_plan.argtypes = [I, I, I, I, I, P]
     h.host_tiles.argtypes = [I, I, I, P]
@@ -373,28 +377,34 @@ def _plan(lib, C, M, N, K, sms):
 
 
 def _host(lib, a, b, moduli, sms=H100_SMS, order=None):
-    """The kernel's schedule on numpy (C, M, K) x (C, K, N) int8 views
-    (innermost axis contiguous); returns (out, the decode plan or None) and
-    checks that the workspace is zero again."""
-    C, M, K = a.shape
-    N = b.shape[2]
-    assert a.strides[2] == 1 and b.strides[2] == 1
+    """The kernel's schedule on numpy (C, M, K) x (C, K, N) int8 views, or a
+    stack (S, C, M, K) x (S, C, K, N) in one launch (innermost axis
+    contiguous); returns (out, the decode plan or None) and checks that the
+    workspace is zero again."""
+    stacked = a.ndim == 4
+    a4, b4 = (a, b) if stacked else (a[None], b[None])
+    S, C, M, K = a4.shape
+    N = b4.shape[3]
+    assert a4.strides[3] == 1 and b4.strides[3] == 1
     decode = M <= lib.consts["kDecodeMaxM"]
-    nbytes = _plan(lib, C, M, N, K, sms)["bytes"] if decode else 0
+    nbytes = _plan(lib, S * C, M, N, K, sms)["bytes"] if decode else 0
     ws = np.zeros(max(nbytes // 4, 1), np.int32)
-    out = np.full((C, M, N), 0x7eadbeef, np.int32)
+    out = np.full((S, C, M, N), 0x7eadbeef, np.int32)
     mods = (ctypes.c_int * C)(*moduli)
     ordp = None
     if order is not None:
         order = np.ascontiguousarray(order, np.int32)
         ordp = order.ctypes.data
-    blocks = lib.host_matmul(a.ctypes.data, b.ctypes.data, out.ctypes.data,
-                             ws.ctypes.data, nbytes, mods, C, M, N, K,
-                             a.strides[0], a.strides[1], b.strides[0],
-                             b.strides[1], sms, ordp)
+    a_ss, b_ss = (a4.strides[0], b4.strides[0]) if S > 1 else (0, 0)
+    blocks = lib.host_matmul(a4.ctypes.data, b4.ctypes.data,
+                             out.ctypes.data, ws.ctypes.data, nbytes, mods,
+                             S, C, M, N, K, a_ss, a4.strides[1],
+                             a4.strides[2], b_ss, b4.strides[1],
+                             b4.strides[2], sms, ordp)
     assert blocks >= 0
     assert not ws.any(), "the workspace must be left zero"
-    return out, (_plan(lib, C, M, N, K, sms) if decode else None)
+    return (out if stacked else out[0]), (
+        _plan(lib, S * C, M, N, K, sms) if decode else None)
 
 
 def _planes(rng, C, M, K, N, moduli):
@@ -587,3 +597,68 @@ def test_prefill_rasterization_covers_each_tile_once(lib):
             t = res.reshape(-1, 3)
             assert [x[1] for x in t[:gm]] == [bm * i for i in range(gm)]
             assert all(x[2] == 0 for x in t[:gm])
+
+
+def _stack(rng, S, C, M, K, N, moduli):
+    pairs = [_planes(rng, C, M, K, N, moduli) for _ in range(S)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 40])
+def test_stack_equals_slices(lib, M):
+    """Stack mode: S products in one launch over S x C folded channels, on
+    both schedules (decode through M 16, the prefill tile above), each
+    slice bit-identical to its own launch and to the plain version's stack
+    loop.  Four SMs cut the folded tiles across slices, so a stream-K run
+    crosses from one slice into the next."""
+    rng = np.random.default_rng(M)
+    a, b = _stack(rng, 5, 3, M, 200, 144, P21.moduli)
+    out, plan = _host(lib, a, b, P21.moduli, sms=4)
+    np.testing.assert_array_equal(
+        out, trm.rns_matmul_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                P21.moduli).numpy())
+    for s_ in range(5):
+        np.testing.assert_array_equal(
+            out[s_], _host(lib, a[s_], b[s_], P21.moduli, sms=4)[0])
+    if plan is not None:
+        assert plan["tiles_n"] == 2 and plan["total"] == 5 * 3 * 2 * 7
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 300), (128, 300), (37, 250)])
+@pytest.mark.parametrize("M", [8, 24])
+def test_stack_of_strided_views(lib, lo, hi, M):
+    """The operands as the stacked ``rns_run`` passes them: the activation's
+    residues channel-major ``(C, S, M, K)`` seen as ``(S, C, M, K)`` (stack
+    stride below the channel stride), K segments of both as strided views
+    (the whole, a 128-aligned offset and an odd one, which loads bytes)."""
+    rng = np.random.default_rng(lo + hi + M)
+    S, C = 4, 3
+    a_cs = rng.integers(-64, 65, (C, S, M, 300)).astype(np.int8)
+    _, b = _stack(rng, S, C, M, 300, 136, P21.moduli)
+    av = a_cs.transpose(1, 0, 2, 3)[..., lo:hi]
+    bv = b[:, :, lo:hi]
+    out, _ = _host(lib, av, bv, P21.moduli, sms=3)
+    for s_ in range(S):
+        np.testing.assert_array_equal(out[s_], _reference(av[s_], bv[s_],
+                                                          P21.moduli))
+
+
+def test_stack_plan_at_moonshot_shapes(lib):
+    """moonshot-v1-16b-a3b's expert einsums at decode (64 experts x 3
+    channels folded, M 8): (K, N) (2048, 1408) for gate and up, (1408,
+    2048) for down; every block of the H100 busy, runs within one K step
+    of each other; and the prefill grid at M 240 covers every folded tile
+    once."""
+    for K, N in ((2048, 1408), (1408, 2048)):
+        p = _plan(lib, 64 * 3, 8, N, K, H100_SMS)
+        assert p["blocks"] == H100_SMS
+        assert p["total"] == 64 * 3 * -(-N // 128) * (K // 32)
+        assert p["shortest"] == p["total"] // p["blocks"]
+    bm, bn = lib.consts["kPreBM"], lib.consts["kPreBN"]
+    F, M, N = 64 * 3, 240, 1408
+    tm, tn = -(-M // bm), -(-N // bn)
+    res = np.zeros(3 * F * tm * tn, np.int32)
+    assert lib.host_tiles(F, M, N, res.ctypes.data) == F * tm * tn
+    assert {tuple(t) for t in res.reshape(-1, 3)} == {
+        (f, bm * i, bn * j) for f in range(F) for i in range(tm)
+        for j in range(tn)}
