@@ -35,13 +35,26 @@ Phases (each prints its lines; any failure raises and the exit code is not
    derived from the target's planes, P16 at 3 bits) for 16: 0 tokens
    differ from phase 4's, and the launch counts are exact per verify and
    per draft step.
+   serve-sched -- continuous serving on that model and weights
+   (``serving/scheduler.py``): 24 requests of 16-512 prompt tokens and
+   8-64 new through B 8 slots, 8 sharing a 256-token prefix, 4 repeating
+   a page-aligned prompt, one ending at an EOS taken from its solo run.
+   Gates: budgets and EOS kept, a request admitted while another slot is
+   mid-decode, the pool's prefix hits and prefill skips equal to what the
+   admission order implies, every page free or cached-free at the end,
+   four requests re-served alone bit for bit, ``spec="ngram:4"`` giving
+   the same tokens, exact launch counts, the first step's B3 launches
+   against the plain version; prints requests/s, tokens/s and the p50 /
+   p95 latency.
 5. serve-r -- the same serve on redundant residues: P21R2 weight planes,
    rns8r KV pages and ``policy="strict"``, with the paged decode's syndrome
    mode on every step.  The clean run must show zero syndromes and replays.
 6. faults -- the same engine under ``testing.faults.inject_faults``: (a) a
    packed-byte flip in a live K page plus a weight-plane bit in an
-   information channel, (b) a sticky KV fault with ``quarantine_after=2``.
-   The tokens must equal the clean run's.
+   information channel, (b) a sticky KV fault with ``quarantine_after=2``,
+   (c) the scheduler serving 8 requests under that sticky fault, the
+   holder recomputed by re-admission.  The tokens must equal the clean
+   run's.
 
 7. serve-sd -- qwen3-8b at full width with the depth cut to 8 of 36 layers
    (21 B of digit planes per weight) under ``system="sdrns"``: P21 digit
@@ -81,6 +94,18 @@ Phases (each prints its lines; any failure raises and the exit code is not
    launch held against its plain version as it returns, and the step
    bit-identical to the same step run with one B1 launch per expert (both
    timed warm).
+13. serve-vlm -- pixtral-12b at full width and depth (40 layers, attention
+   width 4096 against d_model 5120) under ``system="rns"`` on rns8 pages,
+   batch 8, 1024 synthetic patch embeddings then 256 text tokens, 32 new:
+   finite logits, exact launch counts, the B1 and B3 launches of the first
+   decode step and every B1 and B2 launch of the prefill held against the
+   plain versions.
+14. serve-audio -- whisper-small at full width and depth (12 encoder and
+   12 decoder layers) under ``system="rns"``, batch 8, 1500 synthetic
+   frames, an 8-token decoder prompt, 64 new: the same gates, the B5
+   launches of the first step (self cache and cross memory) held, and the
+   prefill's B2 launches held in their order, the encoder's and the
+   cross-attention's with ``causal=False``.
 
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
@@ -89,7 +114,10 @@ shapes in one chunk, a split shape with all-masked chunks and in f32, B2 at
 zamba2's head_dim 112 and B1 at every zamba2 shape, decode and prefill;
 B1 in stack mode at moonshot's expert einsums (64 slices, M 8 and M 240)
 against its plain version and 64 launches of one slice; B2 and B3 at
-granite-20b's heads.  Every phase prints its command time ([time]).
+granite-20b's heads; B2 at whisper's encoder and cross-attention (hd 64,
+non-causal) and at pixtral's prefill, B5 at whisper's self cache and cross
+memory, and B1 at both models' shapes, whisper's logits shape (N 51865, an
+odd row stride) included.  Every phase prints its command time ([time]).
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result JSON.
@@ -155,6 +183,24 @@ MOE_LAYERS, MOE_NEW = 38, 32
 # depth cut to 4 layers each for time (granite whole would need ~84 GB)
 CONFIG_ARCHS = ("yi-6b", "phi3-medium-14b", "granite-20b")
 CONFIG_LAYERS, CONFIG_NEW = 4, 16
+# [serve-vlm]: pixtral-12b at full width and depth; (K, N) of each matmul and
+# its launches a decode step (q; k and v; o; gate and up; down), the tied
+# logits last.  1024 patch embeddings, then VLM_TEXT text tokens
+PIXTRAL_MATMULS = [((5120, 4096), 40), ((5120, 1024), 80),
+                   ((4096, 5120), 40), ((5120, 14336), 80),
+                   ((14336, 5120), 40), ((5120, 131072), 1)]
+VLM_TEXT, VLM_NEW = 256, 32
+# [serve-audio]: whisper-small at full width and depth (12 encoder and 12
+# decoder layers); the decode step's matmuls: (768, 768) six a layer (self
+# q, k, v, o; cross q, o), up, down.  Its logits are a float product, as
+# the reference's (models/encdec.py), so B1 at the logits' shape (N 51865,
+# an odd row stride: the byte-load path) is held and timed with no serve
+# launches.  AUDIO_FRAMES: whisper's 30-second window after its conv stack
+WHISPER_MATMULS = [((768, 768), 72), ((768, 3072), 12), ((3072, 768), 12),
+                   ((768, 51865), 0)]
+AUDIO_FRAMES, AUDIO_PROMPT, AUDIO_NEW = 1500, 8, 64
+# [serve-sched]: continuous serving of SCHED_N requests on [serve]'s model
+SCHED_N, SCHED_SPEC = 24, "ngram:4"
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
 # kernel ms of the bodies B1-B8 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
@@ -313,13 +359,13 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _int_mm_same(torch, a_mm, b_mm, moduli, M):
+def _int_mm_same(torch, a_mm, b_mm, moduli, M, N):
     """B1's function through ``torch._int_mm``, one call a channel, then the
     same truncating rem, canonicalize and center (the rows past M of a
-    padded A are dropped first)."""
+    padded A and the columns past N of a padded B are dropped first)."""
     outs = []
     for c, m in enumerate(moduli):
-        acc = torch._int_mm(a_mm[c], b_mm[c])[:M]
+        acc = torch._int_mm(a_mm[c], b_mm[c])[:M, :N]
         r = torch.fmod(acc, m)
         r = torch.where(r < 0, r + m, r)
         outs.append(torch.where(r > m // 2, r - m, r))
@@ -331,24 +377,31 @@ def _int_mm_best(torch, timer, a, b, moduli, ref, what):
     (A padded to 32 rows where M is smaller, which ``_int_mm`` refuses) on
     B as stored and on a K-contiguous copy made outside the timed region,
     each held equal to the plain version; returns the faster time and its
-    layout."""
+    layout.  An N that is not a multiple of 8 (``_int_mm`` refuses it) is
+    padded with zero columns, the copy not timed."""
     C, M, K = a.shape
+    N = b.shape[2]
     pad = max(M, 32)
     a_mm = a if pad == M else torch.cat(
         [a, a.new_zeros((C, pad - M, K))], dim=1)
+    n_pad = -N % 8
+    if n_pad:
+        b = torch.cat([b, b.new_zeros((C, K, n_pad))], dim=2)
+    wide = f", N padded to {N + n_pad}, copy not timed" if n_pad else ""
     lib, layout = None, None
-    for name, b_mm in (("B as stored (N contiguous)", b),
-                       ("B copied K-contiguous, copy not timed",
+    for name, b_mm in (("B as stored (N contiguous)" + wide, b),
+                       ("B copied K-contiguous, copy not timed" + (
+                           f", N padded to {N + n_pad}" if n_pad else ""),
                         b.transpose(1, 2).contiguous().transpose(1, 2))):
         try:
-            lib_out = _int_mm_same(torch, a_mm, b_mm, moduli, M)
+            lib_out = _int_mm_same(torch, a_mm, b_mm, moduli, M, N)
         except RuntimeError:
             continue
         if not torch.equal(lib_out, ref):
             raise AssertionError(f"{what}: torch._int_mm differs from the "
                                  f"plain version")
         del lib_out
-        t = timer(lambda: _int_mm_same(torch, a_mm, b_mm, moduli, M), 10)
+        t = timer(lambda: _int_mm_same(torch, a_mm, b_mm, moduli, M, N), 10)
         if lib is None or t < lib:
             lib, layout = t, name
         del b_mm
@@ -357,12 +410,13 @@ def _int_mm_best(torch, timer, a, b, moduli, ref, what):
     return lib, layout
 
 
-def check_rns_matmul(torch, timer, gen, mset, label, step):
+def check_rns_matmul(torch, timer, gen, mset, label, step,
+                     prefill_m=SERVE_B * SERVE_PROMPT):
     """B1 on the planes of ``mset`` at one model's shapes, operands drawn
     over the full centred range of its widest modulus.  ``step`` lists each
     shape (K, N) with its launches per decode step, the logits last: each is
-    held bit for bit at M = 8 (decode) and, but the logits, at the serves'
-    prefill M.  zamba2's N = 14576 (the Mamba2 in_proj) is not a multiple of
+    held bit for bit at M = 8 (decode) and, but the logits, at the serve's
+    prefill M (``prefill_m``).  zamba2's N = 14576 (the Mamba2 in_proj) is not a multiple of
     the kernel's 128-column tiles, so its edge tiles are held too.
 
     Beside the kernel: its plain version, ``torch._int_mm`` per channel with
@@ -375,7 +429,7 @@ def check_rns_matmul(torch, timer, gen, mset, label, step):
 
     C, h = mset.num_channels, max(mset.moduli) // 2
     per = {}
-    shapes = [(M, K, N) for M in (8, SERVE_B * SERVE_PROMPT)
+    shapes = [(M, K, N) for M in (8, prefill_m)
               for (K, N), _ in step[:-1]]
     shapes.append((8, *step[-1][0]))
     for M, K, N in shapes:
@@ -732,80 +786,96 @@ def check_paged_verify(torch, timer, gen):
     return results
 
 
-def check_flash_attention(torch, timer, gen):
-    """B2's bf16 tensor-core route at the prefill shapes of qwen3-8b (hd
-    128, g 4) and zamba2-7b's shared block (hd 112, g 1), at a ragged qwen3
-    shape (S 200, not a multiple of the 64-row tiles, kv_len < S) and at a
-    long qwen3 prompt (S 2048, where the operations bound it), and at
-    granite-20b's heads (H 48 on one KV head: g 48)."""
+def check_flash_attention(torch, timer, gen, cases=None):
+    """B2's bf16 tensor-core route: ``cases`` of ``(label, B, Sq, T, H, Kv,
+    hd, causal, ragged)``, queries at positions 0..Sq-1 against T keys
+    (causal only where Sq = T; ``ragged`` draws kv_len < T).  The default
+    cases are the prefill shapes of qwen3-8b (hd 128, g 4) and zamba2-7b's
+    shared block (hd 112, g 1), a ragged qwen3 shape (S 200, not a multiple
+    of the 64-row tiles, kv_len < S), a long qwen3 prompt (S 2048, where the
+    operations bound it) and granite-20b's heads (H 48 on one KV head: g
+    48).  Held within the reference's bf16 tolerance, 2e-2, or within 1e-2
+    of the largest output where that is less: non-causal rows average over
+    T keys, so their outputs are small and the absolute limit would not see
+    a lost tile.  Timed beside the plain version and SDPA; the byte bound
+    reads q and the valid K and V rows once and writes the output once, the
+    operations bound counts the attended (query, key) pairs.  Returns the
+    rows keyed by label."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                                 flash_attention_ref)
 
-    out_rows = {}
-    # the shapes after the serves' two draw from their own generator, so
-    # that the later checks draw what they drew before those were added
+    # the default shapes after the serves' two draw from their own
+    # generator, so that the later checks draw what they drew before
+    # those were added
     extra = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    for label, (B, S, H, Kv, hd) in (("qwen3", (8, 256, 32, 8, 128)),
-                                     ("zamba2", (8, 256, 32, 32, 112)),
-                                     ("ragged", (8, 200, 32, 8, 128)),
-                                     ("long", (1, 2048, 32, 8, 128)),
-                                     ("granite", (8, 256, 48, 1, 128))):
+    cases = cases or [
+        ("qwen3", 8, 256, 256, 32, 8, 128, True, False),
+        ("zamba2", 8, 256, 256, 32, 32, 112, True, False),
+        ("ragged", 8, 200, 200, 32, 8, 128, True, True),
+        ("long", 1, 2048, 2048, 32, 8, 128, True, False),
+        ("granite", 8, 256, 256, 48, 1, 128, True, False)]
+    out_rows = {}
+    for label, B, Sq, T, H, Kv, hd, causal, ragged in cases:
         if label == "ragged":
             gen = extra
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, S, Kv, hd, generator=gen, device="cuda").bfloat16()
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
         kv_len = None
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = None
-        if label == "ragged":
-            kv_len = torch.randint(1, S, (B,), generator=gen, device="cuda",
+        if ragged:
+            kv_len = torch.randint(1, T, (B,), generator=gen, device="cuda",
                                    dtype=torch.int32)
             kv_len[0] = 7
-            pos = torch.arange(S, device="cuda")
-            mask = ((pos[None, None, :] <= pos[None, :, None])
+            pos = torch.arange(T, device="cuda")
+            mask = ((pos[None, None, :] <= pos[None, :Sq, None])
                     & (pos[None, None, :] < kv_len[:, None, None]))[:, None]
-        out = flash_attention_cuda(q, k, v, kv_len, causal=True)
-        ref = flash_attention_ref(q, k, v, kv_len, causal=True)
+        out = flash_attention_cuda(q, k, v, kv_len, causal=causal)
+        ref = flash_attention_ref(q, k, v, kv_len, causal=causal)
         err = float((out.float() - ref.float()).abs().max())
+        ref_max = float(ref.float().abs().max())
         # bf16 output rounding on both sides and f32 sums in another order:
         # the reference's own bf16 tolerance (tests/test_flash_attn.py, _tol)
-        tol = 2e-2
+        tol = min(2e-2, 1e-2 * ref_max)
         if not err <= tol:
             raise AssertionError(f"flash_attention[{label}]: max error {err}"
-                                 f" > {tol}")
+                                 f" > {tol} (max |ref| {ref_max})")
         ms = timer(lambda: flash_attention_cuda(q, k, v, kv_len,
-                                                causal=True), 20)
+                                                causal=causal), 20)
         plain = timer(lambda: flash_attention_ref(q, k, v, kv_len,
-                                                  causal=True), 5)
+                                                  causal=causal), 5)
         if mask is None:
             lib = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         else:
             lib = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
-        # the valid KV rows are read once, every q row read and written once
-        lens = [S] * B if kv_len is None else kv_len.tolist()
-        nbytes = 2 * (2 * q.numel() + 2 * sum(lens) * Kv * hd) + 4 * B
-        pairs = H * sum(sum(min(i + 1, n) for i in range(S)) for n in lens)
+        lens = [T] * B if kv_len is None else kv_len.tolist()
+        nbytes = (2 * (2 * q.numel() + 2 * sum(lens) * Kv * hd)
+                  + (0 if kv_len is None else 4 * B))
+        pairs = H * sum(sum(min(i + 1, n) for i in range(Sq)) if causal
+                        else Sq * n for n in lens)
         bms, by = bound_ms(nbytes, 4 * hd * pairs, "bf16")
-        ragged = "" if kv_len is None else f" kv_len 7..{max(lens)}"
+        kind = ("causal" if causal else "non-causal") + (
+            "" if kv_len is None else f" kv_len 7..{max(lens)}")
         tflops = 4 * hd * pairs / ms / 1e9
-        print(f"[kernels] flash_attention[{label}] B={B} S={S} H={H} Kv={Kv} "
-              f"hd={hd} bf16 causal{ragged}: max_abs_err={err:.3e} (tol "
-              f"{tol}); kernel_ms={ms:.4f}{earlier(f'flash_attention[{label}]')}"
-              f" ({tflops:.0f} TFLOP/s) plain_ms={plain:.4f} "
-              f"library_ms(sdpa)={lib:.4f} bound_ms={bms:.4f} ({by})",
-              flush=True)
+        print(f"[kernels] flash_attention[{label}] B={B} Sq={Sq} T={T} H={H} "
+              f"Kv={Kv} hd={hd} bf16 {kind}: max_abs_err={err:.3e} (tol "
+              f"{tol:.3e}, max |ref| {ref_max:.3e}); kernel_ms={ms:.4f}"
+              f"{earlier(f'flash_attention[{label}]')} ({tflops:.0f} TFLOP/s)"
+              f" plain_ms={plain:.4f} library_ms(sdpa)={lib:.4f} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
         out_rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                bound_ms=bms, bound_by=by, max_abs_err=err,
-                               at=f"prefill B={B} S={S} H={H} Kv={Kv} "
-                                  f"hd={hd} bf16{ragged}")
+                               tol=tol, at=f"prefill B={B} Sq={Sq} T={T} "
+                                           f"H={H} Kv={Kv} hd={hd} bf16 "
+                                           f"{kind}")
         del q, k, v, qt, kt, vt, out, ref, mask
-    return dict(out_rows["qwen3"], **{k: v for k, v in out_rows.items()
-                                      if k != "qwen3"})
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def check_paged_decode(torch, timer, gen, H=32, Kv=8,
@@ -1173,7 +1243,7 @@ def check_sd_add(torch, timer):
                    f"weights; no PyTorch call computes SD sums")
 
 
-def check_flash_decode(torch, timer, gen):
+def check_flash_decode(torch, timer, gen, cases=None):
     """B5 against its plain version, partial by partial (o, m, l) and
     merged: at the shapes the two serves launch it with (T 321; [serve-dense]
     at the page size's 64-row chunks, six with a ragged last one,
@@ -1184,7 +1254,8 @@ def check_flash_decode(torch, timer, gen):
     end to T.  Timed beside the plain version and SDPA over the same dense
     cache with a length mask; the byte bound reads K and V of the valid
     rows once.  The kernels line takes the [serve-dense] shape, whose
-    launches it reports."""
+    launches it reports.  ``cases`` replaces the shapes.  Returns the rows
+    keyed by label."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import (flash_decode_cuda,
@@ -1196,12 +1267,13 @@ def check_flash_decode(torch, timer, gen):
     B = SERVE_B
     T_serve, lo_serve = SERVE_PROMPT + SERVE_NEW + 1, SERVE_PROMPT + 1
     bf16 = torch.bfloat16
-    cases = [("serve_dense", 32, 8, 128, T_serve, bf16, lo_serve, DENSE_BK),
-             ("serve_hybrid", 32, 32, 112, T_serve, bf16, lo_serve, None),
-             ("qwen3", 32, 8, 128, 320, torch.bfloat16, 257, None),
-             ("zamba2", 32, 32, 112, 320, torch.bfloat16, 257, None),
-             ("split", 32, 8, 128, 4096, torch.bfloat16, 1, None),
-             ("qwen3_f32", 32, 8, 128, 320, torch.float32, 257, None)]
+    cases = cases or [
+        ("serve_dense", 32, 8, 128, T_serve, bf16, lo_serve, DENSE_BK),
+        ("serve_hybrid", 32, 32, 112, T_serve, bf16, lo_serve, None),
+        ("qwen3", 32, 8, 128, 320, torch.bfloat16, 257, None),
+        ("zamba2", 32, 32, 112, 320, torch.bfloat16, 257, None),
+        ("split", 32, 8, 128, 4096, torch.bfloat16, 1, None),
+        ("qwen3_f32", 32, 8, 128, 320, torch.float32, 257, None)]
     res = {}
     for label, H, Kv, hd, T, dt, lo, bk in cases:
         bk = bk or pick_block(T, DEFAULT_DECODE_BLOCK)
@@ -1269,8 +1341,7 @@ def check_flash_decode(torch, timer, gen):
                              f"bk={bk} kv_len {lo}..{T}, {str(dt)[6:]} cache")
         del q, k, v, kt, vt, q4, mask
         torch.cuda.empty_cache()
-    return dict(res["serve_dense"], **{k: v for k, v in res.items()
-                                       if k != "serve_dense"})
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1575,6 +1646,297 @@ def serve_spec(torch, model, params, prompts, plain):
     return out
 
 
+def _sched_traffic(vocab):
+    """[serve-sched]'s requests ``(tokens, max_new, kind)`` in queue order:
+    8 share a 256-token prefix (4 full pages) then 16-128 tokens of their
+    own, 4 repeat one page-aligned 256-token prompt, 12 are independent,
+    16-512 tokens long; budgets of 8-64 new tokens.  The first 8 (one
+    admission) hold 2 sharers, 1 repeat and 5 independent ones; the rest
+    come shuffled, so later sharers hit the cached prefix and later
+    repeats skip their prefill."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20)
+    prefix = rng.integers(0, vocab, 256)
+    repeat = rng.integers(0, vocab, 256)
+    share = [(np.concatenate([prefix, rng.integers(
+        0, vocab, int(rng.integers(16, 129)))]), "prefix") for _ in range(8)]
+    rep = [(repeat, "repeat")] * 4
+    solo = [(rng.integers(0, vocab, int(rng.integers(16, 513))), "solo")
+            for _ in range(12)]
+    first = share[:2] + rep[:1] + solo[:5]
+    rest = share[2:] + rep[1:] + solo[5:]
+    order = first + [rest[i] for i in rng.permutation(len(rest))]
+    budgets = rng.integers(8, 65, len(order))
+    return [(t.astype(np.int32), int(m), kind)
+            for (t, kind), m in zip(order, budgets)]
+
+
+def _log_admissions(engine):
+    """Wrap ``engine.admit_prefill`` and ``engine.paged_segment`` (instance
+    attributes, so the scheduler's calls go through them) to log each
+    admission's prompts and ``AdmitInfo`` and each segment's live slots,
+    positions and steps."""
+    import numpy as np
+
+    log = []
+    admit, segment = engine.admit_prefill, engine.paged_segment
+
+    def logged_admit(slot_tokens, slot_total):
+        out = admit(slot_tokens, slot_total)
+        log.append(("admit", {s: tuple(np.asarray(t).tolist())
+                              for s, t in sorted(slot_tokens.items())},
+                    {s: out[s][1] for s in sorted(out)}))
+        return out
+
+    def logged_segment(tok0, pos0, remaining, eos_vec, done0, tabs, **kw):
+        res = segment(tok0, pos0, remaining, eos_vec, done0, tabs, **kw)
+        live = np.nonzero(~np.asarray(done0, bool))[0].tolist()
+        log.append(("seg", {s: int(pos0[s]) for s in live},
+                    res.counts.copy(), res.steps))
+        return res
+
+    engine.admit_prefill, engine.paged_segment = logged_admit, logged_segment
+    return log
+
+
+def _expected_prefix(log, ps):
+    """Prefix hits and prefill skips the admission order implies, with no
+    eviction: a full page hits when an earlier admitted prompt (this
+    admission's earlier slots included) had the same tokens up to its end;
+    a page-aligned prompt skips its prefill when an earlier *admission*
+    prefilled the same whole prompt."""
+    pages, prompts = set(), set()
+    hits = skips = 0
+    for entry in log:
+        if entry[0] != "admit":
+            continue
+        prefilled = []
+        for toks in entry[1].values():
+            n_full = len(toks) // ps
+            h = sum(toks[: (j + 1) * ps] in pages for j in range(n_full))
+            skip = (len(toks) % ps == 0 and h == n_full
+                    and toks in prompts)
+            hits += h
+            skips += skip
+            pages.update(toks[: (j + 1) * ps] for j in range(n_full))
+            if not skip:
+                prefilled.append(toks)
+        prompts.update(prefilled)
+    return hits, skips
+
+
+def _mid_decode_admissions(log):
+    """Segments that a newly admitted request joined while another request
+    went on decoding (its position advanced by the previous segment's
+    count, in the same slot)."""
+    n, prev = 0, None
+    for entry in log:
+        if entry[0] != "seg":
+            continue
+        _, pos, counts, _ = entry
+        if prev is not None:
+            ppos, pcounts = prev
+            going = {s for s in pos if s in ppos
+                     and pos[s] == ppos[s] + int(pcounts[s])}
+            n += bool(going) and bool(set(pos) - going)
+        prev = (pos, counts)
+    return n
+
+
+def _serve_requests(engine, specs):
+    from repro_torch.serving.scheduler import Request, RequestScheduler
+
+    return RequestScheduler(engine).serve(
+        [Request(rid=i, tokens=t, max_new=m, eos=e)
+         for i, (t, m, e) in enumerate(specs)])
+
+
+def serve_sched(torch, model, params):
+    """Phase [serve-sched]: continuous serving on [serve]'s model and
+    weights (qwen3-8b at full width and depth, P21 planes, rns8 pages, B 8,
+    page 64): the traffic of ``_sched_traffic``, one independent request
+    carrying an EOS taken from its solo run.  Gates: every request retires
+    with its budget or at its EOS; a request is admitted while another
+    slot is mid-decode; the pool's prefix hits and prefill skips equal what
+    the admission order implies (``_expected_prefix``), with no eviction;
+    every page ends free or cached-free; the shortest, the longest, a
+    prefix-sharing and a prefill-skipping request re-served alone give
+    their tokens bit for bit; the same requests under ``spec="ngram:4"``
+    give the same tokens; launch counts equal what the admissions and steps
+    imply; the B3 launches of the first decode step equal the plain version
+    on their own inputs."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = model.cfg
+    L, B, ps = cfg.n_layers, SERVE_B, 64
+    per_fwd = 7 * L + 1
+    traffic = _sched_traffic(cfg.vocab)
+    assert len(traffic) == SCHED_N
+    s_max = max(len(t) + m for t, m, _ in traffic) + SPEC_K
+    n_pmax = -(-s_max // ps)
+    # room for every prompt page to stay cached: no eviction
+    num_pages = 1 + B * n_pmax + sum(len(t) // ps for t, _, _ in traffic)
+
+    def engine(**kw):
+        return ServingEngine(model, params, batch=B, s_max=s_max,
+                             page_size=ps, kv_format="rns8",
+                             num_pages=num_pages, device="cuda", **kw)
+
+    eng = engine()
+    # the EOS request: an independent one (the shortest budget of 16 or
+    # more first) whose solo run emits a token at mid-budget for the first
+    # time, away from a page's last row
+    specs = [[t, m, None] for t, m, _ in traffic]
+    k_eos = None
+    for e_idx in sorted((i for i, x in enumerate(traffic)
+                         if x[2] == "solo" and x[1] >= 16),
+                        key=lambda i: traffic[i][1]):
+        t_e, m_e, _ = specs[e_idx]
+        solo = _serve_requests(eng, [(t_e, m_e, None)])[0].result
+        k_eos = next((k for k in range(m_e // 2, m_e - 1)
+                      if solo[k] not in solo[:k]
+                      and (len(t_e) + k) % ps != ps - 1), None)
+        if k_eos is not None:
+            break
+    if k_eos is None:
+        raise AssertionError("serve-sched: no independent request emits a "
+                             "fresh token at mid-budget to stop at")
+    specs[e_idx][2] = int(solo[k_eos])
+    eng.pool.reset()
+    st0 = eng.pool.stats.snapshot()
+    log = _log_admissions(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # the first step's pages are copied: a retired request's pages go to
+    # later admissions before the launches are checked
+    out, first_b3 = record_launches(
+        "paged_decode", L, lambda: _serve_requests(eng, specs),
+        keep=lambda *a: tuple(x.clone() if torch.is_tensor(x) else x
+                              for x in a))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = dataclasses.replace(eng.pool.stats, **{
+        k: v - getattr(st0, k)
+        for k, v in dataclasses.asdict(eng.pool.stats).items()})
+    n_tok = sum(len(r.result) for r in out)
+    lat = np.array([r.stats.latency_s for r in out])
+    print(f"[serve-sched] qwen3-8b L={L} system=rns kv=rns8 B={B} ps={ps} "
+          f"num_pages={num_pages}: {SCHED_N} requests (prompts "
+          f"{min(len(t) for t, _, _ in traffic)}-"
+          f"{max(len(t) for t, _, _ in traffic)}, budgets "
+          f"{min(m for _, m, _ in traffic)}-{max(m for _, m, _ in traffic)},"
+          f" rid {e_idx} ends at EOS {specs[e_idx][2]} after {k_eos + 1}) in "
+          f"{wall:.3f}s: requests_s={SCHED_N / wall:.3f} tokens_s="
+          f"{n_tok / wall:.2f} latency_s p50={np.percentile(lat, 50):.3f} "
+          f"p95={np.percentile(lat, 95):.3f}; pool {st}; kv pool bytes="
+          f"{eng.pool.pool_bytes()} max_memory_allocated={peak}", flush=True)
+    for r, (t, m, e) in zip(out, specs):
+        ok = (len(r.result) == m and (e is None or e not in r.result[:-1])
+              ) or (e is not None and r.result[-1] == e
+                    and len(r.result) <= m)
+        if not ok:
+            raise AssertionError(f"serve-sched: rid {r.rid} returned "
+                                 f"{len(r.result)} of {m} tokens (eos {e})")
+    if len(out[e_idx].result) != k_eos + 1:
+        raise AssertionError(f"serve-sched: the EOS request returned "
+                             f"{len(out[e_idx].result)} tokens, expected "
+                             f"{k_eos + 1}")
+    mid = _mid_decode_admissions(log)
+    hits, skips = _expected_prefix(log, ps)
+    admits = [e for e in log if e[0] == "admit"]
+    prefills = sum(any(i.cached_logits is None for i in e[2].values())
+                   for e in admits)
+    steps = sum(e[3] for e in log if e[0] == "seg")
+    print(f"[serve-sched] {len(admits)} admissions ({prefills} prefills), "
+          f"{steps} decode steps in {len(log) - len(admits)} segments; "
+          f"{mid} segments admitted a request beside one mid-decode; prefix "
+          f"hits {st.prefix_hits} (implied {hits}), prefill skips "
+          f"{st.prefill_skips} (implied {skips}), evictions {st.evictions};"
+          f" launches {json.dumps(counts)}", flush=True)
+    if mid < 1:
+        raise AssertionError("serve-sched: no request was admitted while "
+                             "another was mid-decode")
+    if (st.prefix_hits, st.prefill_skips, st.evictions) != (hits, skips, 0) \
+            or not (hits and skips):
+        raise AssertionError(f"serve-sched: pool {st}, the admission order "
+                             f"implies {hits} hits and {skips} skips")
+    if sum(r.stats.prefix_hits for r in out) != hits:
+        raise AssertionError("serve-sched: per-request prefix hits do not "
+                             "add up to the pool's")
+    pool = eng.pool
+    if pool._ref.any() or set(pool._free) | set(pool._page_key) != set(
+            range(1, pool.num_pages)):
+        raise AssertionError("serve-sched: pages still held at the end")
+    want = dict(NO_LAUNCHES, rns_matmul=per_fwd * (prefills + steps),
+                flash_attention=L * prefills, paged_decode=L * steps)
+    if counts != want:
+        raise AssertionError(f"serve-sched: launch counts {counts}, "
+                             f"expected {want}")
+    seg0 = next(e for e in log if e[0] == "seg")
+    check_first_b3(first_b3, L, [seg0[1].get(b, 0) + 1 for b in range(B)],
+                   "serve-sched", cfg)
+    del first_b3
+
+    # four requests re-served alone, the pool reset before each
+    lens = [len(t) for t, _, _ in specs]
+    picks = {"shortest": int(np.argmin(lens)), "longest": int(np.argmax(lens)),
+             "prefix-sharer": next(i for i, x in enumerate(traffic)
+                                   if x[2] == "prefix" and i >= B),
+             "prefill-skip": next(r.rid for r in out
+                                  if r.stats.prefill_skipped)}
+    for what, i in picks.items():
+        eng.pool.reset()
+        alone = _serve_requests(eng, [specs[i]])[0].result
+        if not np.array_equal(alone, out[i].result):
+            raise AssertionError(f"serve-sched: the {what} request (rid {i})"
+                                 f" alone gives other tokens")
+    print(f"[serve-sched] re-served alone, bit for bit: "
+          f"{json.dumps(picks)}", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same traffic under the n-gram drafter
+    eng = engine(spec=SCHED_SPEC)
+    slog = _log_admissions(eng)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sout = _serve_requests(eng, specs)
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    s_counts = kernels.launch_counts()
+    s_pre = sum(any(i.cached_logits is None for i in e[2].values())
+                for e in slog if e[0] == "admit")
+    s_steps = sum(e[3] for e in slog if e[0] == "seg")
+    differ = [r.rid for r, p in zip(sout, out)
+              if not np.array_equal(r.result, p.result)]
+    sp = eng.stats.spec
+    print(f"[serve-sched] spec={SCHED_SPEC}: {s_wall:.3f}s, tokens_s="
+          f"{n_tok / s_wall:.2f}; {s_steps} verify steps, {s_pre} prefills; "
+          f"{sp}; launches {json.dumps(s_counts)}; requests whose tokens "
+          f"differ from the plain run: {differ}", flush=True)
+    if differ:
+        raise AssertionError(f"serve-sched: spec tokens differ for {differ}")
+    s_want = dict(NO_LAUNCHES, rns_matmul=per_fwd * (s_pre + s_steps),
+                  flash_attention=L * s_pre, paged_decode=L * s_steps)
+    if s_counts != s_want:
+        raise AssertionError(f"serve-sched spec: launch counts {s_counts}, "
+                             f"expected {s_want}")
+    del eng
+    return dict(counts=counts, spec_counts=s_counts,
+                requests_s=SCHED_N / wall, tokens_s=n_tok / wall,
+                latency_p50=float(np.percentile(lat, 50)),
+                latency_p95=float(np.percentile(lat, 95)))
+
+
 def serve_redundant(torch):
     """Phases 5 and 6: qwen3-8b at full width on P21R2 / rns8r / strict,
     clean and then under injected faults."""
@@ -1675,6 +2037,39 @@ def serve_redundant(torch):
         raise AssertionError("faults (b): tokens differ from the clean run")
     if fb["pages_quarantined"] < 1:
         raise AssertionError(f"faults (b): counters {fb}")
+
+    # (c) the continuous scheduler on the same engine settings: 8 requests
+    # of ragged prompts (64-160 tokens) and budgets (8-16), clean and then
+    # under the sticky fault (slot 0's first page is page 1 here too: the
+    # first admission takes the lowest pages first, slot 0 first)
+    rng = np.random.default_rng(SEED + 21)
+    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(64, 161))
+                           ).astype(np.int32), int(rng.integers(8, 17)),
+              None) for _ in range(8)]
+    params = engine_b.params
+    del engine_b
+    torch.cuda.empty_cache()
+    clean_c = _serve_requests(
+        ServingEngine(model, params, quarantine_after=2, **kw), specs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_c = ServingEngine(model, params, quarantine_after=2, **kw)
+    with inject_faults(engine_c, sticky, after_steps=3):
+        out_c = _serve_requests(engine_c, specs)
+    fc = dataclasses.asdict(engine_c.stats.faults)
+    same = all(np.array_equal(a.result, b.result)
+               for a, b in zip(out_c, clean_c))
+    print(f"[faults] (c) the scheduler, {len(specs)} requests, sticky K "
+          f"witness fault, quarantine_after=2: tokens equal the clean "
+          f"scheduler run {same}; quarantined pages "
+          f"{sorted(engine_c.pool.quarantined_pages)}; recomputes by "
+          f"re-admission {[r.stats.recomputes for r in out_c]}; counters "
+          f"{json.dumps(fc)}", flush=True)
+    if not same:
+        raise AssertionError("faults (c): the scheduler's tokens differ from "
+                             "its clean run")
+    if fc["pages_quarantined"] < 1 or fc["recomputes"] < 1:
+        raise AssertionError(f"faults (c): counters {fc}")
     return counts
 
 
@@ -1882,7 +2277,8 @@ def check_held(held, want, label, what):
 
 def check_first_b3(first, n, kv_len0, label, cfg):
     """Hold the recorded B3 launches of the first decode step (rns8 pages)
-    against the plain version on their own inputs."""
+    against the plain version on their own inputs.  ``kv_len0``: every
+    slot's kv_len, or a list of each slot's (ragged batches)."""
     from repro_torch.kernels.flash_attn import paged_decode_ref
     from repro_torch.numerics.attention import merge_decode_partials
 
@@ -1891,9 +2287,11 @@ def check_first_b3(first, n, kv_len0, label, cfg):
                              f"the first step, expected {n}")
     worst = 0.0
     for args, parts in first:
-        if args[6].tolist() != [kv_len0] * len(args[6]):
+        want = (list(kv_len0) if isinstance(kv_len0, list)
+                else [kv_len0] * len(args[6]))
+        if args[6].tolist() != want:
             raise AssertionError(f"{label}: first step kv_len "
-                                 f"{args[6].tolist()}, expected {kv_len0}")
+                                 f"{args[6].tolist()}, expected {want}")
         ref = paged_decode_ref(*args)
         worst = max(worst, float((merge_decode_partials(*parts[:3])
                                   - merge_decode_partials(*ref[:3])
@@ -1929,25 +2327,28 @@ def check_first_b1(first, n, B, label):
 
 def check_first_decode(first, n, kv_len0, label):
     """Hold the recorded B5 launches of the first decode step against the
-    plain version on their own inputs, merged."""
+    plain version on their own inputs, merged.  ``kv_len0``: every launch's
+    kv_len (all slots alike), or a list with each launch's."""
     from repro_torch.kernels.flash_attn import flash_decode_ref
     from repro_torch.numerics.attention import merge_decode_partials
 
     if len(first) != n:
         raise AssertionError(f"{label}: recorded {len(first)} B5 launches of "
                              f"the first step, expected {n}")
+    wants = kv_len0 if isinstance(kv_len0, list) else [kv_len0] * n
     worst = 0.0
-    for (q, k, v, kv_len, bk), out in first:
-        if kv_len.tolist() != [kv_len0] * len(kv_len):
+    for ((q, k, v, kv_len, bk), out), want in zip(first, wants):
+        if kv_len.tolist() != [want] * len(kv_len):
             raise AssertionError(f"{label}: first step kv_len "
-                                 f"{kv_len.tolist()}, expected {kv_len0}")
+                                 f"{kv_len.tolist()}, expected {want}")
         ref = flash_decode_ref(q, k, v, kv_len, bk)
         worst = max(worst, float((merge_decode_partials(*out)
                                   - merge_decode_partials(*ref)).abs().max()))
     tol = 2e-3      # the bf16-cache tolerance of [kernels] flash_decode
-    print(f"[{label}] the {n} B5 launches of the first decode step (T "
-          f"{k.shape[1]}, bk {bk}) against the plain version on their own "
-          f"inputs: max_abs_err={worst:.3e} (tol {tol})", flush=True)
+    shapes = sorted({(a[1].shape[1], a[4]) for a, _ in first})
+    print(f"[{label}] the {n} B5 launches of the first decode step ((T, bk) "
+          f"{shapes}) against the plain version on their own inputs: "
+          f"max_abs_err={worst:.3e} (tol {tol})", flush=True)
     if not worst <= tol:
         raise AssertionError(f"{label}: B5 differs from the plain version on "
                              f"the serve's inputs")
@@ -2447,6 +2848,209 @@ def serve_moe(torch, smi):
     return counts
 
 
+def serve_vlm(torch, smi):
+    """Phase [serve-vlm]: pixtral-12b at full width and depth (40 layers,
+    attention width 32 x 128 = 4096 against d_model 5120, tied logits at
+    N 131072) under system="rns" on rns8 pages: B 8, 1024 synthetic patch
+    embeddings from the seed, then VLM_TEXT text tokens, VLM_NEW new
+    tokens, greedy.  Gates: every logit finite, exact launch counts, the B1
+    and B3 launches of the first decode step equal to the plain version on
+    their own inputs, and every B1 and B2 launch of the prefill, run again
+    untimed, held against its plain version as it returns."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.models.frontends import synthetic_patches
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("pixtral-12b")
+    L, B, max_new = cfg.n_layers, SERVE_B, VLM_NEW
+    plen = cfg.n_img_tokens + VLM_TEXT
+    s_max = plen + max_new + 1
+    per_step = forward_launches(cfg)
+    label = "serve-vlm"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    decode_paged, finite = _finite_wrap(torch, model.decode_paged)
+    engine = ServingEngine(
+        dataclasses.replace(model, decode_paged=decode_paged), params,
+        batch=B, s_max=s_max, page_size=64, kv_format="rns8", device="cuda")
+    params = engine.params
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    patches = synthetic_patches(gen, B, cfg)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, VLM_TEXT)).astype(np.int32)
+    inputs = {"tokens": tokens, "patches": patches}
+    kernels.reset_launch_counts()
+    (res, first_b3), first_b1 = record_launches(
+        "rns_matmul", per_step, lambda: record_launches(
+            "paged_decode", L, lambda: engine.generate(
+                inputs, max_new=max_new), keep=_keep_b3),
+        skip=per_step)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    print(f"[{label}] pixtral-12b L={L} (full depth) d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv} x {cfg.hd} (attention width "
+          f"{cfg.n_heads * cfg.hd}) d_ff={cfg.d_ff} vocab={cfg.vocab}; "
+          f"system=rns kv=rns8 B={B} prompt={plen} ({cfg.n_img_tokens} "
+          f"patches + {VLM_TEXT} tokens) new={max_new}; init peak "
+          f"{init_peak}; {smi}", flush=True)
+    _serve_line(label, res.stats, B, steps, t_init, rb, peak,
+                f" kv pool bytes={engine.pool.pool_bytes()}")
+    print(f"[{label}] launches {json.dumps(counts)}", flush=True)
+    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                flash_attention=L, paged_decode=L * steps)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{want}")
+    check_first_b3(first_b3, L, plen + 1, label, cfg)
+    check_first_b1(first_b1, per_step, B, label)
+    del engine, first_b3, first_b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, held = hold_launches(
+        held_checks("rns_matmul", "flash_attention"),
+        lambda: model.prefill(params, tokens, s_max=s_max, patches=patches))
+    check_held(held, {"rns_matmul": per_step, "flash_attention": L}, label,
+               "the prefill")
+    if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+        raise AssertionError(f"{label}: a logit is not finite")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError(f"{label}: tokens misshapen or out of "
+                             f"[0, vocab)")
+    print(f"[{label}] every logit finite; seq0 tokens "
+          f"{res.tokens[0, :16].tolist()}", flush=True)
+    return counts
+
+
+def serve_audio(torch, smi):
+    """Phase [serve-audio]: whisper-small at full width and depth (12
+    encoder and 12 decoder layers) under system="rns" on the dense bf16
+    caches: B 8, AUDIO_FRAMES synthetic frames from the seed, an
+    AUDIO_PROMPT-token decoder prompt, AUDIO_NEW new tokens, greedy.  The
+    encoder runs B2 with ``causal=False``, the cross-attention B2
+    (non-causal) at prefill and B5 (kv_len 1500) at decode, the decoder's
+    self-attention B2 and B5 over its 448 positions; the logits are a float
+    product (the reference's).  Gates: every logit finite, exact launch
+    counts, the B1 and B5 launches of the first decode step equal to the
+    plain version on their own inputs, and every B1 and B2 launch of the
+    prefill, run again untimed, held as it returns, the B2 launches in the
+    order and causality the model implies."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.moduli import P21
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.models.frontends import synthetic_frames
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("whisper-small")
+    Le, Ld, B = cfg.n_enc_layers, cfg.n_layers, SERVE_B
+    plen, max_new, T = AUDIO_PROMPT, AUDIO_NEW, AUDIO_FRAMES
+    label = "serve-audio"
+
+    def n(K):
+        return len(_segments(K, 7, P21))
+
+    d, f = cfg.d_model, cfg.d_ff
+    # encoder layer: q, k, v, o, up at K d; down at K d_ff.  Decoder layer
+    # at prefill: self q, k, v, o, cross k, v (over the memory), cross q, o,
+    # up; down.  At decode the cross k and v are not recomputed
+    pre_b1 = Le * (5 * n(d) + n(f)) + Ld * (9 * n(d) + n(f))
+    step_b1 = Ld * (7 * n(d) + n(f))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    decode, finite = _finite_wrap(torch, model.decode)
+    engine = ServingEngine(dataclasses.replace(model, decode=decode), params,
+                           batch=B, s_max=T, device="cuda")
+    if engine.paged:
+        raise AssertionError(f"{label}: the audio family serves from the "
+                             f"dense cache")
+    params = engine.params
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = synthetic_frames(gen, B, T, cfg)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    kernels.reset_launch_counts()
+    (res, first_b5), first_b1 = record_launches(
+        "rns_matmul", step_b1, lambda: record_first_decode(
+            2 * Ld, lambda: engine.generate(
+                {"tokens": tokens, "frames": frames}, max_new=max_new)),
+        skip=pre_b1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rb = resident_bytes(engine.params)
+    steps = max_new - 1
+    print(f"[{label}] whisper-small encoder {Le} + decoder {Ld} layers (full "
+          f"depth) d={d} heads {cfg.n_heads}/{cfg.n_kv} x {cfg.hd} d_ff={f} "
+          f"vocab={cfg.vocab} dec_len={cfg.dec_len}; system=rns, dense bf16 "
+          f"caches, B={B} frames={T} prompt={plen} new={max_new}; {smi}",
+          flush=True)
+    # the self cache (dec_len rows) and the cross memory (T rows), K and V
+    # in bf16 for every decoder layer
+    kv_bytes = {n_: 2 * 2 * Ld * B * rows * cfg.n_kv * cfg.hd
+                for n_, rows in (("self", cfg.dec_len), ("cross", T))}
+    _serve_line(label, res.stats, B, steps, t_init, rb, peak,
+                f" cache bytes {json.dumps(kv_bytes)}")
+    print(f"[{label}] launches {json.dumps(counts)}", flush=True)
+    want = dict(NO_LAUNCHES, rns_matmul=pre_b1 + step_b1 * steps,
+                flash_attention=Le + 2 * Ld, flash_decode=2 * Ld * steps)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{want}")
+    check_first_b1(first_b1, step_b1, B, label)
+    check_first_decode(first_b5, 2 * Ld, [plen + 1, T] * Ld, label)
+    del engine, first_b5, first_b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = held_checks("rns_matmul", "flash_attention")
+    b2, seen = checks["flash_attention"], []
+
+    def b2_order(out, q, k, v, kv_len=None, *, causal=True):
+        seen.append((causal, q.shape[1], k.shape[1]))
+        return b2(out, q, k, v, kv_len, causal=causal)
+
+    checks["flash_attention"] = b2_order
+    _, held = hold_launches(checks, lambda: model.prefill(
+        params, tokens, frames=frames))
+    check_held(held, {"rns_matmul": pre_b1, "flash_attention": Le + 2 * Ld},
+               label, "the prefill")
+    order = [(False, T, T)] * Le + [(True, plen, plen), (False, plen, T)] * Ld
+    print(f"[{label}] the prefill's B2 launches (causal, Sq, T): "
+          f"{sum(not c for c, _, _ in seen)} non-causal (the encoder's {Le} "
+          f"at {T} x {T}, the cross-attention's {Ld} at {plen} x {T}), "
+          f"{sum(c for c, _, _ in seen)} causal", flush=True)
+    if seen != order:
+        raise AssertionError(f"{label}: the prefill's B2 launches {seen}, "
+                             f"expected {order}")
+    if not (bool(finite) and np.isfinite(res.prefill_logits).all()):
+        raise AssertionError(f"{label}: a logit is not finite")
+    if res.tokens.shape != (B, max_new) or not (
+            0 <= res.tokens.min() and res.tokens.max() < cfg.vocab):
+        raise AssertionError(f"{label}: tokens misshapen or out of "
+                             f"[0, vocab)")
+    print(f"[{label}] every logit finite; seq0 tokens "
+          f"{res.tokens[0, :16].tolist()}", flush=True)
+    return counts
+
+
 def main() -> int:
     # [serve-moe] makes and encodes 38 layers of 2.2 GB f32 expert stacks one
     # after another beside their planes: fixed-size segments fragment (out
@@ -2497,10 +3101,12 @@ def main() -> int:
     rm = check_rns_matmul(torch, timer, gen, P21, "P21", QWEN3_STEP)
     rm_r = check_rns_matmul(torch, timer, gen, P21R2, "P21R2", QWEN3_STEP)
     rm_h = check_rns_matmul(torch, timer, gen, P21, "zamba2", HYBRID_MATMULS)
-    fa = check_flash_attention(torch, timer, gen)
+    fa_rows = check_flash_attention(torch, timer, gen)
+    fa = dict(fa_rows.pop("qwen3"), **fa_rows)
     pd = check_paged_decode(torch, timer, gen)
     ps = check_paged_decode_syndrome(torch, timer, gen)
-    fd = check_flash_decode(torch, timer, gen)
+    fd_rows = check_flash_decode(torch, timer, gen)
+    fd = dict(fd_rows.pop("serve_dense"), **fd_rows)
     sdm, sdv = check_sdrns_matmul(torch, timer, gen)
     sda = check_sd_add(torch, timer)
     rm_s = check_rns_matmul_spec(torch, timer, gen)
@@ -2512,6 +3118,31 @@ def main() -> int:
     pd_g = check_paged_decode(
         torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 3),
         H=48, Kv=1, names=("rns8",), tag=",granite")
+    # the vlm and audio serves' shapes: B2 non-causal (whisper's encoder and
+    # cross-attention) and at hd 64, at pixtral's prefill; B5 at whisper's
+    # self cache and cross memory; B1 at both models' shapes
+    fa_new = check_flash_attention(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 4),
+        cases=[("whisper_enc", SERVE_B, AUDIO_FRAMES, AUDIO_FRAMES, 12, 12,
+                64, False, False),
+               ("whisper_cross", SERVE_B, AUDIO_PROMPT, AUDIO_FRAMES, 12, 12,
+                64, False, False),
+               ("whisper_self", SERVE_B, AUDIO_PROMPT, AUDIO_PROMPT, 12, 12,
+                64, True, False),
+               ("pixtral", SERVE_B, 1024 + VLM_TEXT, 1024 + VLM_TEXT, 32, 8,
+                128, True, False)])
+    fd_new = check_flash_decode(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 5),
+        cases=[("whisper_self", 12, 12, 64, 448, torch.bfloat16,
+                AUDIO_PROMPT + 1, None),
+               ("whisper_cross", 12, 12, 64, AUDIO_FRAMES, torch.bfloat16,
+                AUDIO_FRAMES, None)])
+    g6 = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rm_w = check_rns_matmul(torch, timer, g6, P21, "whisper",
+                            WHISPER_MATMULS, prefill_m=SERVE_B * AUDIO_FRAMES)
+    rm_p = check_rns_matmul(torch, timer, g6, P21, "pixtral",
+                            PIXTRAL_MATMULS,
+                            prefill_m=SERVE_B * (1024 + VLM_TEXT))
     del timer
     torch.cuda.empty_cache()
     print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
@@ -2520,6 +3151,7 @@ def main() -> int:
     phase("small-hybrid", check_small_hybrid, torch)
     counts, ctx = phase("serve", serve_full_width, torch)
     spec = phase("serve-spec", serve_spec, torch, *ctx)
+    sched = phase("serve-sched", serve_sched, torch, *ctx[:2])
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -2530,6 +3162,8 @@ def main() -> int:
     counts_cfg = phase("serve-configs", serve_configs, torch, smi)
     counts_ssm = phase("serve-ssm", serve_ssm, torch, smi)
     counts_moe = phase("serve-moe", serve_moe, torch, smi)
+    counts_vlm = phase("serve-vlm", serve_vlm, torch, smi)
+    counts_audio = phase("serve-audio", serve_audio, torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -2568,6 +3202,9 @@ def main() -> int:
          "launches_serve_configs": {a: c[name] for a, c in counts_cfg.items()},
          "launches_serve_ssm": counts_ssm[name],
          "launches_serve_moe": counts_moe[name],
+         "launches_serve_sched": sched["counts"][name],
+         "launches_serve_vlm": counts_vlm[name],
+         "launches_serve_audio": counts_audio[name],
          **{k: r[k] for k in fixed},
          **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
         for name, source, rep, r in entries]}
@@ -2592,6 +3229,22 @@ def main() -> int:
                                      launches=counts_moe["rns_matmul"])
     line["kernels"][2]["granite"] = dict(
         pd_g["rns8"], launches=counts_cfg["granite-20b"]["paged_decode"])
+    # the vlm and audio serves' shapes, with their serves' launches (B1 at
+    # whisper's logits shape has none: the logits are a float product)
+    line["kernels"][0]["whisper"] = dict(
+        rm_w, launches=counts_audio["rns_matmul"])
+    line["kernels"][0]["pixtral"] = dict(
+        rm_p, launches=counts_vlm["rns_matmul"])
+    for key, serve in (("whisper_enc", "audio"), ("whisper_cross", "audio"),
+                       ("whisper_self", "audio"), ("pixtral", "vlm")):
+        line["kernels"][1][key] = dict(fa_new[key], launches=(
+            counts_audio if serve == "audio" else counts_vlm
+        )["flash_attention"])
+    for key in ("whisper_self", "whisper_cross"):
+        line["kernels"][4][key] = dict(
+            fd_new[key], launches=counts_audio["flash_decode"])
+    # [serve-sched]: the spec run's launches and the serve's end-to-end rates
+    line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig`` and its ``reduced()`` are kept field for field and value for
 value: the parity tests build the same reduced model in both packages and
-load the same committed checkpoint into each.  Ported: the dense
-``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b`` and ``granite-20b``, the hybrid
-``zamba2-7b``, the ssm ``mamba2-780m`` and the moe ``moonshot-v1-16b-a3b``
-and ``grok-1-314b``.
+load the same committed checkpoint into each.  Every architecture of the
+reference is ported: the dense ``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b``
+and ``granite-20b``, the hybrid ``zamba2-7b``, the ssm ``mamba2-780m``, the
+moe ``moonshot-v1-16b-a3b`` and ``grok-1-314b``, the audio (encoder-decoder)
+``whisper-small`` and the vlm ``pixtral-12b``.
 """
 from __future__ import annotations
 
@@ -109,6 +110,8 @@ ARCH_IDS: tuple[str, ...] = (
     "qwen3-8b",
     "yi-6b",
     "phi3-medium-14b",
+    "whisper-small",
+    "pixtral-12b",
     "grok-1-314b",
     "moonshot-v1-16b-a3b",
     "mamba2-780m",
@@ -119,5 +122,5 @@ _MODULES = {a: "repro_torch.configs." + a.replace("-", "_") for a in ARCH_IDS}
 
 def get_config(arch: str) -> ArchConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch]).get_config()

@@ -3,8 +3,10 @@
 :func:`load_npz` reads the ``params/...`` keys of a checkpoint written by
 ``repro/train/checkpoint.py`` into a nested dict of numpy arrays;
 :func:`from_jax_params` turns such a tree (layers stacked on axis 0, as in
-the npz) into the port's parameters (a list of per-layer dicts of tensors;
-the hybrid family's ``shared`` block, not stacked, comes across as it is;
+the npz) into the port's parameters (a list of per-layer dicts of tensors,
+and for the audio family one list for ``enc_layers`` and one for
+``dec_layers``; the hybrid family's ``shared`` block, not stacked, comes
+across as it is;
 the moe family's router and ``(E, K, N)`` expert stacks and the ssm
 family's Mamba2 layers are per-layer leaves like any other).  bfloat16
 leaves (a ``param_dtype="bfloat16"`` config such as grok-1-314b) come
@@ -65,12 +67,17 @@ def from_jax_params(np_tree: dict[str, Any], cfg: ArchConfig,
                     device: torch.device | str) -> dict[str, Any]:
     """The reference's parameter tree (numpy, layers stacked on axis 0) ->
     the port's parameters on ``device``."""
-    layers = np_tree["layers"]
-    n = len(_first_leaf(layers))
-    if n != cfg.n_layers:
-        raise ValueError(f"tree holds {n} layers, config says "
-                         f"{cfg.n_layers}")
+    stacks = ({"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+              if cfg.is_encdec else {"layers": cfg.n_layers})
     out = {k: _to_torch(v, device) for k, v in np_tree.items()
-           if k != "layers"}
-    out["layers"] = [_to_torch(_layer(layers, i), device) for i in range(n)]
+           if k not in stacks}
+    for key, want in stacks.items():
+        if key not in np_tree:
+            raise ValueError(f"tree holds no {key!r} for the "
+                             f"{cfg.family} family")
+        n = len(_first_leaf(np_tree[key]))
+        if n != want:
+            raise ValueError(f"tree holds {n} {key}, config says {want}")
+        out[key] = [_to_torch(_layer(np_tree[key], i), device)
+                    for i in range(n)]
     return out

@@ -20,6 +20,14 @@ runs reduced only.
 weight: at full width only a cut depth fits one card (``chip_smoke.py``
 cuts qwen3-8b to 8 of 36 layers through the Python API).
 
+The vlm family (``pixtral-12b``) takes ``n_img_tokens`` synthetic patch
+embeddings before the ``--prompt-len`` text tokens, on the paged pool.  The
+audio family (``whisper-small``, an encoder-decoder) takes ``--prompt-len``
+synthetic frames for its encoder (1500: whisper's 30-second window after
+its conv stack) and an 8-token decoder prompt, on the dense cache; its
+decoder's 448 positions bound the prompt and ``--max-new``.  Frames and
+patches are drawn from ``--seed`` (``models/frontends.py``).
+
 ``--spec ngram:4`` (or ``rns:4``) decodes speculatively: a drafter
 proposes 4 tokens a slot and the target verifies them in one batched step
 (paged serving and greedy sampling only; the tokens equal plain decoding),
@@ -37,8 +45,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import frontends
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import ServingEngine
+
+DEC_PROMPT = 8     # the audio family's decoder prompt (the reference's)
 
 
 def main(argv=None):
@@ -66,23 +77,38 @@ def main(argv=None):
     model = build_model(cfg, system=args.system, device=args.device)
     params = model.init(args.seed)
     B, P = args.batch, args.prompt_len
-    engine = ServingEngine(model, params, batch=B,
-                           s_max=P + args.max_new + 1,
+    s_max = P + args.max_new + 1
+    if cfg.family == "vlm":
+        s_max += cfg.n_img_tokens
+    if cfg.is_encdec:
+        s_max = P              # the encoder memory; the decoder has dec_len
+    engine = ServingEngine(model, params, batch=B, s_max=s_max,
                            kv_format=args.kv_format, device=args.device,
                            spec=args.spec)
     rng = np.random.default_rng(args.seed)
-    tokens = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    if cfg.is_encdec:
+        inputs = {"frames": frontends.synthetic_frames(gen, B, P, cfg),
+                  "tokens": rng.integers(0, cfg.vocab, (B, DEC_PROMPT)
+                                         ).astype(np.int32)}
+        plen = DEC_PROMPT
+    else:
+        inputs = {"tokens": rng.integers(0, cfg.vocab, (B, P)
+                                         ).astype(np.int32)}
+        plen = P
+        if cfg.family == "vlm":
+            inputs["patches"] = frontends.synthetic_patches(gen, B, cfg)
+            plen += cfg.n_img_tokens
 
     t0 = time.perf_counter()
-    res = engine.generate({"tokens": tokens}, max_new=args.max_new,
+    res = engine.generate(inputs, max_new=args.max_new,
                           temperature=args.temperature, generator=gen)
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     dt = time.perf_counter() - t0
     kv = args.kv_format if engine.paged else "dense"
     print(f"[serve] {args.arch} system={args.system} kv={kv} "
-          f"device={model.device} B={B} prompt={P} new={args.max_new}: "
+          f"device={model.device} B={B} prompt={plen} new={args.max_new}: "
           f"{dt:.2f}s ({B * args.max_new / dt:.1f} tok/s)")
     if engine.stats.spec is not None:
         sp = engine.stats.spec

@@ -1,7 +1,8 @@
 """Model API: ``build_model(cfg, system=..., device=...)``.
 
-The returned :class:`Model` bundles the functions of the dense, moe, ssm
-and hybrid families:
+The returned :class:`Model` bundles the functions of every family: the
+decoder-only dense, moe, vlm, ssm and hybrid (``models/transformer.py``)
+and the audio encoder-decoder (``models/encdec.py``):
 
 * ``init(seed)`` -- random parameters on the model's device.  Under
   ``system="rns"`` and ``"sdrns"`` each layer is made residue-resident
@@ -13,23 +14,29 @@ and hybrid families:
   float tree (identity for ``bns``; idempotent on prepared trees): every
   ``{"w": ...}`` weight but the moe router's (routing stays float), the
   bare ``(E, K, N)`` expert stacks ``w_gate`` / ``w_up`` / ``w_down`` (the
-  stack kept), and the tied logits weight;
+  stack kept), the encoder's and decoder's layers of the audio family, and
+  the tied logits weight (not for the audio family, whose logits stay a
+  float product, as in the reference);
 * ``prepare_weight(w)`` -- one float ``(K, N)`` weight made resident as
   ``prepare_params`` makes each (the speculative drafter re-encodes the
   target's weights one at a time through it);
-* ``prefill(params, tokens, s_max=None, logits_at=None)`` -- logits and
-  the family's cache (``models/transformer.py``);
+* ``prefill(params, tokens, s_max=None, logits_at=None, patches=None,
+  frames=None)`` -- logits and the family's cache; the vlm family takes
+  ``patches (B, n_img, d)`` put before the tokens, the audio family
+  ``frames (B, S_enc, d)`` for its encoder and ``tokens`` as the decoder
+  prompt;
 * ``init_cache(batch, s_max)`` -- a zeroed cache of that layout (the ssm
-  family's is an ``SsmCache`` alone, no KV);
+  family's is an ``SsmCache`` alone, no KV; the audio family's ``s_max`` is
+  the encoder memory's length);
 * ``decode(params, token, cache, pos)`` -- one step over the dense cache
   (updated in place), every slot at position ``pos``;
 * ``decode_paged(params, token, kv, block_tab, pos, page_size=...,
-  with_syndrome=False)`` -- the dense and moe families (``None`` for ssm
-  and hybrid); with the syndrome it also returns the ``(B, L)`` count of
-  KV elements whose witnesses disagree (rns8r pages);
+  with_syndrome=False)`` -- the dense, moe and vlm families (``None`` for
+  ssm, hybrid and audio); with the syndrome it also returns the ``(B, L)``
+  count of KV elements whose witnesses disagree (rns8r pages);
 * ``verify_paged(params, tokens, kv, block_tab, pos, page_size=...)`` --
   the speculative verify of ``tokens (B, V)`` at ``pos .. pos + V - 1``,
-  ``(logits (B, V, vocab), kv)``; the dense and moe families.
+  ``(logits (B, V, vocab), kv)``; the dense, moe and vlm families.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -43,6 +50,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moduli import ModuliSet
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant import residency
@@ -74,7 +82,7 @@ class Model:
     decode: Callable[..., Any]
     init_cache: Callable[..., Any]
     # paged serving and its speculative verify; None for families without
-    # a paged decode (ssm, hybrid)
+    # a paged decode (ssm, hybrid, audio)
     decode_paged: Callable[..., Any] | None = None
     verify_paged: Callable[..., Any] | None = None
 
@@ -117,12 +125,14 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         if not isinstance(node, dict):
             return node
         out = {k: prepare_tree(v, k) for k, v in node.items()}
-        if name == "embed" and "logits_w" not in out:
+        if name == "embed" and "logits_w" not in out and not encdec:
             # tied-embedding logits matmul; the f32 table stays for the
             # embedding gather
             out["logits_w"] = residency.prepare_weight(
                 out["table"].to(torch.float32).T, **prep_kw)
         return out
+
+    encdec = cfg.is_encdec
 
     def prepare_weight(w):
         if system == "bns":
@@ -139,26 +149,44 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
 
     def init(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)
+        prep = None if system == "bns" else prepare_tree
         with torch.no_grad():
-            params = tf_mod.init_lm(
-                gen, cfg, device=dev,
-                prepare_layer=None if system == "bns" else prepare_tree)
+            if encdec:
+                params = encdec_mod.init_encdec(gen, cfg, device=dev,
+                                                prepare_layer=prep)
+            else:
+                params = tf_mod.init_lm(gen, cfg, device=dev,
+                                        prepare_layer=prep)
             return prepare_params(params)
 
     @torch.no_grad()
     def prefill(params, tokens, s_max=None, logits_at=None,
-                cache_dtype=torch.bfloat16):
+                cache_dtype=torch.bfloat16, patches=None, frames=None):
         tokens = torch.as_tensor(tokens, device=dev).long()
+        if encdec:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: the audio family's prefill "
+                                 f"needs frames (B, S_enc, d_model)")
+            return encdec_mod.encdec_prefill(
+                params, cfg, torch.as_tensor(frames, device=dev), tokens,
+                dense_kw=dense_kw, cache_dtype=cache_dtype)
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=dev)
         return tf_mod.lm_prefill(params, cfg, tokens, s_max=s_max,
                                  dense_kw=dense_kw, cache_dtype=cache_dtype,
-                                 logits_at=logits_at)
+                                 logits_at=logits_at, patches=patches)
 
     def init_cache(batch: int, s_max: int, dtype=torch.bfloat16):
+        if encdec:
+            return encdec_mod.init_encdec_cache(cfg, batch, s_max, dtype, dev)
         return tf_mod.init_lm_cache(cfg, batch, s_max, dtype, dev)
 
     @torch.no_grad()
     def decode(params, token, cache, pos: int):
         token = torch.as_tensor(token, device=dev).long()
+        if encdec:
+            return encdec_mod.encdec_decode(params, cfg, token, cache, pos,
+                                            dense_kw=dense_kw)
         return tf_mod.lm_decode(params, cfg, token, cache, pos,
                                 dense_kw=dense_kw)
 
@@ -179,7 +207,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             params, cfg, tokens, kv, block_tab, pos, page_size=page_size,
             dense_kw=dense_kw, cache_dtype=cache_dtype)
 
-    paged = cfg.family in ("dense", "moe")
+    paged = cfg.family in ("dense", "moe", "vlm")
     return Model(cfg=cfg, device=dev, init=init,
                  prepare_params=prepare_params,
                  prepare_weight=prepare_weight, prefill=prefill,

@@ -1,15 +1,21 @@
 """Grouped-query attention with qk-norm: prefill, dense and paged decode.
 
 Port of ``repro/models/attention.py`` for the serving path.  Prefill runs
-the causal flash attention kernel and hands back this layer's KV cache
-(zero-padded to ``s_max``); dense decode writes the new token's K/V into
+the flash attention kernel (causal, or not: the encoder of the audio
+family) and hands back this layer's KV cache (zero-padded to ``s_max``);
+:func:`attention` runs it over a whole sequence with no cache (the
+encoder); dense decode writes the new token's K/V into
 the layer's contiguous cache in place and runs the split-KV decode kernel
 over it; paged decode appends them to the slot's page and runs the
 split-KV paged decode kernel over the slot's page list; the speculative
 verify appends a block of V tokens a slot and runs the same kernel with the
 V rows folded into its batch.  KV heads stay
 ungrouped ``(B, T, Kv, hd)``; the kernels map query head ``h`` onto KV
-head ``h // (H // Kv)``.
+head ``h // (H // Kv)``.  The attention width ``n_heads * head_dim`` may
+differ from ``d_model`` (pixtral-12b's is 4096 against 5120): ``wq`` maps
+onto it and ``wo`` back.  ``apply_rope=False`` (the audio family, whose
+positions are sinusoidal embeddings added to the input) leaves q and k
+unrotated.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from repro_torch.models.layers import init_rmsnorm, rmsnorm, rope
 from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as nxkv
 
-__all__ = ["KVCache", "init_attention", "prefill_attention",
+__all__ = ["KVCache", "init_attention", "attention", "prefill_attention",
            "decode_attention", "paged_decode_attention",
            "paged_verify_attention"]
 
@@ -48,7 +54,7 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def _project_qkv(params, x, *, n_heads, n_kv, head_dim, qk_norm, positions,
-                 rope_theta, dense_kw):
+                 rope_theta, dense_kw, apply_rope=True):
     B, S, _ = x.shape
     q = linear.dense(params["wq"], x, **dense_kw).reshape(B, S, n_heads,
                                                           head_dim)
@@ -59,8 +65,9 @@ def _project_qkv(params, x, *, n_heads, n_kv, head_dim, qk_norm, positions,
     if qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    q = rope(q, positions, theta=rope_theta)
-    k = rope(k, positions, theta=rope_theta)
+    if apply_rope:
+        q = rope(q, positions, theta=rope_theta)
+        k = rope(k, positions, theta=rope_theta)
     return q, k, v
 
 
@@ -74,9 +81,26 @@ def _full_seq(q, k, v, *, causal, n_heads, head_dim):
     return out.reshape(B, S, n_heads * head_dim)
 
 
+def attention(params, x, *, n_heads, n_kv, head_dim, causal=True,
+              qk_norm=False, rope_theta=1e4, dense_kw=None,
+              apply_rope=True) -> torch.Tensor:
+    """Self-attention over a whole sequence at positions ``0..S-1``, no
+    cache (the encoder of the audio family)."""
+    dense_kw = dense_kw or {}
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
+                           head_dim=head_dim, qk_norm=qk_norm,
+                           positions=positions, rope_theta=rope_theta,
+                           dense_kw=dense_kw, apply_rope=apply_rope)
+    out = _full_seq(q, k, v, causal=causal, n_heads=n_heads,
+                    head_dim=head_dim)
+    return linear.dense(params["wo"], out, **dense_kw)
+
+
 def prefill_attention(params, x, s_max: int, *, n_heads, n_kv, head_dim,
                       qk_norm=False, rope_theta=1e4, dense_kw=None,
-                      cache_dtype=torch.bfloat16, causal=True):
+                      cache_dtype=torch.bfloat16, causal=True,
+                      apply_rope=True):
     """Self-attention over the prompt; also returns this layer's KV cache
     ``(k, v)``, each ``(B, s_max, Kv, hd)`` in ``cache_dtype``."""
     dense_kw = dense_kw or {}
@@ -85,7 +109,7 @@ def prefill_attention(params, x, s_max: int, *, n_heads, n_kv, head_dim,
     q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
                            head_dim=head_dim, qk_norm=qk_norm,
                            positions=positions, rope_theta=rope_theta,
-                           dense_kw=dense_kw)
+                           dense_kw=dense_kw, apply_rope=apply_rope)
     pad = (0, 0, 0, 0, 0, s_max - S)
     cache = (torch.nn.functional.pad(k.to(cache_dtype), pad),
              torch.nn.functional.pad(v.to(cache_dtype), pad))
@@ -96,7 +120,7 @@ def prefill_attention(params, x, s_max: int, *, n_heads, n_kv, head_dim,
 
 def decode_attention(params, x, cache: KVCache, pos: int, *, n_heads, n_kv,
                      head_dim, qk_norm=False, rope_theta=1e4,
-                     dense_kw=None) -> torch.Tensor:
+                     dense_kw=None, apply_rope=True) -> torch.Tensor:
     """One decode step over one layer's dense cache, every slot at ``pos``.
 
     x: (B, 1, D); cache: this layer's ``(B, S_max, Kv, hd)`` views.  The
@@ -110,7 +134,7 @@ def decode_attention(params, x, cache: KVCache, pos: int, *, n_heads, n_kv,
     q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
                            head_dim=head_dim, qk_norm=qk_norm,
                            positions=pos_t[:, None], rope_theta=rope_theta,
-                           dense_kw=dense_kw)
+                           dense_kw=dense_kw, apply_rope=apply_rope)
     cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
     o = nxattn.flash_decode(q[:, 0], cache.k, cache.v, kv_len=pos_t + 1)

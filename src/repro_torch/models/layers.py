@@ -1,11 +1,26 @@
-"""Shared building blocks: RMSNorm, RoPE, embedding (port of models/layers.py)."""
+"""Shared building blocks: RMSNorm, RoPE, sinusoidal positions, embedding
+(port of models/layers.py)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.quant.quant import true_divide
 
-__all__ = ["rmsnorm", "init_rmsnorm", "rope", "init_embedding", "embed"]
+__all__ = ["rmsnorm", "init_rmsnorm", "rope", "sinusoidal_positions",
+           "init_embedding", "embed"]
+
+
+def sinusoidal_positions(length: int, d: int, device="cuda") -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings, (length, d) f32, on the
+    reference's timescale of 1e4."""
+    half = d // 2
+    freqs = torch.exp(true_divide(
+        -torch.log(torch.tensor(1e4, dtype=torch.float32))
+        * torch.arange(half, dtype=torch.float32), max(half - 1, 1))
+    ).to(device)
+    ang = (torch.arange(length, dtype=torch.float32, device=device)[:, None]
+           * freqs[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_rmsnorm(d: int, device="cuda") -> dict[str, torch.Tensor]:

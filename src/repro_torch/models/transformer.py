@@ -1,4 +1,4 @@
-"""Decoder-only LM, the dense, moe, ssm and hybrid families: init,
+"""Decoder-only LM, the dense, moe, vlm, ssm and hybrid families: init,
 prefill, dense-cache decode, paged decode and the paged speculative verify.
 
 Port of the decoder paths of ``repro/models/transformer.py``.  The
@@ -6,7 +6,10 @@ reference's ``lax.scan`` over stacked layer parameters becomes a Python
 loop over a list of per-layer parameter dicts.
 
 * dense -- pre-norm GQA attention (qk-norm where the config sets it) +
-  SwiGLU.
+  SwiGLU (or GELU where ``mlp_type`` says so).
+* vlm (pixtral) -- the dense layers, with precomputed patch embeddings
+  ``(B, n_img, d)`` prepended to the token embeddings at prefill: the
+  prompt is ``n_img + S_text`` positions long.
 * moe -- the same attention + a top-k expert layer (``models/moe.py``).
 * ssm (mamba2) -- Mamba2 blocks only, attention-free.
 * hybrid (zamba2) -- a Mamba2 backbone; after every ``attn_every`` layers a
@@ -16,7 +19,7 @@ loop over a list of per-layer parameter dicts.
 
 Caches (stacked over layers on axis 0, updated in place by decode):
 
-* dense, moe: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
+* dense, moe, vlm: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
 * ssm: ``SsmCache(conv (L, B, K-1, conv_dim), state (L, B, H, P, N))``;
 * hybrid: ``{"ssm": SsmCache(...), "attn": KVCache(k, v)}`` with KV leaves
   (G, B, S_max, Kv, hd), G the number of shared-block applications.
@@ -43,13 +46,19 @@ __all__ = ["init_lm", "init_lm_cache", "lm_prefill", "lm_decode",
            "lm_decode_paged", "lm_verify_paged", "ssm_dims", "hybrid_groups"]
 
 
+_ATTN_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("ssm", "hybrid") or (cfg.family in ("dense", "moe")
-                                           and cfg.mlp_type == "swiglu"):
+    if cfg.family in ("ssm", "hybrid") or (
+            cfg.family in _ATTN_FAMILIES
+            and cfg.mlp_type in ("swiglu", "gelu")):
         return
-    raise ValueError(f"the port serves the dense and moe swiglu, the ssm "
-                     f"and the hybrid families, not "
-                     f"{cfg.family!r}/{cfg.mlp_type!r}")
+    where = (" (the audio family is the encoder-decoder of "
+             "models/encdec.py)" if cfg.family == "audio" else "")
+    raise ValueError(f"the decoder-only LM serves the dense, moe, vlm, ssm "
+                     f"and hybrid families, not "
+                     f"{cfg.family!r}/{cfg.mlp_type!r}{where}")
 
 
 def ssm_dims(cfg: ArchConfig) -> Mamba2Dims:
@@ -83,6 +92,8 @@ def _init_layer(gen: torch.Generator, cfg: ArchConfig,
     if cfg.family == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff,
                                     cfg.n_experts, device)
+    elif cfg.mlp_type == "gelu":
+        p["mlp"] = mlp_mod.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, device)
     else:
         p["mlp"] = mlp_mod.init_swiglu(gen, cfg.d_model, cfg.d_ff, device)
     return p
@@ -129,7 +140,7 @@ def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
     state and conv history are f32 whatever ``dtype`` the KV cache has."""
     _check_family(cfg)
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _ATTN_FAMILIES:
         shape = (L, batch, s_max, cfg.n_kv, cfg.hd)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
@@ -169,13 +180,15 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _mlp_block(lp, x, cfg: ArchConfig, dense_kw):
-    """The layer's feed-forward half: SwiGLU, or the expert layer of the
-    moe family."""
+    """The layer's feed-forward half: SwiGLU or GELU, or the expert layer
+    of the moe family."""
     h = rmsnorm(lp["mlp_norm"], x)
     if cfg.family == "moe":
         return moe_mod.moe(lp["moe"], h, n_experts=cfg.n_experts,
                            top_k=cfg.top_k, capacity_factor=cfg.moe_cf,
                            dense_kw=dense_kw)
+    if cfg.mlp_type == "gelu":
+        return mlp_mod.gelu_mlp(lp["mlp"], h, dense_kw)
     return mlp_mod.swiglu(lp["mlp"], h, dense_kw)
 
 
@@ -249,19 +262,22 @@ def _read_logits(params, cfg, x, logits_at, dense_kw):
 
 def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                s_max: int | None = None, dense_kw=None,
-               cache_dtype=torch.bfloat16, logits_at=None):
+               cache_dtype=torch.bfloat16, logits_at=None, patches=None):
     """Process the prompt; return ``(logits (B, vocab), cache)`` with the
     cache of the family's layout (module docstring), KV padded to
     ``s_max`` rows.
 
     ``logits_at``: optional (B,) positions to read logits from instead of
-    the last row.
+    the last row.  ``patches`` (vlm): ``(B, n_img, d)`` embeddings put
+    before the tokens' (the positions count them).
     """
     _check_family(cfg)
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
-    B, S = tokens.shape
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(device=x.device, dtype=cd), x], dim=1)
+    B, S = x.shape[:2]
     s_max = S if s_max is None else s_max
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
@@ -369,8 +385,8 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     also the per-(slot, layer) in-kernel syndrome map ``(B, L)`` int32,
     which stays on the device.
     """
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"paged decode supports the dense and moe "
+    if cfg.family not in _ATTN_FAMILIES:
+        raise ValueError(f"paged decode supports the dense, moe and vlm "
                          f"families, not {cfg.family!r}")
     _check_family(cfg)
     dense_kw = dense_kw or {}
@@ -412,8 +428,8 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
     seen.  The layers are :func:`lm_decode_paged`'s with the token axis
     widened from 1 to V: every weight matmul runs over ``B * V`` rows.
     """
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"paged verify supports the dense and moe "
+    if cfg.family not in _ATTN_FAMILIES:
+        raise ValueError(f"paged verify supports the dense, moe and vlm "
                          f"families, not {cfg.family!r}")
     _check_family(cfg)
     dense_kw = dense_kw or {}

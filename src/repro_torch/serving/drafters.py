@@ -20,7 +20,9 @@ keeps between calls):
 
 * ``init_state(batch)`` -- the state for a new batch;
 * ``begin(state, slot_tokens, slot_tok0, prompts, tabs, s_max)`` -- at
-  admission, on the host: register prompts (the rns drafter prefills);
+  admission, on the host: register the admitted slots' prompts (the rns
+  drafter prefills ``prompts``, one row an admitted prompt, and scatters
+  them through ``tabs``; ``prompts`` None when every prefill was skipped);
 * ``propose(state, tok, pos, tab) -> (drafts (B, k), state)``;
 * ``observe(state, block, m, pos, tab) -> state`` -- the accepted block
   (``m`` tokens a slot, 0 for dead slots) was just emitted.
@@ -186,6 +188,8 @@ class RNSDraftModel:
         return {"kv": self.kv}
 
     def begin(self, state, slot_tokens, slot_tok0, prompts, tabs, s_max):
+        if prompts is None:      # every admitted prompt's prefill was
+            return state         # skipped: its shadow pages hold its KV
         _, cache = self.model.prefill(self.params, prompts, s_max=s_max,
                                       cache_dtype=self.cache_dtype)
         kvp.scatter_prefill(state["kv"], cache[0], cache[1], tabs,

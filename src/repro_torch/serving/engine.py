@@ -2,9 +2,9 @@
 
 Port of the paged and the dense paths of ``repro/serving/engine.py``.
 ``paged=None`` (the default) serves from the page pool where the model has
-a paged decode (the dense and moe families) and from the dense cache
-otherwise (the hybrid family; the ssm family from its SSM state alone, no
-KV); ``paged=False`` pins the dense cache.
+a paged decode (the dense, moe and vlm families) and from the dense cache
+otherwise (the hybrid and audio families; the ssm family from its SSM
+state alone, no KV); ``paged=False`` pins the dense cache.
 
 Paged: ``generate`` prefills right-padded prompts in one pass, scatters
 the prefill KV into the page pool (``_scatter``), then runs one decode
@@ -30,6 +30,14 @@ The fault layer (DESIGN.md §12 and §15) rides on the segment:
   weight planes (``numerics.api.scrub``) and redundant KV pools
   (``kv_pages.verify_pages``) are checked and repaired; the counts are read
   after the segment.
+
+Continuous batching (``serving/scheduler.py``) drives the paged pool
+through :meth:`ServingEngine.admit_prefill` (pages from the pool's prefix
+cache, one right-padded prefill over the admitted prompts that need one)
+and :meth:`ServingEngine.paged_segment` (one segment at per-slot positions
+and budgets, ended early by ``stop_on_finish`` when a slot finishes while
+requests wait).  ``generate`` resets the pool and owns it for the call; the
+scheduler never calls it in continuous mode.
 
 Speculative decoding (``spec="ngram:k"`` / ``"rns:k"``, paged and greedy
 only, no ``policy``): a drafter (``serving/drafters.py``) proposes ``k``
@@ -73,7 +81,7 @@ from repro_torch.serving.kv_pool import KVPagePool
 from repro_torch.serving.spec import SpecConfig, accept_blocks
 from repro_torch.serving.stats import EngineStats, RequestStats, SpecStats
 
-__all__ = ["ServingEngine", "GenerateResult"]
+__all__ = ["ServingEngine", "GenerateResult", "SegmentResult"]
 
 logger = logging.getLogger(__name__)
 
@@ -86,13 +94,34 @@ class GenerateResult:
     stats: RequestStats = dataclasses.field(default_factory=RequestStats)
 
 
+@dataclasses.dataclass
+class SegmentResult:
+    """One decode segment of the continuous scheduler."""
+    tokens: np.ndarray   # (B, n) tokens emitted this segment, all slots
+    steps: int           # decode (or verify) steps executed
+    done: np.ndarray     # (B,) bool: which slots had finished at exit
+    faults_detected: int = 0   # scrub detections before this segment
+    faults_corrected: int = 0  # ... repaired before it ran
+    # per-slot emitted counts: under speculative decoding slots advance by
+    # ragged accepted blocks, so row s holds counts[s] valid tokens (plain
+    # segments fill it with ``steps``)
+    counts: np.ndarray | None = None
+    proposed: int = 0    # draft tokens proposed this segment (spec only)
+    accepted: int = 0    # ... accepted by the greedy rule
+    # (B,) bool under policy="strict": slots that hold an unrepairable page;
+    # their tokens this segment are untrusted and the scheduler re-admits
+    # the request (prompt and trusted tokens) through prefill
+    needs_recompute: np.ndarray | None = None
+
+
 class ServingEngine:
     def __init__(self, model: Model, params: Any, *, batch: int, s_max: int,
                  page_size: int = 64, kv_format: str = "bf16",
                  num_pages: int | None = None, cache_dtype=torch.bfloat16,
                  device: torch.device | str = "cuda", scrub: str = "off",
                  policy: str = "off", quarantine_after: int = 3,
-                 paged: bool | None = None, spec=None):
+                 paged: bool | None = None, spec=None,
+                 prefix_cache: bool = True):
         """``paged``: ``None`` serves from the page pool when the model has
         a paged decode, else from the dense cache; ``False`` pins the
         dense cache (a ``True`` the model cannot serve falls back to it,
@@ -100,6 +129,10 @@ class ServingEngine:
         ``"rns4"`` or ``"rns8r"`` page storage (paged only).
         ``num_pages`` defaults to full capacity for ``batch`` slots plus
         the dump page.  ``device`` must be the model's device.
+        ``prefix_cache``: prompt pages shared between requests with the
+        same token prefix, and prefill skipped for a page-aligned prompt
+        seen whole before, on the scheduler's admission path
+        (:meth:`admit_prefill`).
 
         ``scrub``: ``"off"``, ``"decode"`` (check and repair every
         redundant weight plane and KV pool before each segment) or
@@ -144,7 +177,8 @@ class ServingEngine:
             cfg = model.cfg
             self.pool = KVPagePool(cfg.n_layers, num_pages, page_size,
                                    cfg.n_kv, cfg.hd, fmt=kv_format,
-                                   dtype=cache_dtype, device=dev)
+                                   dtype=cache_dtype, device=dev,
+                                   prefix_cache=prefix_cache)
             self.stats.pool = self.pool.stats
 
         self.spec = None
@@ -161,6 +195,7 @@ class ServingEngine:
                 self.spec, model, self.params, num_pages=self.pool.num_pages,
                 page_size=page_size, n_pmax=self.n_pmax,
                 cache_dtype=cache_dtype)
+            self._spec_state = self._drafter.init_state(batch)
             self.stats.spec = SpecStats()
 
         self._scrub_groups = 0      # rotate:k group count (0: everything)
@@ -270,9 +305,11 @@ class ServingEngine:
         return ((eos >= 0) & (tok[:, 0] == eos)).cpu().numpy()
 
     def _run_segment(self, tok0, tab, pos0, eos_np, eos, done_in, remaining,
-                     seg, temperature, generator):
+                     seg, temperature, generator, stop_on_finish=False):
         """Decode from ``tok0`` (already emitted) at per-slot positions
         ``pos0 + i``; step ``i`` samples the segment's token ``i``.
+        ``stop_on_finish`` ends the segment after the first step in which
+        a slot newly finishes (the scheduler then admits into it).
 
         Returns ``(buf (B, n) device tokens, n, done (B,) host bools, syn)``,
         with ``syn`` the ``(B, L)`` device map of syndrome counts folded
@@ -285,6 +322,7 @@ class ServingEngine:
         done = np.asarray(done_in, bool) | (remaining <= 0)
         if watch:
             done = done | self._eos_hit(tok0, eos)
+        fin0 = done
         syn = (torch.zeros((B, self.model.cfg.n_layers), dtype=torch.int32,
                            device=self.device) if with_syn else None)
         toks, tok, i = [], tok0, 0
@@ -305,13 +343,14 @@ class ServingEngine:
                 done = done | self._eos_hit(tok, eos)
             done = done | (i + 1 >= remaining)
             i += 1
-            halt = bool(done.all()) or i >= seg
+            halt = (bool(done.all()) or i >= seg
+                    or (stop_on_finish and bool((done & ~fin0).any())))
         buf = (torch.cat(toks, dim=1) if toks else
                torch.zeros((B, 0), dtype=torch.long, device=self.device))
         return buf, i, done, syn
 
     def _dispatch_segment(self, tok0, pos0, eos_vec, done0, remaining, tabs,
-                          seg, temperature, generator):
+                          seg, temperature, generator, stop_on_finish=False):
         """Run one decode segment under the scrub and the fault policy.
 
         ``tok0 (B, 1)`` device tokens already emitted; ``pos0``,
@@ -339,7 +378,7 @@ class ServingEngine:
                 generator.set_state(g_state)
             return self._run_segment(tok0, tab_dev, pos_dev, eos_np, eos_dev,
                                      done0, remaining, seg, temperature,
-                                     generator)
+                                     generator, stop_on_finish)
 
         buf, n, done, syn = run_once()
         self._last_scrub = self._drain_scrub(pending)
@@ -355,18 +394,23 @@ class ServingEngine:
 
     # -- the speculative segment ---------------------------------------------
 
-    def _spec_begin(self, prompts: torch.Tensor, tok: torch.Tensor,
-                    tabs: np.ndarray) -> None:
-        """Register the batch's prompts with the drafter (the rns drafter
-        prefills its shadow pages through the same block tables)."""
-        B, S = prompts.shape
-        p_np, t_np = prompts.cpu().numpy(), tok[:, 0].cpu().numpy()
+    def _spec_begin(self, slot_tokens: dict, slot_tok0: dict, prompts,
+                    tabs, s_max: int) -> None:
+        """Register newly admitted prompts with the drafter (spec= only):
+        the n-gram drafter seeds those slots' history rows, the rns drafter
+        prefills ``prompts`` and scatters its shadow pages through ``tabs``
+        (``prompts`` None: every prefill was skipped, and the shadow pages
+        already hold the prompts' draft KV)."""
+        if self._drafter is None:
+            return
         self._spec_state = self._drafter.begin(
-            self._drafter.init_state(B), {b: p_np[b] for b in range(B)},
-            {b: int(t_np[b]) for b in range(B)}, prompts,
-            torch.as_tensor(tabs, device=self.device), S)
+            self._spec_state, slot_tokens, slot_tok0, prompts,
+            None if tabs is None else torch.as_tensor(tabs,
+                                                      device=self.device),
+            s_max)
 
-    def _run_spec_segment(self, tok0, tab, pos0, eos, done, remaining, seg):
+    def _run_spec_segment(self, tok0, tab, pos0, eos, done, remaining, seg,
+                          stop_on_finish=False):
         """Speculative decode from ``tok0`` (already emitted) at per-slot
         positions ``pos0``, all operands device tensors.
 
@@ -375,7 +419,9 @@ class ServingEngine:
         written; rejected rows are rewritten by the next step at the same
         positions and masked by ``kv_len`` until then), and the greedy rule
         emits ``m`` tokens a live slot into ``buf`` at its own count.
-        Finished slots freeze.  Returns ``(buf (B, seg + 1), counts (B,),
+        Finished slots freeze; ``stop_on_finish`` ends the segment after
+        the first verify in which a slot newly finishes.  Returns
+        ``(buf (B, seg + 1), counts (B,),
         steps, done (B,), proposed, accepted)``, the counters on the device;
         row ``b`` holds ``counts[b]`` tokens (column ``seg`` takes the
         rejected rows' writes).
@@ -385,6 +431,7 @@ class ServingEngine:
         dev = self.device
         j = torch.arange(k + 1, device=dev)[None, :]
         done = done | ((eos >= 0) & (tok0[:, 0] == eos)) | (remaining <= 0)
+        fin0 = done
         buf = torch.zeros((B, seg + 1), dtype=torch.long, device=dev)
         cnt = torch.zeros(B, dtype=torch.long, device=dev)
         prop = torch.zeros((), dtype=torch.long, device=dev)
@@ -416,23 +463,29 @@ class ServingEngine:
                 n_acc, (m - 1).clamp(min=0)), 0).sum()
             it += 1
             # the one host read of a verify step: the halt test
-            halt = it >= seg or bool(done.all())
+            if stop_on_finish:
+                flags = torch.stack([done.all(), (done & ~fin0).any()])
+                halt = it >= seg or bool(flags.any())
+            else:
+                halt = it >= seg or bool(done.all())
         self._spec_state = state
         return buf, cnt, it, done, prop, acc
 
     def _dispatch_spec_segment(self, tok0, pos0, eos_vec, done0, remaining,
-                               tabs, seg):
+                               tabs, seg, stop_on_finish=False):
         """One speculative segment under the scrub: host arrays in, as
         :meth:`_dispatch_segment`.  Returns ``(tokens (B, n) host, steps,
-        done (B,), SpecStats)``; row ``b`` holds its ``counts[b]`` tokens
-        and zeros after them, ``n`` the largest count."""
+        done (B,), counts (B,), SpecStats)``; row ``b`` holds its
+        ``counts[b]`` tokens and zeros after them, ``n`` the largest
+        count."""
         dev = self.device
         as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
         pending = self._scrub_launch()
         buf, cnt, steps, done, prop, acc = self._run_spec_segment(
             tok0, as_dev(tabs, np.int32), as_dev(pos0, np.int64),
             as_dev(np.clip(eos_vec, -1, 2**31 - 1), np.int64),
-            as_dev(done0, bool), as_dev(remaining, np.int64), seg)
+            as_dev(done0, bool), as_dev(remaining, np.int64), seg,
+            stop_on_finish)
         self._last_scrub = self._drain_scrub(pending)
         self._last_recompute = np.zeros(tok0.shape[0], bool)
         counts = cnt.cpu().numpy()
@@ -448,7 +501,7 @@ class ServingEngine:
         sp.blocks += st.blocks
         self.stats.decode_steps += steps
         self.stats.decode_dispatches += steps
-        return buf[:, :n].cpu().numpy(), steps, done.cpu().numpy(), st
+        return buf[:, :n].cpu().numpy(), steps, done.cpu().numpy(), counts, st
 
     # -- fault escalation ----------------------------------------------------
 
@@ -584,22 +637,37 @@ class ServingEngine:
         """Prefill ``batch_inputs["tokens"]`` (B, S), then decode up to
         ``max_new`` tokens per slot (the first comes from the prefill).
 
+        The vlm family also takes ``batch_inputs["patches"]`` (B, n_img, d),
+        put before the tokens (the prompt is ``n_img + S`` positions); the
+        audio family takes ``batch_inputs["frames"]`` (B, S_enc, d) for its
+        encoder, ``tokens`` being the decoder prompt (served from the dense
+        cache: the decoder's ``dec_len`` bounds prompt and budget, and
+        ``s_max`` is the encoder memory's length).
+
         ``prompt_len``: position of the first generated token (the prompt
         length by default).  ``eos``: a scalar or per-slot ``(B,)`` stop
         token (negative entries never match); decoding halts once every
         slot is done, and slots marked False in ``active`` count as done
         from the start.  Without ``eos`` every slot runs ``max_new``.
         """
+        cfg = self.model.cfg
         tokens = torch.as_tensor(np.asarray(batch_inputs["tokens"]),
                                  device=self.device).long()
         B, S = tokens.shape
-        plen = S if prompt_len is None else int(prompt_len)
+        patches = batch_inputs.get("patches")
+        frames = batch_inputs.get("frames")
+        if cfg.is_encdec and frames is None:
+            raise ValueError(f"{cfg.name} needs batch_inputs['frames']")
+        n_img = 0 if patches is None else int(patches.shape[1])
+        plen = S + n_img if prompt_len is None else int(prompt_len)
         if B > self.batch:
             raise ValueError(f"{B} prompts for an engine of batch "
                              f"{self.batch}")
-        if plen + max_new > self.s_max:
+        limit, what = ((cfg.dec_len, "the decoder's dec_len") if
+                       cfg.is_encdec else (self.s_max, "s_max"))
+        if plen + max_new > limit:
             raise ValueError(f"prompt {plen} + max_new {max_new} exceeds "
-                             f"s_max {self.s_max}")
+                             f"{what} {limit}")
         if eos is not None:
             eos_vec = np.broadcast_to(np.asarray(eos, np.int64), (B,))
             done0 = (np.zeros(B, bool) if active is None
@@ -611,10 +679,13 @@ class ServingEngine:
         if self._drafter is not None and not greedy:
             raise ValueError("speculative decoding (spec=) is greedy "
                              "acceptance only; run with temperature=0")
+        if self._drafter is not None and patches is not None:
+            raise ValueError("spec= needs token prompts (the drafters "
+                             "condition on the token stream)")
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(
             self.params, tokens, s_max=self.s_max,
-            cache_dtype=self.cache_dtype)
+            cache_dtype=self.cache_dtype, patches=patches, frames=frames)
         prefill_logits = logits.to(torch.float32).cpu().numpy()
         t1 = time.perf_counter()
         tok = self._sample(logits, temperature, generator)
@@ -649,13 +720,17 @@ class ServingEngine:
         if self.policy != "strict":
             dense = None    # only a strict recompute scatters it again
         if self._drafter is not None:
-            self._spec_begin(tokens, tok, tabs)
+            p_np, t_np = tokens.cpu().numpy(), tok[:, 0].cpu().numpy()
+            self._spec_state = self._drafter.init_state(B)
+            self._spec_begin({b: p_np[b] for b in range(B)},
+                             {b: int(t_np[b]) for b in range(B)}, tokens,
+                             tabs, S)
         g_state = None if generator is None else generator.get_state()
         recomputes = 0
         spec_stats = None
         while True:
             if self._drafter is not None:
-                buf, steps, _, spec_stats = self._dispatch_spec_segment(
+                buf, steps, _, _, spec_stats = self._dispatch_spec_segment(
                     tok, np.full(B, plen), eos_vec, done0,
                     np.full(B, max_new - 1), tabs, max_new - 1)
             else:
@@ -692,3 +767,105 @@ class ServingEngine:
                 prefill_s=t1 - t0, decode_s=t2 - t1,
                 faults_detected=f_det, faults_corrected=f_cor,
                 recomputes=recomputes, spec=spec_stats))
+
+    # -- continuous batching: admission and segments --------------------------
+
+    @property
+    def spec_lookahead(self) -> int:
+        """Draft block size k (0 without spec=): the KV headroom an
+        admission reserves for a verify's overshoot."""
+        return self._drafter.k if self._drafter is not None else 0
+
+    @torch.no_grad()
+    def admit_prefill(self, slot_tokens: dict[int, np.ndarray],
+                      slot_total: dict[int, int]):
+        """Admit requests into slots: pages from ``pool.admit`` (full
+        prompt pages shared by token prefix), one right-padded prefill over
+        the admitted prompts that need one, their KV scattered into their
+        pages, and their logits remembered for later prefill skips.
+
+        ``slot_tokens``: slot -> prompt tokens; ``slot_total``: slot ->
+        bound on the request's final KV length (prompt and budget).  Returns
+        ``{slot: (prefill logits (vocab,) f32, AdmitInfo)}``; a page-aligned
+        prompt seen whole before takes its cached logits and no prefill.
+
+        The prefill runs over the prompts that need it alone, padded to the
+        longest of them (rows read their logits at their own last token;
+        causal attention keeps each prompt's rows independent of the
+        padding).  Pages shared from the prefix cache are not written
+        again: their table entries point at the dump page for the scatter.
+        """
+        if not self.paged:
+            raise ValueError("admit_prefill needs paged serving")
+        pool, dev = self.pool, self.device
+        infos = {s: pool.admit(np.asarray(slot_tokens[s]), slot_total[s])
+                 for s in sorted(slot_tokens)}
+        out = {s: (inf.cached_logits, inf) for s, inf in infos.items()
+               if inf.cached_logits is not None}
+        need = [s for s, inf in infos.items() if inf.cached_logits is None]
+        prompts = tabs = None
+        S = 0
+        if need:
+            lens = np.array([len(slot_tokens[s]) for s in need])
+            S = int(lens.max())
+            if S > self.n_pmax * self.page_size:
+                raise ValueError(f"prompt of {S} tokens exceeds the "
+                                 f"{self.n_pmax * self.page_size} positions "
+                                 f"of a slot")
+            prompts_np = np.zeros((len(need), S), np.int64)
+            tabs = np.zeros((len(need), self.n_pmax), np.int32)
+            for i, s in enumerate(need):
+                prompts_np[i, : lens[i]] = slot_tokens[s]
+                row = pool.tab_row(infos[s].pages, self.n_pmax)
+                row[infos[s].shared] = 0
+                tabs[i] = row
+            prompts = torch.as_tensor(prompts_np, device=dev)
+            logits, (k, v) = self.model.prefill(
+                self.params, prompts, s_max=S,
+                logits_at=torch.as_tensor(lens - 1, device=dev),
+                cache_dtype=self.cache_dtype)
+            logits = logits.to(torch.float32).cpu().numpy()
+            self._scatter(k, v, torch.as_tensor(tabs, device=dev))
+            del k, v
+            for i, s in enumerate(need):
+                pool.remember_logits(slot_tokens[s], logits[i])
+                out[s] = (logits[i], infos[s])
+        self._spec_begin(
+            {s: np.asarray(slot_tokens[s]) for s in slot_tokens},
+            {s: int(np.argmax(out[s][0])) for s in slot_tokens}, prompts,
+            tabs, S)
+        return out
+
+    @torch.no_grad()
+    def paged_segment(self, tok0, pos0, remaining, eos_vec, done0, tabs, *,
+                      seg: int, stop_on_finish: bool) -> SegmentResult:
+        """One greedy decode segment of the continuous scheduler.
+
+        ``tok0 (B, 1)``: each slot's last emitted token; ``pos0 (B,)``: the
+        position its KV row lands at; ``remaining (B,)``: the slot's budget
+        after ``tok0``; ``done0 (B,)``: slots that take no part;
+        ``tabs (B, n_pmax)``: the block tables.  ``stop_on_finish`` ends
+        the segment after the first step in which a slot newly finishes.
+        """
+        if not self.paged:
+            raise ValueError("paged_segment needs paged serving")
+        tok = torch.as_tensor(np.asarray(tok0), device=self.device
+                              ).long().reshape(-1, 1)
+        B = tok.shape[0]
+        remaining = np.asarray(remaining, np.int64)
+        prop = acc = 0
+        if self._drafter is not None:
+            buf, steps, done, counts, st = self._dispatch_spec_segment(
+                tok, pos0, eos_vec, done0, remaining, tabs, seg,
+                stop_on_finish)
+            prop, acc = st.proposed, st.accepted
+        else:
+            buf, steps, done = self._dispatch_segment(
+                tok, np.asarray(pos0, np.int32), eos_vec, done0, remaining,
+                tabs, seg, 0.0, None, stop_on_finish)
+            counts = np.full(B, steps, np.int64)
+        f_det, f_cor = self._last_scrub
+        return SegmentResult(tokens=buf, steps=steps, done=done,
+                             faults_detected=f_det, faults_corrected=f_cor,
+                             counts=counts, proposed=prop, accepted=acc,
+                             needs_recompute=self._last_recompute.copy())

@@ -1,6 +1,7 @@
-"""Serving telemetry (the counters of ``repro/serving/stats.py`` that the
-ported paged path keeps, the corruption counters of :class:`FaultStats`
-and the speculative counters of :class:`SpecStats` included)."""
+"""Serving telemetry (the counters of ``repro/serving/stats.py``: the
+pool's prefix-cache counters, the corruption counters of
+:class:`FaultStats`, the speculative counters of :class:`SpecStats` and the
+scheduler's per-request fields included)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,6 +33,9 @@ class PoolStats:
 
     pages_allocated: int = 0
     pages_freed: int = 0
+    prefix_hits: int = 0     # prompt pages served from the prefix cache
+    prefill_skips: int = 0   # whole-prompt cache hits (no prefill pass)
+    evictions: int = 0       # cached-free pages reclaimed
 
     def snapshot(self) -> "PoolStats":
         return dataclasses.replace(self)
@@ -69,12 +73,16 @@ class SpecStats:
 
 @dataclasses.dataclass
 class RequestStats:
-    """Per-generate() telemetry."""
+    """Per-request telemetry: one ``generate()`` batch, or one request of
+    the scheduler (``Request.stats``)."""
 
     decode_steps: int = 0        # decode steps this batch ran
     decode_dispatches: int = 0   # host-driven decode step calls
     pages_allocated: int = 0     # KV pages allocated for this batch
     pages_freed: int = 0         # KV pages released at the end
+    prefix_hits: int = 0         # prompt pages reused from the prefix cache
+    prefill_skipped: bool = False  # whole prompt cached: no prefill pass
+    latency_s: float = 0.0       # host clock: serve() entry -> request done
     prefill_s: float = 0.0       # host clock: prompt in -> prefill logits
     #                              on the host (the copy synchronizes)
     decode_s: float = 0.0        # host clock: prefill logits -> all tokens

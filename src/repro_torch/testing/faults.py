@@ -149,18 +149,19 @@ def inject_faults(engine, faults, *,
         return ledger
 
     def patched(tok0, pos0, eos_vec, done0, remaining, tabs, seg,
-                temperature, generator):
+                temperature, generator, stop_on_finish=False):
         if not armed["live"]:
             return orig(tok0, pos0, eos_vec, done0, remaining, tabs, seg,
-                        temperature, generator)
+                        temperature, generator, stop_on_finish)
         armed["live"] = False
         k = min(int(after_steps), int(seg))
         if k <= 0:
             _apply(engine, faults, log)
             return orig(tok0, pos0, eos_vec, done0, remaining, tabs, seg,
-                        temperature, generator)
+                        temperature, generator, stop_on_finish)
         buf1, steps1, done1 = orig(tok0, pos0, eos_vec, done0, remaining,
-                                   tabs, k, temperature, generator)
+                                   tabs, k, temperature, generator,
+                                   stop_on_finish)
         _apply(engine, faults, log)
         if steps1 >= int(seg) or bool(done1.all()):
             return buf1, steps1, done1
@@ -169,7 +170,7 @@ def inject_faults(engine, faults, *,
         buf2, steps2, done2 = orig(
             tok2, np.asarray(pos0) + steps1, eos_vec, done1,
             np.asarray(remaining) - steps1, tabs, int(seg) - steps1,
-            temperature, generator)
+            temperature, generator, stop_on_finish)
         return (np.concatenate([buf1, buf2], axis=1), steps1 + steps2,
                 done2)
 

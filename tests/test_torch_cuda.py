@@ -9,6 +9,7 @@ main path's full-width shapes.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -629,3 +630,110 @@ def test_ssm_serving_card_matches_cpu(gen):
     np.testing.assert_allclose(res["cuda"].prefill_logits,
                                res["cpu"].prefill_logits, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+
+
+@pytest.mark.parametrize("B,Sq,T,H,Kv,hd", [
+    (2, 300, 300, 12, 12, 64), (3, 8, 1500, 12, 12, 64),
+    (2, 1, 77, 4, 2, 64)])
+def test_flash_attention_kernel_bf16_non_causal_hd64(gen, B, Sq, T, H, Kv,
+                                                      hd):
+    """B2 without the causal mask at head_dim 64: whisper's encoder (Sq =
+    T) and cross-attention (a short decoder prompt against the encoder
+    memory)."""
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, T, Kv, hd, generator=gen, device="cuda").bfloat16()
+    out = fa.flash_attention_cuda(q, k, v, None, causal=False)
+    ref = fa.flash_attention_ref(q, k, v, None, causal=False)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 768, 51865), (64, 768, 51865),
+                                   (8, 3072, 1001), (300, 5120, 4097)])
+def test_rns_matmul_kernel_odd_columns(gen, M, K, N):
+    """B1 with an odd row stride (whisper's vocabulary): the byte-load path
+    on both schedules, bit for bit."""
+    a = torch.randint(-64, 65, (3, M, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-64, 65, (3, K, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    assert torch.equal(rm.rns_matmul_cuda(a, b, P21.moduli),
+                       rm.rns_matmul_ref(a, b, P21.moduli))
+
+
+def test_flash_decode_kernel_cross_memory(gen):
+    """B5 at whisper's shapes, hd 64: the self cache (T 448, one chunk)
+    and the cross memory (T 1500, every row valid, three chunks)."""
+    for T, lo in ((448, 9), (1500, 1500)):
+        q = torch.randn(4, 12, 64, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(4, T, 12, 64, generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn(4, T, 12, 64, generator=gen,
+                        device="cuda").bfloat16()
+        kv_len = torch.randint(lo, T + 1, (4,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        bk = min(512, T)
+        out = merge_decode_partials(*fa.flash_decode_cuda(q, k, v, kv_len,
+                                                          bk))
+        ref = merge_decode_partials(*fa.flash_decode_ref(q, k, v, kv_len,
+                                                         bk))
+        torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "pixtral-12b"])
+def test_vlm_audio_serving_card_matches_cpu(gen, arch):
+    """Reduced whisper (dense caches) and reduced pixtral (rns8 pages) under
+    rns: the card's prefill logits agree with the CPU's and its greedy
+    tokens are equal."""
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (3, 6))
+    n = 12 if cfg.is_encdec else cfg.n_img_tokens
+    extra = torch.as_tensor(rng.standard_normal((3, n, cfg.d_model)) * 0.1,
+                            dtype=torch.float32)
+    float_params = build_model(cfg, device="cpu").init(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        if cfg.is_encdec:
+            eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                                s_max=n, device=dev)
+            inputs = {"tokens": prompts, "frames": extra.to(dev)}
+        else:
+            eng = ServingEngine(model, _tree_to(float_params, dev), batch=3,
+                                s_max=6 + n + 7, page_size=8,
+                                kv_format="rns8", device=dev)
+            inputs = {"tokens": prompts, "patches": extra.to(dev)}
+        res[dev] = eng.generate(inputs, max_new=6)
+    np.testing.assert_allclose(res["cuda"].prefill_logits,
+                               res["cpu"].prefill_logits, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)
+
+
+def test_scheduler_card_matches_cpu(gen):
+    """The continuous scheduler on the reduced checkpoint (B 2, page 8,
+    rns8 pages): mid-decode admissions, a shared prefix and a skipped
+    prefill give the CPU's tokens and pool counters on the card."""
+    from repro_torch.serving.scheduler import Request, RequestScheduler
+
+    cfg = get_config("qwen3-8b").reduced()
+    tree = load_npz(CKPT)
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    specs = [(base, 5), (rng.integers(0, cfg.vocab, 9).astype(np.int32), 9),
+             (base, 4), (np.concatenate([base[:8], base[:3]]), 6),
+             (rng.integers(0, cfg.vocab, 4).astype(np.int32), 7)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        eng = ServingEngine(model, from_jax_params(tree, cfg, dev), batch=2,
+                            s_max=24, page_size=8, kv_format="rns8",
+                            device=dev)
+        res = RequestScheduler(eng).serve(
+            [Request(rid=i, tokens=t, max_new=m)
+             for i, (t, m) in enumerate(specs)])
+        out[dev] = ([r.result.tolist() for r in res],
+                    dataclasses.asdict(eng.pool.stats))
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1]["prefix_hits"] >= 3

@@ -74,15 +74,54 @@ def test_config_copies_match_reference(arch):
 
 
 def test_refused_families():
-    """The vlm and audio families and non-swiglu MLPs wait for their
-    slice."""
+    """Every family of the reference is served (the audio one by
+    ``models/encdec.py``); a family or an MLP the reference does not define
+    is refused, and the decoder-only LM refuses the audio family."""
+    from repro_torch.models import transformer
+
     base = get_config("yi-6b").reduced()
-    for kw in (dict(family="vlm"), dict(family="audio"),
-               dict(mlp_type="gelu"), dict(family="moe", mlp_type="gelu",
-                                           n_experts=4, top_k=2)):
+    for kw in (dict(family="rwkv"), dict(mlp_type="relu")):
         model = build_model(dataclasses.replace(base, **kw), device="cpu")
-        with pytest.raises(ValueError, match="the port serves"):
+        with pytest.raises(ValueError, match="serves"):
             model.init(0)
+    with pytest.raises(ValueError, match="encdec"):
+        transformer.init_lm(torch.Generator(), get_config(
+            "whisper-small").reduced(), device="cpu")
+    for kw in (dict(family="vlm"), dict(mlp_type="gelu")):
+        build_model(dataclasses.replace(base, **kw), device="cpu").init(0)
+
+
+def test_moe_ignores_mlp_type(trees):
+    """moe experts are SwiGLU whatever ``mlp_type`` says, in the reference
+    and in the port: a moe config with ``mlp_type="gelu"`` gives the
+    reference the same parameters as the swiglu one, and both packages the
+    same prefill logits, the port's equal to its swiglu config's."""
+    arch = "moonshot-v1-16b-a3b"
+    base = get_config(arch).reduced()
+    cfg = dataclasses.replace(base, mlp_type="gelu")
+    jm = jbuild_model(dataclasses.replace(jget_config(arch).reduced(),
+                                          mlp_type="gelu"), system="bns")
+    jtree = jtu.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    assert jtu.tree_structure(jtree) == jtu.tree_structure(trees(arch))
+    for a, b in zip(jtu.tree_leaves(jtree), jtu.tree_leaves(trees(arch))):
+        np.testing.assert_array_equal(a, b)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, PLEN)).astype(np.int32)
+    logits = []
+    for c in (cfg, base):
+        tm = build_model(c, system="bns", device="cpu")
+        tp = tm.prepare_params(from_jax_params(jtree, c, "cpu"))
+        logits.append(tm.prefill(tp, toks, s_max=PLEN + 1)[0].numpy())
+    np.testing.assert_array_equal(logits[0], logits[1])
+    prev = set_attn_impl("interpret")
+    try:
+        jl, _ = jm.prefill(jm.prepare_params(jtu.tree_map(jnp.asarray,
+                                                          jtree)),
+                           {"tokens": jnp.asarray(toks)}, s_max=PLEN + 1)
+    finally:
+        set_attn_impl(prev)
+    np.testing.assert_allclose(logits[0], np.asarray(jl), rtol=0,
+                               atol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
