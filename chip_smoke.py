@@ -24,8 +24,9 @@ Phases (each prints its lines; any failure raises and the exit code is not
 3. small   -- the quantizers give the same bits on the card as on the CPU,
    and the committed reduced qwen3-8b checkpoint served on the card and on
    the CPU (plain versions) gives prefill logits that agree.
-4. serve   -- qwen3-8b at full width (36 layers, random weights from seed 0)
-   under ``system="rns"`` with rns8 KV pages: batch 8, 256-token prompts,
+4. serve   -- qwen3-8b at full width with the depth cut to 18 of 36 layers
+   for time (random weights from seed 0) under ``system="rns"`` with rns8
+   KV pages: batch 8, 256-token prompts,
    64 new tokens, greedy.  Launch counters are reset just before and read
    just after, and must show every kernel on the path.
    serve-spec -- speculative decoding on that model, weights and prompts:
@@ -46,7 +47,8 @@ Phases (each prints its lines; any failure raises and the exit code is not
    the same tokens, exact launch counts, the first step's B3 launches
    against the plain version; prints requests/s, tokens/s and the p50 /
    p95 latency.
-5. serve-r -- the same serve on redundant residues: P21R2 weight planes,
+5. serve-r -- the same serve, depth cut to 12 of 36 layers for time, on
+   redundant residues: P21R2 weight planes,
    rns8r KV pages and ``policy="strict"``, with the paged decode's syndrome
    mode on every step.  The clean run must show zero syndromes and replays.
 6. faults -- the same engine under ``testing.faults.inject_faults``: (a) a
@@ -61,7 +63,9 @@ Phases (each prints its lines; any failure raises and the exit code is not
    planes, rns8 pages, batch 2, 16-token prompts, 8 new tokens, greedy,
    after its twin under ``system="rns"``.  Prefill logits and tokens must
    equal the twin's bit for bit; launch counts are exact.
-8. serve-dense -- qwen3-8b at full width and depth under ``system="rns"``
+8. serve-dense -- [serve]'s model and resident weights (qwen3-8b at full
+   width, 18 layers, under ``system="rns"``), run right after
+   [serve-sched],
    with ``paged=False`` (the dense bf16 cache, kernel B5), batch 8,
    256-token prompts, 64 new tokens, greedy, beside its twin on bf16 pages,
    both with the decode chunk set to the page size: prefill logits and
@@ -106,6 +110,26 @@ Phases (each prints its lines; any failure raises and the exit code is not
    launches of the first step (self cache and cross memory) held, and the
    prefill's B2 launches held in their order, the encoder's and the
    cross-attention's with ``causal=False``.
+
+15. train -- qwen3-8b at full width with the depth cut to 4 of 36 layers
+   (f32 parameters and moments), trained under ``system="rns"``: the
+   per-call residue matmul (int4 codes of float weights, planes made at
+   every call) with its straight-through f32 backward, remat, 4 AdamW
+   steps of 16 x 256 tokens in 2 micro-batches (B1 at M 2048), then the
+   same steps under ``system="bns"`` from the same weights.  Gates: every
+   B1 launch of the first step held against the plain version as it
+   returns; on layer 0's seven weights and the logits weight the per-call
+   ``dense`` equal to the prepared planes' bit for bit; exactly (2 x 7 x L
+   + 1) x 2 B1 launches a step and no other kernel; loss, grad norm and
+   every parameter finite after each step.  Prints the step times, the B1
+   time inside a step, the per-call weight encode timed by itself, the
+   peak memory and the losses.
+   train-small -- the reduced qwen3-8b on the card: the loss falls by more
+   than 1.0 over 30 steps; a run that fails before step 5 and restarts
+   from its checkpoint ends bit-identical to an uninterrupted one; the
+   sdrns step's loss and gradients equal the rns step's bit for bit, every
+   B6 launch held; ``ServingEngine(prepare=False)`` gives the prepared
+   engine's prefill logits and tokens.
 
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
@@ -164,6 +188,11 @@ HYBRID_MATMULS = [((3584, 14576), 81), ((7168, 3584), 81 + 13),
                   ((3584, 3584), 4 * 13), ((3584, 14336), 2 * 13),
                   ((14336, 3584), 13), ((3584, 32000), 1)]
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 256, 64
+# [serve] (and [serve-spec], [serve-sched], [serve-dense] on its model) and
+# [serve-r] (with [faults]): qwen3-8b at full width, depth cut for time
+# (at 36 layers the smoke took 1006 s of its 1200 s on an NVIDIA H100 80GB
+# HBM3 at 700 W whose host ran [serve]'s steps 1.4x slower than usual)
+SERVE_LAYERS, R_LAYERS = 18, 12
 # [serve-spec]: k draft tokens a verify (V = k + 1 rows a slot), and the new
 # tokens of each drafter's run.  The rns drafter runs k + 1 host-bound draft
 # steps a verify (3.6 s a verify on random weights, where it accepts
@@ -202,6 +231,12 @@ AUDIO_FRAMES, AUDIO_PROMPT, AUDIO_NEW = 1500, 8, 64
 # [serve-sched]: continuous serving of SCHED_N requests on [serve]'s model
 SCHED_N, SCHED_SPEC = 24, "ngram:4"
 DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
+# [train]: qwen3-8b at full width, depth cut to 4 of 36 layers for memory
+# (f32 parameters, gradients and two f32 moments: 16 B a parameter, ~22 GB
+# at 4 layers with the tied 622 M-parameter table, ~121 GB at 36); batch
+# 16 x 256 tokens in 2 micro-batches, so B1 runs at M 2048
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 256, 16, \
+    2, 4
 # kernel ms of the bodies B1-B8 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
 # row-parallel decode chunk, the packed K-parallel SD body, B1's two
@@ -410,6 +445,49 @@ def _int_mm_best(torch, timer, a, b, moduli, ref, what):
     return lib, layout
 
 
+def b1_shape(torch, timer, gen, mset, label, M, K, N):
+    """B1 at one shape on the planes of ``mset``, operands drawn over the
+    full centred range of its widest modulus: held bit for bit against the
+    plain version, then kernel, plain version, ``_int_mm`` and a bf16
+    ``bmm`` yardstick timed beside the bound (see ``check_rns_matmul``)."""
+    from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+
+    C, h = mset.num_channels, max(mset.moduli) // 2
+    a = torch.randint(-h, h + 1, (C, M, K), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-h, h + 1, (C, K, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    out = rns_matmul_cuda(a, b, mset.moduli)
+    ref = rns_matmul_ref(a, b, mset.moduli)
+    err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"rns_matmul[{label}] M={M} K={K} N={N}: "
+                             f"kernel differs from the plain version "
+                             f"({err})")
+    pad = max(M, 32)
+    lib, layout = _int_mm_best(torch, timer, a, b, mset.moduli, ref,
+                               f"rns_matmul[{label}] M={M} K={K} N={N}")
+    del out, ref
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    ms = timer(lambda: rns_matmul_cuda(a, b, mset.moduli), 10)
+    plain = timer(lambda: rns_matmul_ref(a, b, mset.moduli), 3)
+    bmm = timer(lambda: torch.bmm(ab, bb), 10)
+    nbytes = C * (M * K + K * N + 4 * M * N)
+    bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+    key = f"rns_matmul[{label},{M},{K},{N}]"
+    padded = f", M padded to {pad}" if pad != M else ""
+    print(f"[kernels] rns_matmul[{label}] C={C} M={M} K={K} N={N} "
+          f"operands in [-{h}, {h}]: bit-exact; kernel_ms={ms:.4f}"
+          f"{earlier(key)} plain_ms={plain:.4f} library_ms(_int_mm"
+          f"{padded}, {layout})={lib:.4f} yardstick bf16_bmm_ms="
+          f"{bmm:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+    del a, b, ab, bb
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                yardstick_bf16_bmm_ms=bmm, bound_ms=bms, bound_by=by,
+                err=err)
+
+
 def check_rns_matmul(torch, timer, gen, mset, label, step,
                      prefill_m=SERVE_B * SERVE_PROMPT):
     """B1 on the planes of ``mset`` at one model's shapes, operands drawn
@@ -425,47 +503,12 @@ def check_rns_matmul(torch, timer, gen, mset, label, step,
     copy made outside the timed region, the faster layout kept and
     printed), and a bf16 ``bmm`` of the same operands as a yardstick (not
     the same function)."""
-    from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
-
-    C, h = mset.num_channels, max(mset.moduli) // 2
-    per = {}
+    C = mset.num_channels
     shapes = [(M, K, N) for M in (8, prefill_m)
               for (K, N), _ in step[:-1]]
     shapes.append((8, *step[-1][0]))
-    for M, K, N in shapes:
-        a = torch.randint(-h, h + 1, (C, M, K), generator=gen, device="cuda",
-                          dtype=torch.int32).to(torch.int8)
-        b = torch.randint(-h, h + 1, (C, K, N), generator=gen, device="cuda",
-                          dtype=torch.int32).to(torch.int8)
-        out = rns_matmul_cuda(a, b, mset.moduli)
-        ref = rns_matmul_ref(a, b, mset.moduli)
-        err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
-        if err != 0:
-            raise AssertionError(f"rns_matmul[{label}] M={M} K={K} N={N}: "
-                                 f"kernel differs from the plain version "
-                                 f"({err})")
-        pad = max(M, 32)
-        lib, layout = _int_mm_best(torch, timer, a, b, mset.moduli, ref,
-                                   f"rns_matmul[{label}] M={M} K={K} N={N}")
-        del out, ref
-        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        ms = timer(lambda: rns_matmul_cuda(a, b, mset.moduli), 10)
-        plain = timer(lambda: rns_matmul_ref(a, b, mset.moduli), 3)
-        bmm = timer(lambda: torch.bmm(ab, bb), 10)
-        nbytes = C * (M * K + K * N + 4 * M * N)
-        bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
-        key = f"rns_matmul[{label},{M},{K},{N}]"
-        per[(M, K, N)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              yardstick_bf16_bmm_ms=bmm, bound_ms=bms,
-                              bound_by=by, err=err)
-        padded = f", M padded to {pad}" if pad != M else ""
-        print(f"[kernels] rns_matmul[{label}] C={C} M={M} K={K} N={N} "
-              f"operands in [-{h}, {h}]: bit-exact; kernel_ms={ms:.4f}"
-              f"{earlier(key)} plain_ms={plain:.4f} library_ms(_int_mm"
-              f"{padded}, {layout})={lib:.4f} yardstick bf16_bmm_ms="
-              f"{bmm:.4f} bound_ms={bms:.4f} ({by})", flush=True)
-        del a, b, ab, bb
-        torch.cuda.empty_cache()
+    per = {(M, K, N): b1_shape(torch, timer, gen, mset, label, M, K, N)
+           for M, K, N in shapes}
     n = sum(c for _, c in step)
     keys = ("ms", "plain_ms", "library_ms", "yardstick_bf16_bmm_ms",
             "bound_ms")
@@ -1459,8 +1502,8 @@ def serve_full_width(torch):
     from repro_torch.models.api import build_model, resident_bytes
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("qwen3-8b")
-    B, plen, max_new = 8, 256, 64
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=SERVE_LAYERS)
+    B, plen, max_new = SERVE_B, SERVE_PROMPT, SERVE_NEW
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, system="rns", device="cuda")
@@ -1514,14 +1557,14 @@ def _pool_leaves(kv):
 
 def serve_spec(torch, model, params, prompts, plain):
     """Phase [serve-spec]: speculative decoding on [serve]'s model, weights
-    and prompts (qwen3-8b at full width and depth, P21 planes, rns8 pages,
-    B 8, 256-token prompts; ``plain`` its greedy tokens).
+    and prompts (qwen3-8b at full width, SERVE_LAYERS deep, P21 planes,
+    rns8 pages, B 8, 256-token prompts; ``plain`` its greedy tokens).
 
     1. One ``verify_paged`` call of V = k + 1 tokens a slot (the first V of
        ``plain``) against V ``decode_paged`` steps on a copy of the same
        pool: logits rows and final page bytes equal bit for bit, the rows'
-       argmax equal [serve]'s next tokens, and the verify launches B1 253
-       times (M 40) and B3 36 times (40 folded rows).
+       argmax equal [serve]'s next tokens, and the verify launches B1 7 L +
+       1 times (M 40) and B3 L times (40 folded rows).
     2. ``spec="ngram:4"`` and ``spec="rns:4"`` (the draft derived from the
        target's planes: P16 at 3 bits) for ``SPEC_NEW`` tokens each: tokens
        equal ``plain``'s (0 differ), launch counts exact per verify and per
@@ -1754,13 +1797,14 @@ def _serve_requests(engine, specs):
 
 def serve_sched(torch, model, params):
     """Phase [serve-sched]: continuous serving on [serve]'s model and
-    weights (qwen3-8b at full width and depth, P21 planes, rns8 pages, B 8,
-    page 64): the traffic of ``_sched_traffic``, one independent request
-    carrying an EOS taken from its solo run.  Gates: every request retires
-    with its budget or at its EOS; a request is admitted while another
-    slot is mid-decode; the pool's prefix hits and prefill skips equal what
-    the admission order implies (``_expected_prefix``), with no eviction;
-    every page ends free or cached-free; the shortest, the longest, a
+    weights (qwen3-8b at full width, SERVE_LAYERS deep, P21 planes, rns8
+    pages, B 8, page 64): the traffic of ``_sched_traffic``, one
+    independent request carrying an EOS taken from its solo run.  Gates:
+    every request retires with its budget or at its EOS; a request is
+    admitted while another slot is mid-decode; the pool's prefix hits and
+    prefill skips equal what the admission order implies
+    (``_expected_prefix``), with no eviction; every page ends free or
+    cached-free; the shortest, the longest, a
     prefix-sharing and a prefill-skipping request re-served alone give
     their tokens bit for bit; the same requests under ``spec="ngram:4"``
     give the same tokens; launch counts equal what the admissions and steps
@@ -1938,8 +1982,8 @@ def serve_sched(torch, model, params):
 
 
 def serve_redundant(torch):
-    """Phases 5 and 6: qwen3-8b at full width on P21R2 / rns8r / strict,
-    clean and then under injected faults."""
+    """Phases 5 and 6: qwen3-8b at full width, R_LAYERS deep, on P21R2 /
+    rns8r / strict, clean and then under injected faults."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1949,8 +1993,8 @@ def serve_redundant(torch):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.testing.faults import FaultSpec, inject_faults
 
-    cfg = get_config("qwen3-8b")
-    B, plen, max_new = 8, 256, 64
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=R_LAYERS)
+    B, plen, max_new = SERVE_B, SERVE_PROMPT, SERVE_NEW
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, system="rns", rns_mset=P21R2, device="cuda")
@@ -2367,31 +2411,25 @@ def _finite_wrap(torch, fn):
     return wrapped, flag
 
 
-def serve_dense(torch):
-    """Phase 8: qwen3-8b at full width and depth under system="rns" with
-    paged=False: the dense bf16 cache and kernel B5, then its twin on bf16
-    pages of 64 rows; both with the decode chunk set to the page size, so
-    both emit the same per-chunk partials (the reference's own pin,
-    tests/test_paged_serving.py)."""
+def serve_dense(torch, model, params):
+    """Phase 8: [serve]'s qwen3-8b (full width, SERVE_LAYERS deep,
+    system="rns", its model and resident weights) with paged=False: the
+    dense bf16 cache and
+    kernel B5, then its twin on bf16 pages of 64 rows; both with the
+    decode chunk set to the page size, so both emit the same per-chunk
+    partials (the reference's own pin, tests/test_paged_serving.py)."""
     import numpy as np
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.models.api import resident_bytes
     from repro_torch.numerics.attention import set_decode_block
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("qwen3-8b")
+    cfg = model.cfg
     B, plen, max_new, ps = SERVE_B, SERVE_PROMPT, SERVE_NEW, DENSE_BK
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = build_model(cfg, system="rns", device="cuda")
-    params = model.init(SEED)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
     kw = dict(batch=B, s_max=plen + max_new + 1, device="cuda")
     engine = ServingEngine(model, params, paged=False, **kw)
-    del params
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (B, plen)).astype(np.int32)
     L = cfg.n_layers
@@ -2414,8 +2452,8 @@ def serve_dense(torch):
     st = res.stats
     cache_bytes = 2 * L * B * kw["s_max"] * cfg.n_kv * cfg.hd * 2
     print(f"[serve-dense] qwen3-8b L={L} d={cfg.d_model} system=rns "
-          f"paged=False (dense bf16 cache, decode chunk {ps}) B={B} prompt="
-          f"{plen} new={max_new}: init_s={t_init:.2f} prefill_s="
+          f"paged=False (dense bf16 cache, decode chunk {ps}; [serve]'s "
+          f"model and weights) B={B} prompt={plen} new={max_new}: prefill_s="
           f"{st.prefill_s:.3f} decode_s={st.decode_s:.3f} decode_tok_s="
           f"{B * steps / st.decode_s:.2f} step_ms="
           f"{1e3 * st.decode_s / steps:.1f}", flush=True)
@@ -3051,6 +3089,316 @@ def serve_audio(torch, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training
+# ---------------------------------------------------------------------------
+
+
+def _timed_b1(torch, run):
+    """``run()`` with every B1 launch bracketed by CUDA events: returns
+    ``run()``'s result and the launches' summed device ms."""
+    from repro_torch.numerics import registry
+
+    kernel = registry.get_impl("rns_matmul", "cuda")
+    events = []
+
+    def launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    registry.register_impl("rns_matmul", "cuda", launch)
+    try:
+        out = run()
+    finally:
+        registry.register_impl("rns_matmul", "cuda", kernel)
+    torch.cuda.synchronize()
+    return out, sum(s.elapsed_time(e) for s, e in events)
+
+
+def _all_finite(torch, tree):
+    from repro_torch.train.tree import tree_leaves
+
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    for x in tree_leaves(tree):
+        flag.logical_and_(torch.isfinite(x).all())
+    return bool(flag)
+
+
+def train_full_width(torch):
+    """Phase 15: qwen3-8b at full width, depth cut to TRAIN_LAYERS, trained
+    under system="rns" (int4 codes on P21 planes made per call, the
+    straight-through f32 backward) for TRAIN_STEPS AdamW steps of
+    TRAIN_MICRO micro-batches, then the same steps under system="bns" from
+    the same weights as a yardstick."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=TRAIN_LAYERS)
+    L, n = cfg.n_layers, TRAIN_MICRO
+    M = TRAIN_BATCH // n * TRAIN_SEQ
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    opt = OptConfig(peak_lr=1e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    per_step = (2 * 7 * L + 1) * n      # forward, remat's recompute, logits
+    label = "train"
+    out = {}
+    for system in ("rns", "bns"):
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, system=system, device="cuda")
+        params = model.init(SEED, prepare=False)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state = init_opt_state(params, opt)
+        torch.cuda.synchronize()
+        if system == "rns":
+            enc_ms = _train_encode_and_gate(torch, params, M)
+        step = make_train_step(model, opt, n)
+        want = dict(NO_LAUNCHES, rns_matmul=per_step if system == "rns"
+                    else 0)
+        losses, times, b1_ms, total = [], [], [], dict(NO_LAUNCHES)
+        for i in range(TRAIN_STEPS):
+            batch = pipe.batch_at(i)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if system == "rns" and i == 0:
+                (params, state, met), held = hold_launches(
+                    held_checks("rns_matmul"),
+                    lambda: step(params, state, batch))
+            elif system == "rns":
+                (params, state, met), ms = _timed_b1(
+                    torch, lambda: step(params, state, batch))
+                b1_ms.append(ms)
+            else:
+                params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = kernels.launch_counts()
+            if counts != want:
+                raise AssertionError(f"{label} {system} step {i}: launch "
+                                     f"counts {counts}, expected {want}")
+            total = {k: total[k] + counts[k] for k in total}
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            if not (np.isfinite(loss) and np.isfinite(gnorm)
+                    and _all_finite(torch, params)):
+                raise AssertionError(f"{label} {system} step {i}: loss "
+                                     f"{loss}, grad_norm {gnorm} or a "
+                                     f"parameter not finite")
+            losses.append(loss)
+            print(f"[{label}] {system} step {i}: loss={loss:.6f} grad_norm="
+                  f"{gnorm:.4f} lr={float(met['lr']):.3e} step_s="
+                  f"{times[-1]:.3f}"
+                  + (f" B1_ms={b1_ms[-1]:.3f}" if b1_ms and i else ""),
+                  flush=True)
+            if system == "rns" and i == 0:
+                check_held(held, {"rns_matmul": per_step}, label,
+                           "the first rns step")
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.mean(times[1:])
+        print(f"[{label}] qwen3-8b L={L} d={cfg.d_model} vocab={cfg.vocab} "
+              f"system={system} batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in "
+              f"{n} micro-batches (M={M}), remat, f32 params and moments "
+              f"({n_params} parameters): step_s={step_s:.3f} (mean of steps "
+              f"1-{TRAIN_STEPS - 1}; step 0 {times[0]:.3f}) "
+              f"max_memory_allocated={peak} launches {json.dumps(total)}",
+              flush=True)
+        out[system] = dict(step_s=step_s, losses=losses, peak=peak,
+                           counts=total, times=times)
+        if system == "rns":
+            b1 = statistics.mean(b1_ms)
+            enc = n * (2 * enc_ms["layers"] + enc_ms["logits"])
+            print(f"[{label}] rns step: B1 {b1:.3f} ms in {per_step} launches "
+                  f"({100 * b1 / 1e3 / step_s:.2f} % of the step); the "
+                  f"per-call weight encode, timed by itself ({n} x (2 x "
+                  f"{7 * L} layer weights + the logits weight)) {enc:.3f} ms "
+                  f"({100 * enc / 1e3 / step_s:.2f} %)", flush=True)
+            out[system].update(b1_ms=b1, encode_ms=enc)
+        del model, params, state, step, met
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[{label}] rns step_s / bns step_s = "
+          f"{out['rns']['step_s'] / out['bns']['step_s']:.3f}; loss rns "
+          f"{out['rns']['losses']} bns {out['bns']['losses']}", flush=True)
+    return out
+
+
+def _train_encode_and_gate(torch, params, M):
+    """Gate (b): on layer 0's seven weights and the tied logits weight,
+    ``dense`` of the float weight (the per-call path) equals ``dense`` of
+    its prepared planes bit for bit at M rows; and each weight's per-call
+    encode (quantize, then residue planes) timed by itself."""
+    from repro_torch.models import linear
+    from repro_torch.quant import residency
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    lp = params["layers"][0]
+    named = [(k, lp["attn"][k]["w"]) for k in ("wq", "wk", "wv", "wo")]
+    named += [(k, lp["mlp"][k]["w"]) for k in ("w_gate", "w_up", "w_down")]
+    named.append(("logits", params["embed"]["table"].T))
+    kw = dict(system="rns", compute_dtype=torch.bfloat16)
+    enc = {}
+    with torch.no_grad():
+        for name, w in named:
+            x = torch.randn(M, w.shape[0], generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            per_call = linear.dense({"w": w}, x, **kw)
+            prepared = linear.dense(residency.prepare_dense({"w": w},
+                                                            system="rns"),
+                                    x, **kw)
+            if not torch.equal(per_call, prepared):
+                raise AssertionError(f"train: the per-call dense of {name} "
+                                     f"{tuple(w.shape)} differs from the "
+                                     f"prepared one")
+            del x, per_call, prepared
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            residency.prepare_weight(w, system="rns")
+            start.record()
+            for _ in range(3):
+                residency.prepare_weight(w, system="rns")
+            end.record()
+            end.synchronize()
+            enc[name] = start.elapsed_time(end) / 3
+    print(f"[train] per-call dense equals the prepared planes' bit for bit "
+          f"at M={M} on layer 0's seven weights and the logits weight; "
+          f"per-call encode ms "
+          f"{json.dumps({k: round(v, 4) for k, v in enc.items()})}",
+          flush=True)
+    return {"layers": TRAIN_LAYERS * sum(v for k, v in enc.items()
+                                         if k != "logits"),
+            "logits": enc["logits"]}
+
+
+def train_small(torch):
+    """Phase 15b: the reduced qwen3-8b on the card under rns: the loss falls
+    over 30 steps on the learnable stream; a run that fails before step 5
+    and restarts from its checkpoint ends bit-identical to an
+    uninterrupted one; the sdrns step equals the rns step bit for bit with
+    B6 launched and held; prepare=False serving gives the prepared
+    engine's logits and tokens."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.sdrns_matmul import sdrns_matmul_ref
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train.ft import (FtConfig, SimulatedFailure,
+                                      run_training)
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import tree_leaves
+
+    label = "train-small"
+    cfg = get_config("qwen3-8b").reduced()
+    model = build_model(cfg, system="rns", device="cuda")
+    opt = OptConfig(peak_lr=1e-2, warmup_steps=3, total_steps=30)
+    pipe = TokenPipeline(cfg.vocab, 64, 8, seed=SEED)
+
+    def fresh():
+        params = model.init(SEED, prepare=False)
+        return {"params": params, "opt_state": init_opt_state(params, opt)}
+
+    step = make_train_step(model, opt, 1)
+    state = fresh()
+    p, o = state["params"], state["opt_state"]
+    losses = []
+    for i in range(30):
+        p, o, met = step(p, o, pipe.batch_at(i))
+        losses.append(float(met["loss"]))
+    first, last = losses[0], statistics.mean(losses[-5:])
+    print(f"[{label}] reduced qwen3-8b rns, 30 steps, batch 8 x seq 64, lr "
+          f"1e-2: loss {first:.4f} -> mean of the last 5 {last:.4f}; every "
+          f"3rd {[round(x, 4) for x in losses[::3]]}", flush=True)
+    if not (np.isfinite(losses).all() and last < first - 1.0):
+        raise AssertionError(f"{label}: the loss did not fall by 1.0 "
+                             f"({first} -> {last})")
+
+    def run(d, failure_at=None):
+        fcfg = FtConfig(ckpt_dir=d, total_steps=8, ckpt_every=2,
+                        failure_at=failure_at, log_fn=lambda s: None)
+        try:
+            return run_training(init_state=fresh, train_step=step,
+                                batch_at=pipe.batch_at, cfg=fcfg)
+        except SimulatedFailure:
+            fcfg.failure_at = None
+            return run_training(init_state=fresh, train_step=step,
+                                batch_at=pipe.batch_at, cfg=fcfg)
+
+    with tempfile.TemporaryDirectory() as d:
+        whole = run(os.path.join(d, "a"))
+        again = run(os.path.join(d, "b"), failure_at=5)
+    leaves = [tree_leaves({k: r[k] for k in ("params", "opt_state")})
+              for r in (whole, again)]
+    same = all(torch.equal(a, b) for a, b in zip(*leaves))
+    print(f"[{label}] failure before step 5, restart from the step-4 "
+          f"checkpoint: parameters, moments and step equal to an "
+          f"uninterrupted run's bit for bit {same} ({len(leaves[0])} "
+          f"leaves); losses after the restart {again['history']}",
+          flush=True)
+    if not same or again["history"] != whole["history"][4:]:
+        raise AssertionError(f"{label}: the restarted run differs")
+
+    batch = TokenPipeline(cfg.vocab, 16, 4, seed=SEED + 1).batch_at(0)
+    params = model.init(SEED, prepare=False)
+    res = {}
+    for system in ("rns", "sdrns"):
+        m = build_model(cfg, system=system, device="cuda")
+        if system == "rns":
+            res[system] = loss_and_grads(m, params, batch)
+            continue
+
+        def b6(out, a, b, ws):
+            return float((out.long() - sdrns_matmul_ref(a, b, ws).long()
+                          ).abs().max())
+
+        res[system], held = hold_launches(
+            {"sdrns_matmul": b6}, lambda: loss_and_grads(m, params, batch))
+        n_b6, worst = held["sdrns_matmul"]
+        print(f"[{label}] sdrns step: {n_b6} B6 launches (M 64) against the "
+              f"plain version on their own inputs, max_abs_err={worst}",
+              flush=True)
+        if n_b6 != 7 * cfg.n_layers + 1 or worst != 0:
+            raise AssertionError(f"{label}: B6 launched {n_b6} times or "
+                                 f"differs from its plain version")
+    (l0, c0), g0 = res["rns"]
+    (l1, c1), g1 = res["sdrns"]
+    same = (torch.equal(l0, l1) and torch.equal(c0, c1) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(g0),
+                                          tree_leaves(g1))))
+    print(f"[{label}] sdrns loss and every gradient equal rns's bit for bit "
+          f"{same} (loss {float(l0):.6f})", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: sdrns differs from rns")
+
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (3, 8)).astype(np.int32)
+    gens = [ServingEngine(model, params, batch=3, s_max=17, page_size=8,
+                          kv_format="rns8", device="cuda", prepare=prep
+                          ).generate({"tokens": prompts}, max_new=8)
+            for prep in (True, False)]
+    same_logits = np.array_equal(gens[0].prefill_logits,
+                                 gens[1].prefill_logits)
+    same_tokens = np.array_equal(gens[0].tokens, gens[1].tokens)
+    print(f"[{label}] ServingEngine(prepare=False), the per-call path: "
+          f"prefill logits bit-identical to the prepared engine's "
+          f"{same_logits}, tokens equal {same_tokens}", flush=True)
+    if not (same_logits and same_tokens):
+        raise AssertionError(f"{label}: prepare=False serving differs")
+
+
 def main() -> int:
     # [serve-moe] makes and encodes 38 layers of 2.2 GB f32 expert stacks one
     # after another beside their planes: fixed-size segments fragment (out
@@ -3143,6 +3491,12 @@ def main() -> int:
     rm_p = check_rns_matmul(torch, timer, g6, P21, "pixtral",
                             PIXTRAL_MATMULS,
                             prefill_m=SERVE_B * (1024 + VLM_TEXT))
+    # B1 at the logits shape of a training micro-batch (M 2048); the layers'
+    # M 2048 shapes are [serve]'s prefill shapes above
+    m_train = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    rm_tl = b1_shape(torch, timer,
+                     torch.Generator(device="cuda").manual_seed(SEED + 7),
+                     P21, "train", m_train, *LOGITS)
     del timer
     torch.cuda.empty_cache()
     print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
@@ -3152,18 +3506,20 @@ def main() -> int:
     counts, ctx = phase("serve", serve_full_width, torch)
     spec = phase("serve-spec", serve_spec, torch, *ctx)
     sched = phase("serve-sched", serve_sched, torch, *ctx[:2])
+    counts_dense = phase("serve-dense", serve_dense, torch, *ctx[:2])
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
     counts_r = phase("serve-r + faults", serve_redundant, torch)
     counts_sd = phase("serve-sd", serve_sd, torch, smi)
-    counts_dense = phase("serve-dense", serve_dense, torch)
     counts_hy = phase("serve-hybrid", serve_hybrid, torch, smi)
     counts_cfg = phase("serve-configs", serve_configs, torch, smi)
     counts_ssm = phase("serve-ssm", serve_ssm, torch, smi)
     counts_moe = phase("serve-moe", serve_moe, torch, smi)
     counts_vlm = phase("serve-vlm", serve_vlm, torch, smi)
     counts_audio = phase("serve-audio", serve_audio, torch, smi)
+    train = phase("train", train_full_width, torch)
+    phase("train-small", train_small, torch)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -3205,6 +3561,7 @@ def main() -> int:
          "launches_serve_sched": sched["counts"][name],
          "launches_serve_vlm": counts_vlm[name],
          "launches_serve_audio": counts_audio[name],
+         "launches_train": train["rns"]["counts"][name],
          **{k: r[k] for k in fixed},
          **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
         for name, source, rep, r in entries]}
@@ -3243,6 +3600,26 @@ def main() -> int:
     for key in ("whisper_self", "whisper_cross"):
         line["kernels"][4][key] = dict(
             fd_new[key], launches=counts_audio["flash_decode"])
+    # [train]: one rns step's B1 launches at M 2048 (each layer shape 2 x L
+    # x n_micro times, the logits n_micro times): the L2-flushed per-shape
+    # times of [kernels] summed over them, and the launches' device time
+    # measured inside the steps
+    L, n = TRAIN_LAYERS, TRAIN_MICRO
+    step_shapes = [(rm["shapes"][f"{m_train},{K},{N}"], c * 2 * L * n)
+                   for (K, N), c in LAYER_MATMULS] + [(rm_tl, n)]
+    line["kernels"][0]["train"] = dict(
+        {k: sum(r[k] * c for r, c in step_shapes)
+         for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by="operations",
+        ms_in_step=train["rns"]["b1_ms"],
+        max_abs_err=rm_tl["err"],
+        launches=train["rns"]["counts"]["rns_matmul"],
+        at=f"one [train] step: {sum(c for _, c in step_shapes)} launches "
+           f"at M={m_train}; ms, plain_ms, library_ms and bound_ms sum the "
+           f"per-shape medians (L2 flushed), ms_in_step is their device "
+           f"time inside the timed steps",
+        step_s={k: v["step_s"] for k, v in train.items()},
+        encode_ms=train["rns"]["encode_ms"])
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
     print(json.dumps(line))

@@ -11,7 +11,9 @@ the moe family's router and ``(E, K, N)`` expert stacks and the ssm
 family's Mamba2 layers are per-layer leaves like any other).  bfloat16
 leaves (a ``param_dtype="bfloat16"`` config such as grok-1-314b) come
 across as float32, which holds them exactly.  Residue preparation then
-runs in the port (``Model.prepare_params``).
+runs in the port (``Model.prepare_params``).  :func:`to_jax_params` is the
+inverse, for a float tree or anything that mirrors one (the optimizer's
+moments).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["load_npz", "from_jax_params"]
+__all__ = ["load_npz", "from_jax_params", "to_jax_params"]
 
 
 def load_npz(path: str) -> dict[str, Any]:
@@ -81,3 +83,25 @@ def from_jax_params(np_tree: dict[str, Any], cfg: ArchConfig,
         out[key] = [_to_torch(_layer(np_tree[key], i), device)
                     for i in range(n)]
     return out
+
+
+def to_jax_params(tree: Any) -> Any:
+    """The port's tree -> the reference's, as numpy: each list of layers
+    stacked on a new axis 0 (nested lists on nested axes), bfloat16
+    leaves as float32 (numpy has no bfloat16), 0-d tensors as 0-d arrays."""
+    if isinstance(tree, dict):
+        return {k: to_jax_params(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _stack([to_jax_params(v) for v in tree])
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"to_jax_params takes float tensors, got "
+                        f"{type(tree).__name__} (residue-resident trees "
+                        "carry no float weights)")
+    t = tree.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(layers: list) -> Any:
+    if isinstance(layers[0], dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    return np.stack(layers)

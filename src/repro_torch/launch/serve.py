@@ -33,6 +33,10 @@ proposes 4 tokens a slot and the target verifies them in one batched step
 (paged serving and greedy sampling only; the tokens equal plain decoding),
 and a summary line gives the verify steps and the acceptance.
 
+``--no-prepare`` keeps the weights float and quantizes and converts each
+at every matmul (the per-call path; the same tokens as the resident
+default, a baseline for the conversion's cost).
+
 Weights are random, made from ``--seed``.  ``--device cpu`` runs the plain
 PyTorch versions of the kernels (use ``--reduced`` there).
 """
@@ -65,6 +69,9 @@ def main(argv=None):
     ap.add_argument("--kv-format", default="bf16",
                     choices=("bf16", "rns8", "rns4"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-prepare", action="store_true",
+                    help="keep weights float and convert them per call "
+                         "(baseline for the residue-resident default)")
     ap.add_argument("--spec", default=None, metavar="DRAFTER[:K]",
                     help='speculative decoding drafter: "ngram[:k]" or '
                          '"rns[:k]" (greedy only; paged engines). Output '
@@ -75,7 +82,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, system=args.system, device=args.device)
-    params = model.init(args.seed)
+    params = model.init(args.seed, prepare=not args.no_prepare)
     B, P = args.batch, args.prompt_len
     s_max = P + args.max_new + 1
     if cfg.family == "vlm":
@@ -84,7 +91,7 @@ def main(argv=None):
         s_max = P              # the encoder memory; the decoder has dec_len
     engine = ServingEngine(model, params, batch=B, s_max=s_max,
                            kv_format=args.kv_format, device=args.device,
-                           spec=args.spec)
+                           spec=args.spec, prepare=not args.no_prepare)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     if cfg.is_encdec:

@@ -4,12 +4,19 @@ The returned :class:`Model` bundles the functions of every family: the
 decoder-only dense, moe, vlm, ssm and hybrid (``models/transformer.py``)
 and the audio encoder-decoder (``models/encdec.py``):
 
-* ``init(seed)`` -- random parameters on the model's device.  Under
-  ``system="rns"`` and ``"sdrns"`` each layer is made residue-resident
-  right after it is made, so only one layer's float weights exist at a time
-  (at qwen3-8b's full width under ``rns`` that keeps the peak near the
-  resident size, ~26 GB, instead of ~58 GB for all float weights followed
-  by their planes);
+* ``init(seed, prepare=True)`` -- random parameters on the model's
+  device, in ``cfg.param_dtype``.  Under ``system="rns"`` and ``"sdrns"``
+  each layer is made residue-resident right after it is made, so only one
+  layer's float weights exist at a time (at qwen3-8b's full width under
+  ``rns`` that keeps the peak near the resident size, ~26 GB, instead of
+  ~58 GB for all float weights followed by their planes);
+  ``prepare=False`` keeps them float (training, and serving on the
+  per-call path);
+* ``loss(params, batch)`` -- ``(ce + 0.01 * aux, ce)`` of the training
+  forward on a float tree: mean cross entropy over labels >= 0 (-1 is
+  ignored) and the moe layers' load-balance loss.  ``batch`` holds
+  ``tokens`` and ``labels`` (B, S), and ``patches`` (vlm: the labels cover
+  the patch positions too) or ``frames`` (audio);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
   float tree (identity for ``bns``; idempotent on prepared trees): every
   ``{"w": ...}`` weight but the moe router's (routing stays float), the
@@ -55,7 +62,20 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant import residency
 
-__all__ = ["Model", "build_model", "resolve_device", "resident_bytes"]
+__all__ = ["Model", "build_model", "cross_entropy", "resolve_device",
+           "resident_bytes", "MOE_AUX_WEIGHT"]
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean cross entropy in f32 over the positions whose label is >= 0
+    (-1 marks a position to ignore)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = (labels >= 0).to(torch.float32)
+    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -76,6 +96,7 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prepare_params: Callable[[Any], Any]
     prepare_weight: Callable[[torch.Tensor], Any]
     prefill: Callable[..., Any]
@@ -147,9 +168,22 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             return params
         return {k: prepare_tree(v, k) for k, v in params.items()}
 
-    def init(seed: int = 0):
+    pd = getattr(torch, cfg.param_dtype)
+
+    def cast_layer(node):
+        """The float32 leaves of a fresh layer in ``cfg.param_dtype``."""
+        if isinstance(node, dict):
+            return {k: cast_layer(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast_layer(v) for v in node]
+        if isinstance(node, torch.Tensor) and node.dtype == torch.float32:
+            return node.to(pd)
+        return node
+
+    def init(seed: int = 0, prepare: bool = True):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        prep = None if system == "bns" else prepare_tree
+        prep = (cast_layer if system == "bns" or not prepare
+                else lambda p: prepare_tree(cast_layer(p)))
         with torch.no_grad():
             if encdec:
                 params = encdec_mod.init_encdec(gen, cfg, device=dev,
@@ -157,7 +191,24 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             else:
                 params = tf_mod.init_lm(gen, cfg, device=dev,
                                         prepare_layer=prep)
-            return prepare_params(params)
+            params = {k: v if isinstance(v, list) else cast_layer(v)
+                      for k, v in params.items()}
+            return prepare_params(params) if prepare else params
+
+    def loss(params, batch):
+        def get(key):
+            return torch.as_tensor(batch[key], device=dev)
+
+        tokens = get("tokens").long()
+        if encdec:
+            logits, aux = encdec_mod.encdec_forward(
+                params, cfg, get("frames"), tokens, dense_kw=dense_kw)
+        else:
+            logits, aux = tf_mod.lm_forward(
+                params, cfg, tokens, dense_kw=dense_kw,
+                patches=get("patches") if "patches" in batch else None)
+        ce = cross_entropy(logits, get("labels").long())
+        return ce + MOE_AUX_WEIGHT * aux, ce
 
     @torch.no_grad()
     def prefill(params, tokens, s_max=None, logits_at=None,
@@ -208,7 +259,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             dense_kw=dense_kw, cache_dtype=cache_dtype)
 
     paged = cfg.family in ("dense", "moe", "vlm")
-    return Model(cfg=cfg, device=dev, init=init,
+    return Model(cfg=cfg, device=dev, init=init, loss=loss,
                  prepare_params=prepare_params,
                  prepare_weight=prepare_weight, prefill=prefill,
                  decode=decode, init_cache=init_cache,

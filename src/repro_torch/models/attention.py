@@ -1,15 +1,19 @@
-"""Grouped-query attention with qk-norm: prefill, dense and paged decode.
+"""Grouped-query attention with qk-norm: training, prefill, dense and paged
+decode.
 
-Port of ``repro/models/attention.py`` for the serving path.  Prefill runs
-the flash attention kernel (causal, or not: the encoder of the audio
-family) and hands back this layer's KV cache (zero-padded to ``s_max``);
-:func:`attention` runs it over a whole sequence with no cache (the
-encoder); dense decode writes the new token's K/V into
-the layer's contiguous cache in place and runs the split-KV decode kernel
-over it; paged decode appends them to the slot's page and runs the
-split-KV paged decode kernel over the slot's page list; the speculative
-verify appends a block of V tokens a slot and runs the same kernel with the
-V rows folded into its batch.  KV heads stay
+Port of ``repro/models/attention.py``.  Prefill runs the flash attention
+kernel (causal, or not: the encoder of the audio family) and hands back
+this layer's KV cache (zero-padded to ``s_max``).  :func:`attention` runs a
+whole sequence with no cache: on the flash kernel by default (the
+encoder's serving prefill) or, with ``flash=False``, on the materialized
+scores of :func:`core` (over 1024-row query chunks above 8192 positions),
+the differentiable path the training forward takes, as the reference's
+does (the kernels define no backward).  Dense decode writes the new
+token's K/V into the layer's contiguous cache in place and runs the
+split-KV decode kernel over it; paged decode appends them to the slot's
+page and runs the split-KV paged decode kernel over the slot's page list;
+the speculative verify appends a block of V tokens a slot and runs the
+same kernel with the V rows folded into its batch.  KV heads stay
 ungrouped ``(B, T, Kv, hd)``; the kernels map query head ``h`` onto KV
 head ``h // (H // Kv)``.  The attention width ``n_heads * head_dim`` may
 differ from ``d_model`` (pixtral-12b's is 4096 against 5120): ``wq`` maps
@@ -27,10 +31,14 @@ from repro_torch.models import linear
 from repro_torch.models.layers import init_rmsnorm, rmsnorm, rope
 from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as nxkv
+from repro_torch.quant.quant import true_divide
 
-__all__ = ["KVCache", "init_attention", "attention", "prefill_attention",
-           "decode_attention", "paged_decode_attention",
+__all__ = ["KVCache", "init_attention", "attention", "core",
+           "prefill_attention", "decode_attention", "paged_decode_attention",
            "paged_verify_attention"]
+
+CHUNK_THRESHOLD = 8192   # above this S, scores go over query chunks
+Q_CHUNK = 1024
 
 
 class KVCache(NamedTuple):
@@ -71,10 +79,54 @@ def _project_qkv(params, x, *, n_heads, n_kv, head_dim, qk_norm, positions,
     return q, k, v
 
 
-def _full_seq(q, k, v, *, causal, n_heads, head_dim):
-    """Full-sequence attention through the flash kernel (q rows sit at
-    positions 0..Sq-1 against KV rows 0..T-1)."""
+def core(q, k, v, *, causal: bool, q_pos=None, kv_pos=None):
+    """Exact softmax attention on materialized scores (the reference's
+    ``_core``).  q: (B, Sq, H, hd); k, v: (B, T, Kv, hd) -> (B, Sq, H * hd).
+
+    Grouped-query heads run as a grouped einsum over (Kv, g): the KV heads
+    are never repeated.  Scores are f32 products of the operands, scaled by
+    1 / sqrt(hd), masked to -1e30 where a key lies after its query
+    (``causal``, by ``q_pos`` / ``kv_pos``, 0.. by default), and
+    softmaxed in f32; the PV product runs in v's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Kv, H // Kv, hd)
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qg.to(torch.float32),
+                          k.to(torch.float32)).reshape(B, H, Sq, T)
+    scores = true_divide(scores, hd ** 0.5)
+    if causal:
+        dev = q.device
+        q_pos = torch.arange(Sq, device=dev) if q_pos is None else q_pos
+        kv_pos = torch.arange(T, device=dev) if kv_pos is None else kv_pos
+        scores = scores.masked_fill(kv_pos[None, :] > q_pos[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    pg = probs.reshape(B, Kv, H // Kv, Sq, T).to(v.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", pg, v)
+    return out.reshape(B, Sq, H * hd)
+
+
+def _chunked(q, k, v, *, causal):
+    """:func:`core` over ``Q_CHUNK`` query rows at a time (long sequences):
+    the scores of one chunk are live at a time."""
+    pos = torch.arange(k.shape[1], device=q.device)
+    outs = [core(q[:, c: c + Q_CHUNK], k, v, causal=causal,
+                 q_pos=pos[c: c + Q_CHUNK], kv_pos=pos)
+            for c in range(0, q.shape[1], Q_CHUNK)]
+    return torch.cat(outs, dim=1)
+
+
+def _full_seq(q, k, v, *, causal, n_heads, head_dim, flash=True):
+    """Full-sequence attention (q rows at positions 0..Sq-1 against KV rows
+    0..T-1): the flash kernel, or with ``flash=False`` the materialized
+    scores (``_chunked`` above ``CHUNK_THRESHOLD`` rows in whole chunks,
+    as the reference picks)."""
     B, S = q.shape[0], q.shape[1]
+    if not flash:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+        if S <= CHUNK_THRESHOLD or S % Q_CHUNK:
+            return core(q, k, v, causal=causal)
+        return _chunked(q, k, v, causal=causal)
     out = nxattn.flash_attention(q.contiguous(),
                                  k.to(q.dtype).contiguous(),
                                  v.to(q.dtype).contiguous(), causal=causal)
@@ -83,9 +135,10 @@ def _full_seq(q, k, v, *, causal, n_heads, head_dim):
 
 def attention(params, x, *, n_heads, n_kv, head_dim, causal=True,
               qk_norm=False, rope_theta=1e4, dense_kw=None,
-              apply_rope=True) -> torch.Tensor:
+              apply_rope=True, flash=True) -> torch.Tensor:
     """Self-attention over a whole sequence at positions ``0..S-1``, no
-    cache (the encoder of the audio family)."""
+    cache: on the flash kernel (the encoder's prefill), or with
+    ``flash=False`` on materialized scores (training: differentiable)."""
     dense_kw = dense_kw or {}
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, n_heads=n_heads, n_kv=n_kv,
@@ -93,7 +146,7 @@ def attention(params, x, *, n_heads, n_kv, head_dim, causal=True,
                            positions=positions, rope_theta=rope_theta,
                            dense_kw=dense_kw, apply_rope=apply_rope)
     out = _full_seq(q, k, v, causal=causal, n_heads=n_heads,
-                    head_dim=head_dim)
+                    head_dim=head_dim, flash=flash)
     return linear.dense(params["wo"], out, **dense_kw)
 
 

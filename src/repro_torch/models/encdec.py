@@ -16,6 +16,10 @@ decode):
 * ``cross``: each layer's projected encoder K/V, ``(L, B, S_enc, Kv, hd)``,
   computed once at prefill.
 
+:func:`encdec_forward` is the teacher-forced training forward: no cache,
+attention on materialized scores (``attention.core``; the kernels define
+no backward), the reference's per-layer remat.
+
 Kernels: the encoder's attention runs on the flash kernel (B2) with
 ``causal=False``; the cross-attention on B2 (non-causal, the decoder
 prompt's rows against S_enc keys) at prefill and on the dense-cache decode
@@ -37,11 +41,12 @@ from repro_torch.models import linear
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
-                                       rmsnorm, sinusoidal_positions)
+                                       remat_call, rmsnorm,
+                                       sinusoidal_positions)
 from repro_torch.numerics import attention as nxattn
 
-__all__ = ["init_encdec", "init_encdec_cache", "encdec_prefill",
-           "encdec_decode"]
+__all__ = ["init_encdec", "init_encdec_cache", "encdec_forward",
+           "encdec_prefill", "encdec_decode"]
 
 
 def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig,
@@ -104,17 +109,24 @@ def _attn_kw(cfg: ArchConfig, dense_kw):
                 dense_kw=dense_kw, apply_rope=False)
 
 
-def _encode(params, cfg: ArchConfig, frames: torch.Tensor, dense_kw):
+def _enc_layer(lp, x, cfg: ArchConfig, dense_kw, flash: bool = True):
+    x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["attn_norm"], x),
+                               causal=False, flash=flash,
+                               **_attn_kw(cfg, dense_kw))
+    return x + mlp_mod.gelu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x),
+                                dense_kw)
+
+
+def _encode(params, cfg: ArchConfig, frames: torch.Tensor, dense_kw,
+            train: bool = False):
+    """The encoder memory; ``train``: materialized attention, remat."""
     cd = getattr(torch, cfg.compute_dtype)
     S = frames.shape[1]
     x = frames.to(cd) + sinusoidal_positions(
         S, cfg.d_model, device=frames.device).to(cd)[None]
-    akw = _attn_kw(cfg, dense_kw)
     for lp in params["enc_layers"]:
-        x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["attn_norm"], x),
-                                   causal=False, **akw)
-        x = x + mlp_mod.gelu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x),
-                                 dense_kw)
+        x = remat_call(train and cfg.remat, _enc_layer, lp, x, cfg,
+                       dense_kw, not train)
     return rmsnorm(params["enc_norm"], x)
 
 
@@ -127,28 +139,32 @@ def _cross_kv(lp, memory, cfg: ArchConfig, dense_kw):
     return k, v
 
 
-def _cross_attend(lp, x, k, v, cfg: ArchConfig, dense_kw, *, decode: bool):
+def _cross_attend(lp, x, k, v, cfg: ArchConfig, dense_kw, *, mode: str):
     """Queries from ``x (B, S, d)`` over the encoder memory's ``k, v (B, T,
-    Kv, hd)``, every key valid: B2 with ``causal=False`` at prefill (k, v
-    as projected), B5 with ``kv_len = T`` at decode (k, v the cross
-    cache).  Both read k and v in the queries' dtype, as the reference's
-    ``_core`` does: a bf16 cache under f32 compute is widened, so the
-    softmax weights are not rounded to bf16 before the PV product (under
-    bf16 compute the cast is a no-op)."""
+    Kv, hd)``, every key valid: ``mode`` ``"prefill"`` runs B2 with
+    ``causal=False`` (k, v as projected), ``"decode"`` B5 with ``kv_len =
+    T`` (k, v the cross cache), ``"train"`` the materialized scores of
+    ``attention.core``.  All read k and v in the queries' dtype, as the
+    reference's ``_core`` does: a bf16 cache under f32 compute is widened,
+    so the softmax weights are not rounded to bf16 before the PV product
+    (under bf16 compute the cast is a no-op)."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q = linear.dense(lp["cross_attn"]["wq"], x,
                      **dense_kw).reshape(B, S, H, hd)
-    if decode:
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if mode == "decode":
         o = nxattn.flash_decode(
-            q[:, 0], k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+            q[:, 0], k.contiguous(), v.contiguous(),
             kv_len=torch.full((B,), k.shape[1], dtype=torch.int32,
                               device=x.device))
         out = o.to(q.dtype).reshape(B, 1, H * hd)
+    elif mode == "train":
+        out = attn_mod.core(q, k, v, causal=False)
     else:
         out = nxattn.flash_attention(
-            q.contiguous(), k.to(q.dtype).contiguous(),
-            v.to(q.dtype).contiguous(), causal=False).reshape(B, S, H * hd)
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            causal=False).reshape(B, S, H * hd)
     return linear.dense(lp["cross_attn"]["wo"], out, **dense_kw)
 
 
@@ -170,9 +186,39 @@ def _dec_layer(lp, x, cross_kv, cfg: ArchConfig, dense_kw, *,
                                       pos, **akw)
     x = x + h
     x = x + _cross_attend(lp, rmsnorm(lp["cross_norm"], x), *cross_kv,
-                          cfg, dense_kw, decode=self_cache is not None)
+                          cfg, dense_kw, mode="prefill" if self_cache is None
+                          else "decode")
     x = x + mlp_mod.gelu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x), dense_kw)
     return x, new_cache
+
+
+def _train_dec_layer(lp, y, memory, cfg: ArchConfig, dense_kw):
+    k, v = _cross_kv(lp, memory, cfg, dense_kw)
+    y = y + attn_mod.attention(lp["self_attn"], rmsnorm(lp["self_norm"], y),
+                               flash=False, **_attn_kw(cfg, dense_kw))
+    y = y + _cross_attend(lp, rmsnorm(lp["cross_norm"], y), k, v, cfg,
+                          dense_kw, mode="train")
+    return y + mlp_mod.gelu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], y),
+                                dense_kw)
+
+
+def encdec_forward(params, cfg: ArchConfig, frames: torch.Tensor,
+                   tokens: torch.Tensor, *, dense_kw=None):
+    """The teacher-forced training forward: ``(logits (B, S_dec, vocab) in
+    the compute dtype, aux)``, aux an f32 zero.  The logits are the tied
+    table in float under every system, as in the reference."""
+    dense_kw = dense_kw or {}
+    memory = _encode(params, cfg, frames, dense_kw, train=True)
+    cd = getattr(torch, cfg.compute_dtype)
+    S = tokens.shape[1]
+    y = embed(params["embed"], tokens, cd) + sinusoidal_positions(
+        S, cfg.d_model, device=tokens.device).to(cd)[None]
+    for lp in params["dec_layers"]:
+        y = remat_call(cfg.remat, _train_dec_layer, lp, y, memory, cfg,
+                       dense_kw)
+    y = rmsnorm(params["final_norm"], y)
+    logits = torch.matmul(y, params["embed"]["table"].to(y.dtype).T)
+    return logits, torch.zeros((), dtype=torch.float32, device=y.device)
 
 
 def _logits(params, y: torch.Tensor) -> torch.Tensor:

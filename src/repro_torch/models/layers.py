@@ -3,11 +3,12 @@
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.quant.quant import true_divide
 
 __all__ = ["rmsnorm", "init_rmsnorm", "rope", "sinusoidal_positions",
-           "init_embedding", "embed"]
+           "init_embedding", "embed", "remat_call"]
 
 
 def sinusoidal_positions(length: int, d: int, device="cuda") -> torch.Tensor:
@@ -61,6 +62,24 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def embed(params: dict[str, torch.Tensor], tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Rows of the f32 table, cast after the gather (same values as casting
-    the whole table first, without a table-sized temporary)."""
-    return params["table"][tokens].to(compute_dtype)
+    """Rows of the table in the compute dtype.  Served, the rows are cast
+    after the gather (the same values as casting the whole table first,
+    without a table-sized temporary).  Trained, the table is cast first, as
+    in the reference, so the gradient's scatter-add sums in the compute
+    dtype as the reference's does, and the gather is ``F.embedding``, whose
+    backward sums a row's gradients in a fixed order (an indexing
+    backward's accumulating scatter does not on the CPU), so a step is
+    reproducible bit for bit."""
+    table = params["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return torch.nn.functional.embedding(tokens, table.to(compute_dtype))
+    return table[tokens].to(compute_dtype)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; under ``remat`` its activations are not kept but
+    recomputed in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -12,11 +12,16 @@
   ``"sd"``), through the fused signed-digit matmul kernels; the int32
   product equals ``rns``'s bit for bit.
 
+A float weight under ``rns`` / ``sdrns`` takes the per-call path (the
+reference's ``_qmatmul`` / ``_qeinsum``): the weight is quantized per
+output channel and forward-converted on every call, then the product runs
+as on the resident path, so its output equals the prepared weight's bit for
+bit.  Its backward is straight-through in float32: ``gx = g w^T``, ``gw =
+x^T g``, the standard quantization-aware-training treatment (the integer
+forward has no gradient of its own).  Prepared weights are inference-only.
+
 :func:`stacked_qmatmul` is the expert-stacked sibling ``models/moe.py``
 runs its three einsums through.
-
-Prepared weights are inference-only; the per-call quantizing path for float
-weights under ``rns`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -57,53 +62,92 @@ def _check_resident(w: ResidueTensor, bits: int, mset: ModuliSet,
         raise ValueError("residue-resident weight carries no scale")
 
 
-def _qmatmul_resident(x: torch.Tensor, w: ResidueTensor,
-                      bits: int) -> torch.Tensor:
-    """x: (M, K) f32, w: prepared (K, N) -> (M, N) f32."""
+def _qmatmul_resident(x: torch.Tensor, w: ResidueTensor, bits: int,
+                      subscripts: str | None = None) -> torch.Tensor:
+    """x: (M, K) f32, w: prepared (K, N) -> (M, N) f32; with
+    ``subscripts`` the stacked einsum (*stack, M, K) x (*stack, K, N)."""
     qmax = qmax_for_bits(bits)
     qx, sx = quantize_symmetric(x, bits, axis=-1)       # per-token scales
-    acc = nx.matmul(qx, w, max_abs_a=qmax)
+    acc = (nx.matmul(qx, w, max_abs_a=qmax) if subscripts is None
+           else nx.einsum(subscripts, qx, w, max_abs_a=qmax))
     return acc.to(torch.float32) * sx * w.scale
+
+
+def _split_subscripts(subscripts: str) -> tuple[str, str, str]:
+    lhs, out = subscripts.replace(" ", "").split("->")
+    a_sub, b_sub = lhs.split(",")
+    return a_sub, b_sub, out
+
+
+class _QMatmul(torch.autograd.Function):
+    """Per-call quantized product of a float x and a float weight w:
+    ``subscripts`` None for x (M, K) @ w (K, N), else a stacked einsum
+    ``"<stack>mk,<stack>kn-><stack>mn"``.  The weight is made resident for
+    this call alone (per-output-channel int4 codes over K, then planes or
+    digits), so the forward is the resident path's; the backward is
+    straight-through in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, subscripts, system, bits, mset):
+        ctx.save_for_backward(x, w)
+        ctx.subscripts = subscripts
+        t = residency.prepare_weight(w, system=system, bits=bits, mset=mset)
+        return _qmatmul_resident(x, t, bits, subscripts)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        x32, w32 = x.to(torch.float32), w.to(torch.float32)
+        if ctx.subscripts is None:
+            gx, gw = torch.matmul(g, w32.T), torch.matmul(x32.T, g)
+        else:
+            a_sub, b_sub, out_sub = _split_subscripts(ctx.subscripts)
+            gx = torch.einsum(f"{out_sub},{b_sub}->{a_sub}", g, w32)
+            gw = torch.einsum(f"{a_sub},{out_sub}->{b_sub}", x32, g)
+        return gx.to(x.dtype), gw.to(w.dtype), None, None, None, None
 
 
 def dense(params: dict[str, Any], x: torch.Tensor, *, system: str = "bns",
           bits: int = 4, mset: ModuliSet = P21,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ w under ``system``; x: (..., d_in) -> (..., d_out)."""
+    """y = x @ w under ``system``; x: (..., d_in) -> (..., d_out).
+
+    ``params["w"]`` is a resident :class:`ResidueTensor` (prepared) or a
+    float ``(d_in, d_out)`` weight (the per-call path under ``rns`` /
+    ``sdrns``, differentiable)."""
     w = params["w"]
+    if system == "bns" and not isinstance(w, ResidueTensor):
+        return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     if isinstance(w, ResidueTensor):
         _check_resident(w, bits, mset, system)
-        lead = x.shape[:-1]
-        y2 = _qmatmul_resident(x.reshape(-1, x.shape[-1]).to(torch.float32),
-                               w, bits)
-        return y2.reshape(*lead, y2.shape[-1]).to(compute_dtype)
-    if system == "bns":
-        return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
-    if system in residency.SYSTEM_LAYOUT:
-        raise ValueError(f"system={system!r} needs residue-resident weights:"
-                         " run the parameters through Model.prepare_params "
-                         "first")
-    raise ValueError(f"unknown system {system!r}")
+        y2 = _qmatmul_resident(x2, w, bits)
+    elif system in residency.SYSTEM_LAYOUT:
+        y2 = _QMatmul.apply(x2, w.to(torch.float32), None, system, bits,
+                            mset)
+    else:
+        raise ValueError(f"unknown system {system!r}")
+    return y2.reshape(*lead, y2.shape[-1]).to(compute_dtype)
 
 
-def stacked_qmatmul(subscripts: str, x: torch.Tensor, w: ResidueTensor, *,
-                    system: str, bits: int = 4,
-                    mset: ModuliSet = P21) -> torch.Tensor:
-    """Quantized stacked einsum over resident planes: x (*stack, M, K) f32,
-    w prepared (*stack, K, N) -> (*stack, M, N) f32.
+def stacked_qmatmul(subscripts: str, x: torch.Tensor, w, *, system: str,
+                    bits: int = 4, mset: ModuliSet = P21) -> torch.Tensor:
+    """Quantized stacked einsum: x (*stack, M, K), w (*stack, K, N) resident
+    planes or a float stack (the per-call path, differentiable) ->
+    (*stack, M, N) f32.
 
     Per-row int4 codes of ``x`` (an all-zero row, an empty expert slot,
-    quantizes to zeros), ``nx.einsum`` on the resident planes, then
-    ``acc * sx * w.scale``.
+    quantizes to zeros), ``nx.einsum`` on the planes, then ``acc * sx *
+    w.scale``; a float stack is quantized per output channel (over K) on
+    each call.
     """
-    if not isinstance(w, ResidueTensor):
-        if system in residency.SYSTEM_LAYOUT:
-            raise ValueError(f"system={system!r} needs residue-resident "
-                             "expert stacks: run the parameters through "
-                             "Model.prepare_params first")
+    x = x.to(torch.float32)
+    if isinstance(w, ResidueTensor):
+        _check_resident(w, bits, mset, system, where="stacked_qmatmul")
+        return _qmatmul_resident(x, w, bits, subscripts)
+    if system not in residency.SYSTEM_LAYOUT:
         raise ValueError(f"unknown system {system!r}")
-    _check_resident(w, bits, mset, system, where="stacked_qmatmul")
-    qmax = qmax_for_bits(bits)
-    qx, sx = quantize_symmetric(x.to(torch.float32), bits, axis=-1)
-    acc = nx.einsum(subscripts, qx, w, max_abs_a=qmax)
-    return acc.to(torch.float32) * sx * w.scale
+    return _QMatmul.apply(x, w.to(torch.float32), subscripts, system, bits,
+                          mset)

@@ -29,7 +29,10 @@ Where the reference's semantics are kept on purpose:
   change the top-k), on the card as on the CPU.
 
 The switch-transformer load-balance loss ``E sum_e f_e p_e``, a training
-term, is :func:`load_balance_loss`; serving calls :func:`moe` alone.
+term, comes with the output under ``moe(..., with_aux=True)`` (the training
+forward) and alone from :func:`load_balance_loss`.  Under ``rns`` /
+``sdrns`` a float expert stack (training) goes through the per-call path of
+``linear.stacked_qmatmul``, with its straight-through backward.
 """
 from __future__ import annotations
 
@@ -94,22 +97,28 @@ def place(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     return flat_e, pos_in_e, pos_in_e < capacity
 
 
-def load_balance_loss(router_w: torch.Tensor, x: torch.Tensor, *,
-                      n_experts: int, top_k: int) -> torch.Tensor:
-    """The switch-transformer aux loss of ``moe``'s routing of x (B, S, d):
-    ``E sum_e f_e p_e``, an f32 scalar."""
-    probs, _, expert_idx = route(router_w, x.reshape(-1, x.shape[-1]),
-                                 top_k)
+def _switch_aux(probs: torch.Tensor, expert_idx: torch.Tensor,
+                n_experts: int) -> torch.Tensor:
     frac_prob = probs.mean(dim=0)
     frac_tok = F.one_hot(expert_idx, n_experts).to(torch.float32).sum(
         1).mean(0)
     return n_experts * (frac_prob * frac_tok).sum()
 
 
+def load_balance_loss(router_w: torch.Tensor, x: torch.Tensor, *,
+                      n_experts: int, top_k: int) -> torch.Tensor:
+    """The switch-transformer aux loss of ``moe``'s routing of x (B, S, d):
+    ``E sum_e f_e p_e``, an f32 scalar."""
+    probs, _, expert_idx = route(router_w, x.reshape(-1, x.shape[-1]),
+                                 top_k)
+    return _switch_aux(probs, expert_idx, n_experts)
+
+
 def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
         top_k: int, capacity_factor: float = 1.25,
-        dense_kw: dict[str, Any] | None = None) -> torch.Tensor:
-    """x: (B, S, d) -> y (B, S, d).
+        dense_kw: dict[str, Any] | None = None, with_aux: bool = False):
+    """x: (B, S, d) -> y (B, S, d); with ``with_aux`` ``(y, aux)``, the
+    load-balance loss of this routing.
 
     ``dense_kw`` picks the arithmetic of the expert einsums as it does for
     ``linear.dense``: ``bns`` float einsums (bf16 operands, f32 sums), or
@@ -133,7 +142,7 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     T = B * S
     E, K = n_experts, top_k
     xt = x.reshape(T, d)
-    _, gates, expert_idx = route(params["router"]["w"], xt, K)
+    probs, gates, expert_idx = route(params["router"]["w"], xt, K)
     C = moe_capacity(T, E, K, capacity_factor)
     flat_e, pos_in_e, keep = place(expert_idx, E, C)
     # slot row in the flattened (E * C, d) buffer; dropped slots go to the
@@ -142,8 +151,7 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
                        torch.full_like(flat_e, E * C))
     src = xt.repeat_interleave(K, dim=0)                  # (T K, d)
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = src
-    buf = buf[:E * C].view(E, C, d)
+    buf = buf.index_put((slot,), src)[:E * C].view(E, C, d)
 
     g = expert_einsum("ecd,edf->ecf", buf, params["w_gate"], torch.float32)
     u = expert_einsum("ecd,edf->ecf", buf, params["w_up"], torch.float32)
@@ -153,5 +161,7 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     out_tok = out_buf.reshape(E * C, d)[torch.where(keep, slot, 0)]
     out_tok = torch.where(keep[:, None], out_tok, torch.zeros_like(out_tok))
     y = (out_tok.reshape(T, K, d)
-         * gates.reshape(T, K, 1).to(x.dtype)).sum(dim=1)
-    return y.reshape(B, S, d)
+         * gates.reshape(T, K, 1).to(x.dtype)).sum(dim=1).reshape(B, S, d)
+    if with_aux:
+        return y, _switch_aux(probs, expert_idx, E)
+    return y

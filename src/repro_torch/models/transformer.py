@@ -1,5 +1,6 @@
 """Decoder-only LM, the dense, moe, vlm, ssm and hybrid families: init,
-prefill, dense-cache decode, paged decode and the paged speculative verify.
+the training forward, prefill, dense-cache decode, paged decode and the
+paged speculative verify.
 
 Port of the decoder paths of ``repro/models/transformer.py``.  The
 reference's ``lax.scan`` over stacked layer parameters becomes a Python
@@ -16,6 +17,13 @@ loop over a list of per-layer parameter dicts.
   *shared* (weight-tied) attention + SwiGLU block runs on
   ``in_proj(concat(hidden, embeddings))`` and is added back to the residual
   stream.  Each application of the shared block has its own KV cache.
+
+The training forward (:func:`lm_forward`) writes no cache and is
+differentiable: attention on materialized scores, weights on the per-call
+path under ``rns`` / ``sdrns``; with ``cfg.remat`` each layer's body (and
+the hybrid family's group of Mamba2 layers with its shared block) is
+recomputed in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).
 
 Caches (stacked over layers on axis 0, updated in place by decode):
 
@@ -38,12 +46,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
-                                       rmsnorm)
+                                       remat_call, rmsnorm)
 from repro_torch.models.ssm import Mamba2Dims, SsmCache
 from repro_torch.numerics import kv_pages as kvp
 
-__all__ = ["init_lm", "init_lm_cache", "lm_prefill", "lm_decode",
-           "lm_decode_paged", "lm_verify_paged", "ssm_dims", "hybrid_groups"]
+__all__ = ["init_lm", "init_lm_cache", "lm_forward", "lm_prefill",
+           "lm_decode", "lm_decode_paged", "lm_verify_paged", "ssm_dims",
+           "hybrid_groups"]
 
 
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
@@ -166,15 +175,14 @@ def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
 def _logits(params, cfg: ArchConfig, x: torch.Tensor,
             dense_kw: dict[str, Any]) -> torch.Tensor:
     """Tied-embedding logits in the compute dtype.  Under ``rns`` and
-    ``sdrns`` they run through the resident ``embed.logits_w`` planes like
-    every other weight."""
+    ``sdrns`` they run through ``linear.dense`` like every other weight: on
+    the resident ``embed.logits_w`` planes of a prepared tree, else on
+    ``table.T`` per call."""
     x = rmsnorm(params["final_norm"], x)
-    system = dense_kw.get("system", "bns")
-    if system in ("rns", "sdrns"):
+    if dense_kw.get("system", "bns") in ("rns", "sdrns"):
         w = params["embed"].get("logits_w")
         if w is None:
-            raise ValueError(f"system={system!r} needs the resident logits "
-                             "weight embed.logits_w (Model.prepare_params)")
+            w = params["embed"]["table"].to(torch.float32).T
         return linear.dense({"w": w}, x, **dense_kw).to(x.dtype)
     return torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
 
@@ -253,6 +261,77 @@ def _read_logits(params, cfg, x, logits_at, dense_kw):
     else:
         xg = x[:, -1:]
     return _logits(params, cfg, xg, dense_kw)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Training forward (full sequence, no cache)
+# ---------------------------------------------------------------------------
+
+
+def _train_layer(lp, x, cfg: ArchConfig, dense_kw):
+    """One attention layer of the training forward: ``(x, aux)``."""
+    x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["attn_norm"], x),
+                               flash=False, **_attn_kw(cfg, dense_kw))
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe(lp["moe"], rmsnorm(lp["mlp_norm"], x),
+                             n_experts=cfg.n_experts, top_k=cfg.top_k,
+                             capacity_factor=cfg.moe_cf, dense_kw=dense_kw,
+                             with_aux=True)
+        return x + h, aux
+    return x + _mlp_block(lp, x, cfg, dense_kw), None
+
+
+def _train_mamba(lp, x, cfg: ArchConfig, dense_kw):
+    return x + ssm_mod.mamba2_forward(lp["mamba"], rmsnorm(lp["norm"], x),
+                                      ssm_dims(cfg), chunk=cfg.ssm_chunk,
+                                      dense_kw=dense_kw)
+
+
+def _train_group(params, layers, x, x0, cfg: ArchConfig, dense_kw):
+    """A hybrid group: its Mamba2 layers, then the shared block."""
+    for i in layers:
+        x = remat_call(cfg.remat, _train_mamba, params["layers"][i], x, cfg,
+                       dense_kw)
+    h = _shared_in(params, x, x0, dense_kw)
+    sp = params["shared"]
+    a = attn_mod.attention(sp["attn"], rmsnorm(sp["attn_norm"], h),
+                           flash=False, **_attn_kw(cfg, dense_kw,
+                                                   shared=True))
+    return x + _shared_out(params, h, a, dense_kw)
+
+
+def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
+               patches: torch.Tensor | None = None, dense_kw=None):
+    """The training forward: tokens (B, S_text) -> ``(logits (B, S, vocab)
+    in the compute dtype, aux)``, aux the moe layers' summed load-balance
+    loss (an f32 zero for the other families).  ``patches`` (vlm): ``(B,
+    n_img, d)`` before the tokens, S = n_img + S_text.  Writes no cache."""
+    _check_family(cfg)
+    dense_kw = dense_kw or {}
+    cd = getattr(torch, cfg.compute_dtype)
+    x = embed(params["embed"], tokens, cd)
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(device=x.device, dtype=cd), x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    r = cfg.remat
+    if cfg.family in _ATTN_FAMILIES:
+        for lp in params["layers"]:
+            x, a = remat_call(r, _train_layer, lp, x, cfg, dense_kw)
+            aux = aux if a is None else aux + a
+    elif cfg.family == "ssm":
+        for lp in params["layers"]:
+            x = remat_call(r, _train_mamba, lp, x, cfg, dense_kw)
+    else:
+        x0 = x
+        for layers, g in _hybrid_schedule(cfg):
+            if g is None:           # the tail: Mamba2 layers alone
+                for i in layers:
+                    x = remat_call(r, _train_mamba, params["layers"][i], x,
+                                   cfg, dense_kw)
+            else:
+                x = remat_call(r, _train_group, params, layers, x, x0, cfg,
+                               dense_kw)
+    return _logits(params, cfg, x, dense_kw), aux
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["qmax_for_bits", "quantize_symmetric", "true_divide"]
+__all__ = ["qmax_for_bits", "quantize_symmetric", "dequantize",
+           "true_divide"]
 
 
 def qmax_for_bits(bits: int) -> int:
@@ -34,6 +35,10 @@ def quantize_symmetric(x: torch.Tensor, bits: int, *,
     scale = true_divide(torch.clamp(amax, min=1e-8), qmax)
     q = torch.round_(x / scale).clamp_(-qmax, qmax).to(torch.int32)
     return q, scale.to(torch.float32)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
 
 
 def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:

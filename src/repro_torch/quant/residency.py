@@ -20,7 +20,7 @@ from repro_torch.numerics.tensor import ResidueTensor
 
 __all__ = ["SYSTEM_LAYOUT", "EXPERT_STACKS", "makes_resident",
            "prepared_kind", "prepare_weight", "prepare_dense",
-           "map_resident"]
+           "map_resident", "dequantize_weight"]
 
 # model-level number system -> ResidueTensor layout tag (and back)
 SYSTEM_LAYOUT = {"rns": "rns", "sdrns": "sd"}
@@ -92,3 +92,14 @@ def map_resident(params: Any, fn: Callable[[ResidueTensor], Any]) -> Any:
     if isinstance(params, list):
         return [map_resident(v, fn) for v in params]
     return params
+
+
+def dequantize_weight(params: dict[str, Any] | ResidueTensor
+                      ) -> torch.Tensor:
+    """The float weight a prepared node encodes: the exact reverse
+    conversion of its planes times the scale (``{"w": ...}`` or the bare
+    tensor)."""
+    w = params["w"] if isinstance(params, dict) else params
+    if not isinstance(w, ResidueTensor):
+        raise TypeError(f"expected a prepared node, got {type(w)}")
+    return nx.decode(w)

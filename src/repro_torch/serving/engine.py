@@ -15,7 +15,10 @@ of decode steps (a CUDA graph is later work) with the reference's per-slot
 loop halts when every slot is done or the segment ends.  The halt test
 reads one ``(B,)`` bool per step on the host, and only when an ``eos`` is
 set.  Under ``system="rns"`` the weights are made residue-resident at
-construction (``model.prepare_params``).
+construction (``model.prepare_params``); ``prepare=False`` keeps float
+weights on the per-call path (quantized and converted at every matmul),
+the baseline the resident path is measured against, with the same
+tokens.
 
 The fault layer (DESIGN.md §12 and §15) rides on the segment:
 
@@ -121,7 +124,7 @@ class ServingEngine:
                  device: torch.device | str = "cuda", scrub: str = "off",
                  policy: str = "off", quarantine_after: int = 3,
                  paged: bool | None = None, spec=None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, prepare: bool = True):
         """``paged``: ``None`` serves from the page pool when the model has
         a paged decode, else from the dense cache; ``False`` pins the
         dense cache (a ``True`` the model cannot serve falls back to it,
@@ -142,6 +145,11 @@ class ServingEngine:
         syndromes (needs ``kv_format="rns8r"``); ``quarantine_after`` is
         the number of faults after which ``"strict"`` retires a page.
 
+        ``prepare``: make the weights residue-resident up front (the
+        default; identity under ``bns``), or keep float weights and
+        quantize and convert them at every matmul (the per-call path: the
+        same tokens, a baseline for the conversion's cost).
+
         ``spec``: speculative decoding, a :class:`SpecConfig` or a
         ``"ngram"`` / ``"ngram:k"`` / ``"rns"`` / ``"rns:k"`` string (module
         docstring).  It needs paged serving, greedy sampling and
@@ -154,7 +162,8 @@ class ServingEngine:
                              f"{model.device}")
         self.model = model
         self.device = dev
-        self.params = model.prepare_params(params)
+        self.params = model.prepare_params(params) if prepare else params
+        self.prepared = prepare
         self.batch = batch
         self.s_max = s_max
         self.page_size = page_size

@@ -737,3 +737,96 @@ def test_scheduler_card_matches_cpu(gen):
                     dataclasses.asdict(eng.pool.stats))
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][1]["prefix_hits"] >= 3
+
+
+# ---------------------------------------------------------------------------
+# Training: the per-call residue matmul and the train step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("system", ["rns", "sdrns"])
+@pytest.mark.parametrize("M", [4, 37, 300])
+def test_per_call_dense_card_equals_prepared_and_cpu(gen, system, M):
+    """The per-call forward of a float weight on the card: the prepared
+    planes' output and the CPU's (plain versions) bit for bit; its
+    straight-through gradients the CPU's within f32 summation order."""
+    from repro_torch.models import linear
+    from repro_torch.quant import residency
+
+    w = torch.randn(200, 72, generator=gen, device="cuda")
+    x = torch.randn(M, 200, generator=gen, device="cuda")
+    g = torch.randn(M, 72, generator=gen, device="cuda")
+    kw = dict(system=system, compute_dtype=torch.float32)
+    out, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        wt = w.detach().to(dev).requires_grad_(True)
+        xt = x.detach().to(dev).requires_grad_(True)
+        y = linear.dense({"w": wt}, xt, **kw)
+        (y * g.to(dev)).sum().backward()
+        out[dev], grads[dev] = y.detach().cpu(), (xt.grad.cpu(),
+                                                 wt.grad.cpu())
+    prep = residency.prepare_dense({"w": w}, system=system)
+    assert torch.equal(linear.dense(prep, x, **kw).cpu(), out["cuda"])
+    assert torch.equal(out["cuda"], out["cpu"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+def test_train_step_card_matches_cpu(gen):
+    """One micro-batched AdamW step of the reduced qwen3-8b under rns with
+    remat on the card: (2 x 7 x L + 1) B1 launches a micro-batch, loss
+    within 1e-5 of the CPU's, parameters after the step within the
+    reference's limits; the sdrns step equal to the rns step bit for bit,
+    with B6 launched."""
+    from repro_torch import kernels
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.loop import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), remat=True)
+    batch = TokenPipeline(cfg.vocab, 16, 8, seed=3).batch_at(0)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=0, total_steps=4)
+    tree = load_npz(CKPT)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, system="rns", device=dev)
+        params = from_jax_params(tree, cfg, dev)
+        kernels.reset_launch_counts()
+        res[dev] = make_train_step(model, opt, 2)(
+            params, init_opt_state(params, opt), batch)
+        if dev == "cuda":
+            assert kernels.launch_counts()["rns_matmul"] == 2 * (
+                2 * 7 * cfg.n_layers + 1)
+    torch.testing.assert_close(res["cuda"][2]["loss"].cpu(),
+                               res["cpu"][2]["loss"], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(res["cuda"][0]), tree_leaves(res["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5)
+    params = from_jax_params(tree, cfg, "cuda")
+    lg = {}
+    for system in ("rns", "sdrns"):
+        kernels.reset_launch_counts()
+        lg[system] = loss_and_grads(build_model(cfg, system=system,
+                                                device="cuda"),
+                                    params, batch)
+    assert kernels.launch_counts()["sdrns_matmul"] == 2 * 7 * cfg.n_layers + 1
+    assert torch.equal(lg["rns"][0][0], lg["sdrns"][0][0])
+    for a, b in zip(tree_leaves(lg["rns"][1]), tree_leaves(lg["sdrns"][1])):
+        assert torch.equal(a, b)
+
+
+def test_engine_unprepared_card_equals_prepared(gen):
+    """``ServingEngine(prepare=False)`` on the card: the prepared engine's
+    prefill logits and tokens bit for bit."""
+    cfg = get_config("qwen3-8b").reduced()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = from_jax_params(load_npz(CKPT), cfg, "cuda")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 8)).astype(np.int32)
+    res = [ServingEngine(model, params, batch=3, s_max=17, page_size=8,
+                         kv_format="rns8", device="cuda", prepare=p
+                         ).generate({"tokens": prompts}, max_new=6)
+           for p in (True, False)]
+    np.testing.assert_array_equal(res[0].prefill_logits,
+                                  res[1].prefill_logits)
+    np.testing.assert_array_equal(res[0].tokens, res[1].tokens)

@@ -273,11 +273,18 @@ def test_einsum_operand_errors():
 
 
 def test_stacked_qmatmul_refuses_float_stacks():
+    """A float expert stack is refused outside ``rns`` / ``sdrns``; under
+    them it takes the per-call path (the training slice), equal to the
+    prepared stack's output.  A prepared stack is refused under the other
+    number system."""
     w = torch.ones(2, 8, 4)
-    with pytest.raises(ValueError, match="prepare_params"):
-        linear.stacked_qmatmul("ecd,edf->ecf", torch.ones(2, 3, 8), w,
-                               system="rns")
+    x = torch.ones(2, 3, 8)
+    with pytest.raises(ValueError, match="unknown system"):
+        linear.stacked_qmatmul("ecd,edf->ecf", x, w, system="bns")
     t = residency.prepare_weight(w, system="rns")
+    assert torch.equal(
+        linear.stacked_qmatmul("ecd,edf->ecf", x, w, system="rns"),
+        linear.stacked_qmatmul("ecd,edf->ecf", x, t, system="rns"))
     with pytest.raises(ValueError, match="system 'sdrns'"):
         linear.stacked_qmatmul("ecd,edf->ecf", torch.ones(2, 3, 8), t,
                                system="sdrns")
