@@ -130,6 +130,20 @@ Phases (each prints its lines; any failure raises and the exit code is not
    sdrns step's loss and gradients equal the rns step's bit for bit, every
    B6 launch held; ``ServingEngine(prepare=False)`` gives the prepared
    engine's prefill logits and tokens.
+16. cnn -- the paper's DNN evaluation (``data/cifar.py``) at its published
+   CIFAR shapes: AlexNet trained as ``examples/torch_rns_cnn_inference.py``
+   trains it (60 float SGD steps under ``bns``), VGG-16 on random weights
+   from seed 0; 256 synthetic test images in batches of 64 under ``bns``,
+   ``rns`` and ``sdrns`` (int6 codes, P21: every conv and fc a B1 launch a
+   K segment, or B6, and B7 at a batch of 8).  Gates: AlexNet's rns
+   logits equal a plain integer oracle (float64 products of the same
+   codes) bit for bit, sdrns logits equal rns's bit for bit on both nets,
+   B1's launches of one AlexNet forward and the B6 / B7 launches of an
+   AlexNet and a VGG forward held against the plain versions (B6 / B7 on
+   a sample of rows and columns), launch counts equal to the segment
+   cuts', AlexNet's rns accuracy within 0.08 of float.  Prints ms a batch,
+   images/s, each kernel's device ms inside a forward, the peak memory
+   and the Eq. 3 speedups at each net's op mix beside the card's ratios.
 
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
@@ -141,7 +155,9 @@ against its plain version and 64 launches of one slice; B2 and B3 at
 granite-20b's heads; B2 at whisper's encoder and cross-attention (hd 64,
 non-causal) and at pixtral's prefill, B5 at whisper's self cache and cross
 memory, and B1 at both models' shapes, whisper's logits shape (N 51865, an
-odd row stride) included.  Every phase prints its command time ([time]).
+odd row stride) included; B1 at the CNN's conv1 (K 27: an odd A row
+stride), VGG-16's conv2 (M 65536) and fc shapes, and B6 at that conv2.
+Every phase prints its command time ([time]).
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 result JSON.
@@ -237,6 +253,20 @@ DENSE_BK = 64                # [serve-dense]'s decode chunk = its twin's pages
 # 16 x 256 tokens in 2 micro-batches, so B1 runs at M 2048
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 256, 16, \
     2, 4
+# [cnn]: the paper's DNN evaluation (data/cifar.py) at its published CIFAR
+# shapes.  AlexNet trains as examples/torch_rns_cnn_inference.py trains it
+# (float SGD under bns), then CNN_EVAL test images run in batches of
+# CNN_BATCH under bns, rns and sdrns at CNN_BITS on P21; VGG-16 runs random
+# weights, and one batch of CNN_SMALL (its fc layers at M 8 take B7).  The
+# sdrns activation digits of VGG's conv2 are (3, 65536, 576, 7) int8 at
+# batch 64 (0.8 GB), 4x that at 256: hence the batches.  B6 and B7
+# launches are held on their first CNN_ROWS rows and SD_COLS columns
+CNN_TRAIN_STEPS, CNN_TRAIN_N, CNN_EVAL, CNN_BATCH = 60, 4096, 256, 64
+CNN_BITS, CNN_SMALL, CNN_ROWS = 6, 8, 32
+# B1 at the CNN's new load paths: conv1 (K 27, a 27-byte A row stride: the
+# byte path), VGG conv2 (the largest conv, M 65536), AlexNet-scale fc
+CNN_B1_SHAPES = [(65536, 27, 64), (65536, 576, 64), (64, 4096, 4096)]
+CNN_B6_SHAPE = (65536, 576, 64)
 # kernel ms of the bodies B1-B8 replaced, at the same shapes (chip_smoke.py
 # on an NVIDIA H100 80GB HBM3, 700 W, before the tensor-core prefill, the
 # row-parallel decode chunk, the packed K-parallel SD body, B1's two
@@ -412,21 +442,27 @@ def _int_mm_best(torch, timer, a, b, moduli, ref, what):
     (A padded to 32 rows where M is smaller, which ``_int_mm`` refuses) on
     B as stored and on a K-contiguous copy made outside the timed region,
     each held equal to the plain version; returns the faster time and its
-    layout.  An N that is not a multiple of 8 (``_int_mm`` refuses it) is
-    padded with zero columns, the copy not timed."""
+    layout.  An N or a K that is not a multiple of 8 (``_int_mm`` refuses
+    it) is padded with zero columns or zero terms, the copy not timed."""
     C, M, K = a.shape
     N = b.shape[2]
     pad = max(M, 32)
     a_mm = a if pad == M else torch.cat(
         [a, a.new_zeros((C, pad - M, K))], dim=1)
+    k_pad = -K % 8
+    if k_pad:
+        a_mm = torch.cat([a_mm, a_mm.new_zeros((C, pad, k_pad))], dim=2)
+        b = torch.cat([b, b.new_zeros((C, k_pad, N))], dim=1)
     n_pad = -N % 8
     if n_pad:
-        b = torch.cat([b, b.new_zeros((C, K, n_pad))], dim=2)
-    wide = f", N padded to {N + n_pad}, copy not timed" if n_pad else ""
+        b = torch.cat([b, b.new_zeros((C, K + k_pad, n_pad))], dim=2)
+    wide = (f", K padded to {K + k_pad}" if k_pad else "") + (
+        f", N padded to {N + n_pad}" if n_pad else "")
+    wide += ", copy not timed" if wide else ""
     lib, layout = None, None
     for name, b_mm in (("B as stored (N contiguous)" + wide, b),
                        ("B copied K-contiguous, copy not timed" + (
-                           f", N padded to {N + n_pad}" if n_pad else ""),
+                           wide.replace(", copy not timed", "")),
                         b.transpose(1, 2).contiguous().transpose(1, 2))):
         try:
             lib_out = _int_mm_same(torch, a_mm, b_mm, moduli, M, N)
@@ -538,11 +574,9 @@ def _segments(K, qmax, mset):
     """The K segments ``numerics.runners.rns_run`` cuts a matmul into at
     operand bound ``qmax``: as few as the dynamic range allows, rounded up
     to 128 terms."""
-    from repro_torch.numerics.runners import segment_count
+    from repro_torch.numerics.runners import rns_segments
 
-    segs = segment_count(K, qmax, qmax, mset)
-    seg_len = -(-(-(-K // segs)) // 128) * 128
-    return [(lo, min(lo + seg_len, K)) for lo in range(0, K, seg_len)]
+    return rns_segments(K, qmax, qmax, mset)
 
 
 def forward_launches(cfg):
@@ -3094,30 +3128,39 @@ def serve_audio(torch, smi):
 # ---------------------------------------------------------------------------
 
 
-def _timed_b1(torch, run):
-    """``run()`` with every B1 launch bracketed by CUDA events: returns
-    ``run()``'s result and the launches' summed device ms."""
+def _timed_kernels(torch, names, run):
+    """``run()`` with every launch of the kernels ``names`` bracketed by
+    CUDA events: returns ``run()``'s result and each kernel's summed
+    device ms."""
     from repro_torch.numerics import registry
 
-    kernel = registry.get_impl("rns_matmul", "cuda")
-    events = []
+    cards = {name: registry.get_impl(name, "cuda") for name in names}
+    events = {name: [] for name in names}
 
-    def launch(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = kernel(*args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
+    def timed(name):
+        kernel = cards[name]
 
-    registry.register_impl("rns_matmul", "cuda", launch)
+        def launch(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+
+        return launch
+
+    for name in names:
+        registry.register_impl(name, "cuda", timed(name))
     try:
         out = run()
     finally:
-        registry.register_impl("rns_matmul", "cuda", kernel)
+        for name, kernel in cards.items():
+            registry.register_impl(name, "cuda", kernel)
     torch.cuda.synchronize()
-    return out, sum(s.elapsed_time(e) for s, e in events)
+    return out, {name: sum(s.elapsed_time(e) for s, e in ev)
+                 for name, ev in events.items()}
 
 
 def _all_finite(torch, tree):
@@ -3176,9 +3219,9 @@ def train_full_width(torch):
                     held_checks("rns_matmul"),
                     lambda: step(params, state, batch))
             elif system == "rns":
-                (params, state, met), ms = _timed_b1(
-                    torch, lambda: step(params, state, batch))
-                b1_ms.append(ms)
+                (params, state, met), ms = _timed_kernels(
+                    torch, ("rns_matmul",), lambda: step(params, state, batch))
+                b1_ms.append(ms["rns_matmul"])
             else:
                 params, state, met = step(params, state, batch)
             torch.cuda.synchronize()
@@ -3399,6 +3442,347 @@ def train_small(torch):
         raise AssertionError(f"{label}: prepare=False serving differs")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the paper's DNN evaluation
+# ---------------------------------------------------------------------------
+
+
+def check_cnn_kernels(torch, timer, gen):
+    """B1 at CNN_B1_SHAPES on P21 planes (``b1_shape``: bit for bit, kernel,
+    plain version, ``_int_mm`` and the bound), and B6 at VGG-16's conv2
+    shape on random digit vectors: digit for digit against the plain
+    version on the first CNN_ROWS rows and SD_COLS columns, decoded
+    residues equal to B1's at the full shape, timed beside its bound."""
+    from repro_torch.core import sdrns
+    from repro_torch.core.moduli import P21
+    from repro_torch.kernels.rns_matmul import rns_matmul_cuda
+    from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
+                                                  sdrns_matmul_ref)
+
+    b1 = {f"{M},{K},{N}": b1_shape(torch, timer, gen, P21, "cnn", M, K, N)
+          for M, K, N in CNN_B1_SHAPES}
+    mset, C, n = P21, P21.num_channels, 7
+    ws = [sdrns.WRAP_SIGNS[k] for k, _ in mset.kinds]
+    M, K, N = CNN_B6_SHAPE
+    a = _digits(torch, gen, C, M, K, n)
+    b = _digits(torch, gen, C, K, N, n)
+    out = sdrns_matmul_cuda(a, b, ws)
+    a_s, b_s = a[:, :CNN_ROWS], b[:, :, :SD_COLS]
+    err = int((out[:, :CNN_ROWS, :SD_COLS].to(torch.int32)
+               - sdrns_matmul_ref(a_s, b_s, ws).to(torch.int32)).abs().max())
+    a_res, b_res = _sd_residues(torch, a, mset), _sd_residues(torch, b, mset)
+    rns = rns_matmul_cuda(a_res, b_res, mset.moduli)
+    dec = torch.stack([sdrns.decode_residue(out[c], kind, w)
+                       for c, (kind, w) in enumerate(mset.kinds)])
+    if err != 0 or not torch.equal(dec, rns):
+        raise AssertionError(f"sdrns_matmul[cnn] M={M} K={K} N={N}: digits "
+                             f"differ from the plain version or decode "
+                             f"unlike rns_matmul")
+    del out, rns, dec
+    ms = timer(lambda: sdrns_matmul_cuda(a, b, ws), 3)
+    plain = timer(lambda: sdrns_matmul_ref(a_s, b_s, ws), 1)
+    rns_ms = timer(lambda: rns_matmul_cuda(a_res, b_res, mset.moduli), 5)
+    bms, by = bound_ms(C * n * (M * K + K * N + M * N), 2 * C * M * K * N,
+                       "int8")
+    print(f"[kernels] sdrns_matmul[cnn] C={C} M={M} K={K} N={N} n={n} (VGG-16 "
+          f"conv2 at batch 64): digits equal the plain version on "
+          f"{CNN_ROWS} rows x {min(N, SD_COLS)} columns, decoded residues "
+          f"equal rns_matmul's at the full shape; kernel_ms={ms:.3f} "
+          f"plain_ms({CNN_ROWS} rows, {min(N, SD_COLS)} cols)={plain:.3f} "
+          f"bound_ms={bms:.4f} ({by}); yardstick rns_matmul_ms={rns_ms:.4f}",
+          flush=True)
+    del a, b, a_res, b_res, a_s, b_s
+    torch.cuda.empty_cache()
+    b6 = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+              library_ms=None, max_abs_err=err, yardstick_rns_matmul_ms=rns_ms,
+              at=f"VGG-16 conv2 at batch 64: M={M} K={K} N={N}, P21 digits; "
+                 f"plain_ms on the first {CNN_ROWS} rows and "
+                 f"{min(N, SD_COLS)} columns; no PyTorch call computes SD "
+                 f"digit vectors")
+    return b1, b6
+
+
+def cnn_launches(spec, batch, system):
+    """Kernel launches of one ``cnn_forward`` over ``batch`` images at
+    CNN_BITS on P21, from the runners' own segment cuts: B1 one a K segment
+    under rns; under sdrns B6 one a segment at M > DECODE_M, B7 one a
+    segment and a block of DECODE_M rows at M <= DECODE_M."""
+    from repro_torch.core.moduli import P21
+    from repro_torch.data.cifar import dense_shapes
+    from repro_torch.numerics import runners
+    from repro_torch.quant.quant import qmax_for_bits
+
+    q = qmax_for_bits(CNN_BITS)
+    want = dict(NO_LAUNCHES)
+    for M, K, _ in dense_shapes(spec, batch):
+        if system == "rns":
+            want["rns_matmul"] += len(runners.rns_segments(K, q, q, P21))
+        elif system == "sdrns":
+            segs = len(runners.sdrns_segments(K, q, q, P21))
+            if M <= runners.DECODE_M:
+                want["sdrns_matvec"] += segs * -(-M // runners.DECODE_M)
+            else:
+                want["sdrns_matmul"] += segs
+    return want
+
+
+def cnn_bounds(spec, batch, system):
+    """The least device ms of each kernel's launches in one forward: per
+    launch the larger of its bytes (int8 residues and int32 outputs for B1;
+    7-byte digit vectors for B6 / B7) at HBM_BPS and its int8 operations at
+    the int8 peak, summed over the launches ``cnn_launches`` counts."""
+    from repro_torch.core.moduli import P21
+    from repro_torch.data.cifar import dense_shapes
+    from repro_torch.numerics import runners
+    from repro_torch.quant.quant import qmax_for_bits
+
+    q, C, out = qmax_for_bits(CNN_BITS), P21.num_channels, {}
+    for M, K, N in dense_shapes(spec, batch) if system != "bns" else ():
+        if system == "rns":
+            name, cuts = "rns_matmul", runners.rns_segments(K, q, q, P21)
+        else:
+            name = ("sdrns_matvec" if M <= runners.DECODE_M
+                    else "sdrns_matmul")
+            cuts = runners.sdrns_segments(K, q, q, P21)
+        for lo, hi in cuts:
+            k = hi - lo
+            nbytes = (C * (M * k + k * N + 4 * M * N) if system == "rns"
+                      else C * 7 * (M * k + k * N + M * N))
+            out[name] = out.get(name, 0.0) + bound_ms(
+                nbytes, 2 * C * M * k * N, "int8")[0]
+    return out
+
+
+def _oracle_dense(torch):
+    """``linear.dense`` under rns as a plain integer oracle: the same int
+    codes (per token and per output channel), their product in float64 on
+    the card (exact: |acc| <= 31 * 31 * 4608 < 2**53), dequantized by the
+    same ops as ``_qmatmul_resident``."""
+    from repro_torch.quant.quant import quantize_symmetric
+
+    def dense(params, x, *, system, bits, compute_dtype, **_):
+        if system != "rns":
+            raise ValueError(f"the oracle stands for rns, not {system!r}")
+        lead = x.shape[:-1]
+        qx, sx = quantize_symmetric(
+            x.reshape(-1, x.shape[-1]).to(torch.float32), bits, axis=-1)
+        qw, sw = quantize_symmetric(params["w"].to(torch.float32), bits,
+                                    axis=-2)
+        acc = torch.matmul(qx.double(), qw.double()).to(torch.int32)
+        y = acc.to(torch.float32) * sx * sw
+        return y.reshape(*lead, y.shape[-1]).to(compute_dtype)
+
+    return dense
+
+
+def cnn_eval(torch, smi):
+    """Phase 16: AlexNet and VGG-16 (data/cifar.py) at their published CIFAR
+    shapes under bns, rns and sdrns on the card.  Untimed first: the rns
+    logits of AlexNet against the plain integer oracle (all CNN_EVAL
+    images), every B1 launch of one AlexNet forward and every B6 launch of
+    one AlexNet sdrns forward held against the plain versions, and VGG-16's
+    batch of CNN_SMALL under sdrns with its B6 and B7 launches held.  Then,
+    with the launch counters reset just before and read just after, each
+    net under each system over CNN_EVAL images in batches of CNN_BATCH
+    (one warm batch, then the timed ones; kernel device ms by CUDA events)
+    and each net's batch of CNN_SMALL under rns and sdrns (its fc layers
+    on B7).  Gates: sdrns
+    logits equal to rns's bit for bit (both nets, both batch sizes), the
+    launch counts equal to ``cnn_launches``, AlexNet's rns accuracy within
+    0.08 of its float accuracy, every logit finite."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import torch_rns_cnn_inference as example
+
+    from repro_torch import kernels
+    from repro_torch.core.cost_model import speedup
+    from repro_torch.data import cifar
+    from repro_torch.kernels.sdrns_matmul import sdrns_matmul_ref
+    from repro_torch.models import linear
+
+    label = "cnn"
+    dev = torch.device("cuda")
+    rns_kw = {"system": "rns", "bits": CNN_BITS,
+              "compute_dtype": torch.float32}
+    sd_kw = dict(rns_kw, system="sdrns")
+    kws = {"bns": example.BNS, "rns": rns_kw, "sdrns": sd_kw}
+    nets = {"alexnet": cifar.ALEXNET, "vgg16": cifar.VGG16}
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    params = {"alexnet": cifar.init_cnn(
+        torch.Generator(device=dev).manual_seed(SEED), cifar.ALEXNET,
+        device=dev)}
+    xs, ys = (torch.from_numpy(v).to(dev)
+              for v in cifar.synthetic_cifar(CNN_TRAIN_N, split="train"))
+    losses = example.train_float(params["alexnet"], cifar.ALEXNET, xs, ys,
+                                 steps=CNN_TRAIN_STEPS, batch=CNN_BATCH,
+                                 log=lambda line: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    print(f"[{label}] AlexNet, float SGD under bns, {CNN_TRAIN_STEPS} steps "
+          f"of {CNN_BATCH} on synthetic_cifar({CNN_TRAIN_N}): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {t_train:.2f}s "
+          f"({1e3 * t_train / CNN_TRAIN_STEPS:.1f} ms a step)", flush=True)
+    del xs, ys
+    params["vgg16"] = cifar.init_cnn(
+        torch.Generator(device=dev).manual_seed(SEED), cifar.VGG16,
+        device=dev)
+    xt, yt = (torch.from_numpy(v).to(dev)
+              for v in cifar.synthetic_cifar(CNN_EVAL, split="test"))
+    batches = [xt[i:i + CNN_BATCH] for i in range(0, CNN_EVAL, CNN_BATCH)]
+    small = xt[:CNN_SMALL]
+
+    def forward(net, x, system):
+        with torch.no_grad():
+            return cifar.cnn_forward(params[net], nets[net], x,
+                                     dense_kw=kws[system])
+
+    def sd_check(out, a, b, ws):
+        return float((out[:, :CNN_ROWS, :SD_COLS].long() - sdrns_matmul_ref(
+            a[:, :CNN_ROWS], b[:, :, :SD_COLS], ws).long()).abs().max())
+
+    # untimed: the oracle and the held launches
+    oracle = _oracle_dense(torch)
+    card_dense, linear.dense = linear.dense, oracle
+    try:
+        want_rns = torch.cat([forward("alexnet", x, "rns") for x in batches])
+    finally:
+        linear.dense = card_dense
+    held = {}
+    _, held["alexnet rns"] = hold_launches(
+        held_checks("rns_matmul"), lambda: forward("alexnet", batches[0],
+                                                   "rns"))
+    _, held["alexnet sdrns"] = hold_launches(
+        {"sdrns_matmul": sd_check, "sdrns_matvec": sd_check},
+        lambda: forward("alexnet", batches[0], "sdrns"))
+    _, held["vgg16 sdrns small"] = hold_launches(
+        {"sdrns_matmul": sd_check, "sdrns_matvec": sd_check},
+        lambda: forward("vgg16", small, "sdrns"))
+    for what, rec in held.items():
+        net, system = what.split()[:2]
+        x_b = CNN_SMALL if what.endswith("small") else CNN_BATCH
+        want = cnn_launches(nets[net], x_b, system)
+        for name, (n, worst) in rec.items():
+            sample = ("" if name == "rns_matmul" else
+                      f" (up to {CNN_ROWS} rows x {SD_COLS} columns)")
+            print(f"[{label}] {what} (batch {x_b}): {n} {name} launches "
+                  f"against the plain version on their own inputs{sample}, "
+                  f"max_abs_err={worst}", flush=True)
+            if n != want[name] or worst != 0:
+                raise AssertionError(f"{label}: {what}: {n} {name} launches "
+                                     f"(expected {want[name]}) or differs "
+                                     f"from its plain version ({worst})")
+
+    # counted and timed
+    res, dev_ms, bounds = {}, {}, {}
+    want = dict(NO_LAUNCHES)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for net, spec in nets.items():
+        for system in ("bns", "rns", "sdrns"):
+            forward(net, batches[0], system)             # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, ms = _timed_kernels(
+                torch, ("rns_matmul", "sdrns_matmul", "sdrns_matvec"),
+                lambda: torch.cat([forward(net, x, system)
+                                   for x in batches]))
+            sec = time.perf_counter() - t
+            res[(net, system)] = logits
+            per = cnn_launches(spec, CNN_BATCH, system)
+            for name in want:
+                want[name] += per[name] * (1 + len(batches))
+            dev_ms[(net, system)] = {k: v / len(batches) for k, v in
+                                     ms.items() if per[k]}
+            acc = float((logits.argmax(-1) == yt.long()).float().mean())
+            b_ms = 1e3 * sec / len(batches)
+            res[(net, system, "stats")] = dict(ms_batch=b_ms, acc=acc,
+                                               images_s=CNN_BATCH * 1e3 / b_ms)
+            bnd = bounds[(net, system)] = cnn_bounds(spec, CNN_BATCH,
+                                                     system)
+            kern = " ".join(f"{k}={v:.3f} (bound {bnd[k]:.4f})" for k, v in
+                            dev_ms[(net, system)].items())
+            print(f"[{label}] {net} {system}: {CNN_EVAL} images in "
+                  f"{len(batches)} batches of {CNN_BATCH}: {b_ms:.2f} ms a "
+                  f"batch ({CNN_BATCH * 1e3 / b_ms:.1f} images/s), accuracy "
+                  f"{acc:.4f}; kernel device ms a forward: "
+                  f"{kern or 'no kernel'}", flush=True)
+        for system in ("rns", "sdrns"):
+            res[(net, system, "small")], ms = _timed_kernels(
+                torch, ("rns_matmul", "sdrns_matmul", "sdrns_matvec"),
+                lambda: forward(net, small, system))
+            per = cnn_launches(spec, CNN_SMALL, system)
+            for name in want:
+                want[name] += per[name]
+            key = (net, f"{system}[batch {CNN_SMALL}]")
+            dev_ms[key] = {k: v for k, v in ms.items() if per[k]}
+            bnd = bounds[key] = cnn_bounds(spec, CNN_SMALL, system)
+            print(f"[{label}] {net} {system} at batch {CNN_SMALL}: kernel "
+                  f"device ms a forward: " + " ".join(
+                      f"{k}={ms[k]:.3f} (bound {bnd[k]:.4f})"
+                      for k in ms if per[k]), flush=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] launches over the counted runs: {counts} (expected "
+          f"{want}); max_memory_allocated {peak:.2f} GB", flush=True)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+
+    same_oracle = torch.equal(res[("alexnet", "rns")], want_rns)
+    print(f"[{label}] AlexNet rns logits equal the plain integer oracle "
+          f"(float64 products of the same int{CNN_BITS} codes) bit for bit "
+          f"{same_oracle}", flush=True)
+    if not same_oracle:
+        raise AssertionError(f"{label}: rns logits differ from the oracle")
+    for net in nets:
+        for key in ((net, "sdrns"), (net, "sdrns", "small")):
+            ref = res[(net, "rns") + key[2:]]
+            same = torch.equal(res[key], ref)
+            what = f"batch {CNN_SMALL}" if key[2:] else f"{CNN_EVAL} images"
+            print(f"[{label}] {net} sdrns logits equal rns's bit for bit "
+                  f"{same} ({what})", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: {key} differs from rns")
+    finite = all(bool(torch.isfinite(v).all()) for k, v in res.items()
+                 if k[-1] != "stats")
+    acc_f = res[("alexnet", "bns", "stats")]["acc"]
+    acc_r = res[("alexnet", "rns", "stats")]["acc"]
+    print(f"[{label}] every logit finite {finite}; AlexNet accuracy float "
+          f"{acc_f:.4f}, rns int{CNN_BITS} {acc_r:.4f} (gate: rns >= float "
+          f"- 0.08)", flush=True)
+    if not finite or acc_r < acc_f - 0.08:
+        raise AssertionError(f"{label}: non-finite logits or rns accuracy "
+                             f"{acc_r} below float {acc_f} - 0.08")
+
+    model = {}
+    for net, spec in nets.items():
+        ops = cifar.op_counts(spec)
+        x, y = ops["adds"], ops["muls"]
+        st = {s: res[(net, s, "stats")]["ms_batch"]
+              for s in ("bns", "rns", "sdrns")}
+        model[net] = dict(
+            eq3_sdrns_over_rns=speedup("RNS", "SD-RNS", 24, x, y),
+            eq3_sdrns_over_bns=speedup("BNS", "SD-RNS", 24, x, y),
+            card_rns_over_sdrns=st["rns"] / st["sdrns"],
+            card_bns_over_sdrns=st["bns"] / st["sdrns"])
+        m = model[net]
+        print(f"[{label}] {net} op mix adds={x:,} muls={y:,}: Eq. 3 at P 24 "
+              f"(the paper's circuits) SD-RNS x{m['eq3_sdrns_over_rns']:.3f} "
+              f"over RNS, x{m['eq3_sdrns_over_bns']:.3f} over BNS; this "
+              f"card's batch times (this port's kernels, not those circuits; "
+              f"no claim) rns/sdrns {m['card_rns_over_sdrns']:.3f}, "
+              f"bns/sdrns {m['card_bns_over_sdrns']:.3f}; {smi}",
+              flush=True)
+    return {"counts": counts, "peak_gb": peak, "train_s": t_train,
+            "bound_ms": {f"{n} {s}": v for (n, s), v in bounds.items()},
+            "losses": [losses[0], losses[-1]],
+            "stats": {f"{n} {s}": res[(n, s, "stats")] for n in nets
+                      for s in ("bns", "rns", "sdrns")},
+            "kernel_ms": {f"{n} {s}": v for (n, s), v in dev_ms.items()},
+            "model": model}
+
+
 def main() -> int:
     # [serve-moe] makes and encodes 38 layers of 2.2 GB f32 expert stacks one
     # after another beside their planes: fixed-size segments fragment (out
@@ -3497,6 +3881,9 @@ def main() -> int:
     rm_tl = b1_shape(torch, timer,
                      torch.Generator(device="cuda").manual_seed(SEED + 7),
                      P21, "train", m_train, *LOGITS)
+    # [cnn]'s new shapes: B1 at conv1 / VGG conv2 / fc, B6 at VGG conv2
+    cnn_b1, cnn_b6 = check_cnn_kernels(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 8))
     del timer
     torch.cuda.empty_cache()
     print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
@@ -3520,6 +3907,7 @@ def main() -> int:
     counts_audio = phase("serve-audio", serve_audio, torch, smi)
     train = phase("train", train_full_width, torch)
     phase("train-small", train_small, torch)
+    cnn = phase("cnn", cnn_eval, torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -3562,6 +3950,7 @@ def main() -> int:
          "launches_serve_vlm": counts_vlm[name],
          "launches_serve_audio": counts_audio[name],
          "launches_train": train["rns"]["counts"][name],
+         "launches_cnn": cnn["counts"][name],
          **{k: r[k] for k in fixed},
          **{k: v for k, v in r.items() if k not in fixed + ("launches",)}}
         for name, source, rep, r in entries]}
@@ -3620,6 +4009,23 @@ def main() -> int:
            f"time inside the timed steps",
         step_s={k: v["step_s"] for k, v in train.items()},
         encode_ms=train["rns"]["encode_ms"])
+    # [cnn]: B1 at the CNN's new shapes, B6 at VGG-16's conv2, and each
+    # kernel's device ms inside one forward of a batch of 64, by net
+    def in_forward(name):
+        return {k: dict(ms=v[name], bound_ms=cnn["bound_ms"][k][name])
+                for k, v in cnn["kernel_ms"].items() if name in v}
+
+    line["kernels"][0]["cnn"] = dict(
+        shapes=cnn_b1, launches=cnn["counts"]["rns_matmul"],
+        ms_in_forward=in_forward("rns_matmul"))
+    line["kernels"][5]["cnn"] = dict(
+        cnn_b6, launches=cnn["counts"]["sdrns_matmul"],
+        ms_in_forward=in_forward("sdrns_matmul"))
+    line["kernels"][6]["cnn"] = dict(
+        launches=cnn["counts"]["sdrns_matvec"],
+        ms_in_forward=in_forward("sdrns_matvec"))
+    line["cnn"] = {k: v for k, v in cnn.items() if k not in (
+        "counts", "kernel_ms", "bound_ms")}
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
     print(json.dumps(line))

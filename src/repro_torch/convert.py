@@ -13,7 +13,8 @@ leaves (a ``param_dtype="bfloat16"`` config such as grok-1-314b) come
 across as float32, which holds them exactly.  Residue preparation then
 runs in the port (``Model.prepare_params``).  :func:`to_jax_params` is the
 inverse, for a float tree or anything that mirrors one (the optimizer's
-moments).
+moments).  :func:`cnn_from_jax_params` carries the reference's CNN tree
+(``data/cifar.py::init_cnn``) across the same way.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["load_npz", "from_jax_params", "to_jax_params"]
+__all__ = ["load_npz", "from_jax_params", "to_jax_params",
+           "cnn_from_jax_params"]
 
 
 def load_npz(path: str) -> dict[str, Any]:
@@ -82,6 +84,19 @@ def from_jax_params(np_tree: dict[str, Any], cfg: ArchConfig,
             raise ValueError(f"tree holds {n} {key}, config says {want}")
         out[key] = [_to_torch(_layer(np_tree[key], i), device)
                     for i in range(n)]
+    return out
+
+
+def cnn_from_jax_params(np_tree: dict[str, Any],
+                        device: torch.device | str) -> dict[str, Any]:
+    """The reference's ``init_cnn`` tree (``{"l<i>": {"w", "b"}}``, as
+    numpy) -> the port's ``cnn_forward`` parameters on ``device``."""
+    out = {}
+    for name, layer in np_tree.items():
+        if set(layer) != {"w", "b"}:
+            raise ValueError(f"CNN layer {name!r} holds {sorted(layer)}, "
+                             "expected 'w' and 'b'")
+        out[name] = _to_torch(layer, device)
     return out
 
 

@@ -1,12 +1,16 @@
 """Moduli sets and residue conversions on torch tensors.
 
-The port's copy of the parts of ``repro/core/moduli.py`` the serving path
-needs: :class:`ModuliSet` (forward conversion, centering, mixed-radix
-reverse conversion, and with trailing redundant "witness" channels the
-syndrome check and single-fault correction; ``kinds``, the per-modulus
-tags the signed-digit layouts dispatch on), :func:`special_set`,
+The port's copy of ``repro/core/moduli.py`` without its sharded-decode
+helpers: :class:`ModuliSet` (forward conversion, centering, mixed-radix
+reverse conversion, the exact host codecs of any width, the channel-wise
+ring ops and lazy-reduction budget of :class:`~repro_torch.core.rns.RnsTensor`,
+and with trailing redundant "witness" channels the syndrome check and
+single-fault correction; ``kinds``, the per-modulus tags the signed-digit
+layouts dispatch on), the special-modulus folds :func:`mod_pow2`,
+:func:`mod_pow2_minus1` and :func:`mod_pow2_plus1`, :func:`special_set`,
 :class:`PackedFormat` (the byte-packed 2-channel KV page codec) and the
-sets ``P16``, ``P21``, ``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
+sets ``P16``, ``P21``, ``P24``, ``P33``, ``P64`` (Table I's rows),
+``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
 
 Residues are stored **centered**: ``r in [-floor(m/2), floor(m/2)]``; an
 even modulus centers ``m/2`` to ``+m/2`` (``r > m//2 -> r - m``).  Every
@@ -22,10 +26,12 @@ import functools
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set", "P16",
-           "P21", "KV8", "KV4", "P21R2", "KV8R2"]
+__all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set",
+           "mod_pow2", "mod_pow2_minus1", "mod_pow2_plus1", "P16", "P21",
+           "P24", "P33", "P64", "KV8", "KV4", "P21R2", "KV8R2"]
 
 
 def _egcd(a: int, b: int) -> tuple[int, int, int]:
@@ -41,6 +47,58 @@ def modinv(a: int, m: int) -> int:
     if g != 1:
         raise ValueError(f"{a} is not invertible mod {m}")
     return x % m
+
+
+# ---------------------------------------------------------------------------
+# Special-modulus reductions of int32 tensors to canonical residues in
+# [0, m): masks, shifts and a few adds (the paper's "wiring-only"
+# conversions).  Bit for bit the reference's, -2**31 included (whose ``abs``
+# wraps in both).
+# ---------------------------------------------------------------------------
+
+
+def mod_pow2(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x mod 2**n`` for int32 ``x`` (two's complement handles negatives)."""
+    return x & ((1 << n) - 1)
+
+
+def mod_pow2_minus1(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x mod (2**n - 1)`` by end-around chunk folding of ``|x|``."""
+    m = (1 << n) - 1
+    neg = x < 0
+    y = x.abs()
+    for _ in range(_folds_needed(31, n)):
+        y = (y & m) + (y >> n)
+    y = torch.where(y >= m, y - m, y)
+    return torch.where(neg & (y != 0), m - y, torch.where(neg, 0, y))
+
+
+def mod_pow2_plus1(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x mod (2**n + 1)`` by alternating chunk folding of ``|x|``."""
+    m = (1 << n) + 1
+    neg = x < 0
+    mask = (1 << n) - 1
+    y = x.abs()
+    for _ in range(_folds_needed(31, n)):
+        y = (y & mask) - (y >> n)
+    y = torch.remainder(y, m)
+    return torch.where(neg & (y != 0), m - y, torch.where(neg, 0, y))
+
+
+def _folds_needed(bits: int, n: int) -> int:
+    """Fold iterations that bring a ``bits``-bit value under ~2**(n+1)."""
+    k, width = 0, bits
+    while width > n + 1:
+        width = max(n + 1, width - n + 1)
+        k += 1
+        if k > 8:
+            break
+    return max(k, 1)
+
+
+def _exact(f, *arrays) -> np.ndarray:
+    """``f`` elementwise over object arrays (Python ints, any width)."""
+    return np.vectorize(f, otypes=[object])(*arrays)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +146,11 @@ class ModuliSet:
                             f"M_total/({mods[i]}*{mods[j]}) < M_info")
         return ModuliSet(mods, redundant)
 
+    def with_redundancy(self, extra: Sequence[int]) -> "ModuliSet":
+        """This set's information moduli with ``extra`` as witnesses."""
+        extra = tuple(int(m) for m in extra)
+        return ModuliSet.make(self.info_moduli + extra, redundant=len(extra))
+
     @property
     def num_channels(self) -> int:
         return len(self.moduli)
@@ -134,10 +197,57 @@ class ModuliSet:
         return math.prod(self.info_moduli)
 
     @functools.cached_property
+    def M_total(self) -> int:
+        """Product of all moduli, witness channels included."""
+        return math.prod(self.moduli)
+
+    @property
+    def precision_bits(self) -> int:
+        return self.M.bit_length()
+
+    @functools.cached_property
     def half_range(self) -> int:
         """Max |X| representable in the signed (centered) interpretation:
         the legitimate range of a redundant set."""
         return (self.M - 1) // 2
+
+    # ---- exact host conversions (Python ints, any width) --------------------
+    def to_residues_host(self, x) -> np.ndarray:
+        """Centered residues ``(C,) + x.shape`` int64 of integers of any
+        width (P64's only exact path)."""
+        xs = np.asarray(x, dtype=object)
+        out = np.empty((self.num_channels,) + xs.shape, dtype=np.int64)
+        for c, m in enumerate(self.moduli):
+            r = _exact(lambda v, m=m: int(v) % m, xs)
+            out[c] = _exact(lambda v, m=m: v - m if v > m // 2 else v,
+                            r).astype(np.int64)
+        return out
+
+    def from_residues_host(self, residues) -> np.ndarray:
+        """Mixed-radix reverse conversion of ``(C, ...)`` residues to signed
+        Python ints in ``[-M//2, M//2]`` (an object array); a redundant set
+        decodes its information channels."""
+        if self.redundant:
+            return self.info.from_residues_host(
+                np.asarray(residues)[: self.num_info])
+        res = np.asarray(residues)
+        zero = _exact(lambda *_: 0, res[0])
+        digits = [_exact(lambda v: int(v) % self.moduli[0], res[0])]
+        for j in range(1, self.num_channels):
+            mj = self.moduli[j]
+            part, prod = zero, 1
+            for i in range(j):
+                part = part + digits[i] * prod
+                prod *= self.moduli[i]
+            inv = modinv(prod % mj, mj)
+            digits.append(_exact(
+                lambda r, p, mj=mj, inv=inv: ((int(r) - int(p)) * inv) % mj,
+                res[j], part))
+        val, prod = zero, 1
+        for j in range(self.num_channels):
+            val = val + digits[j] * prod
+            prod *= self.moduli[j]
+        return _exact(lambda v: v - self.M if v > self.M // 2 else v, val)
 
     # ---- forward conversion ------------------------------------------------
     def to_residues(self, x: torch.Tensor, *,
@@ -182,10 +292,15 @@ class ModuliSet:
         reconstructs in wrapping int32; here every intermediate is an exact
         int64 (digits times prefix products stay below M), and the final
         cast to int32 wraps modulo 2**32 exactly as the reference does.
-        A redundant set decodes its information channels only.
+        A redundant set decodes its information channels only.  Moduli
+        above 46340 are refused, as the reference refuses them (P64 decodes
+        through :meth:`from_residues_host`).
         """
         if self.redundant:
             return self.info.from_residues(residues[: self.num_info])
+        if max(self.moduli) > 46340:
+            raise ValueError("reverse conversion needs moduli <= 46340 (use "
+                             "from_residues_host for the P=64 set)")
         C = self.num_channels
         vs = [r.to(torch.int64) for r in self.canon(residues.to(torch.int64))]
         digits = []
@@ -211,6 +326,26 @@ class ModuliSet:
             prod *= self.moduli[j]
         val = val - gt.to(torch.int64) * self.M
         return val.to(torch.int32)
+
+    # ---- channel-wise ring ops (any representatives in, centered out) ------
+    def channel_mod(self, residues: torch.Tensor) -> torch.Tensor:
+        """Reduce each channel mod m_c and re-center (the lazy flush)."""
+        return self.center(residues)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.center(a + b)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.center(a - b)
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.center(a * b)
+
+    def lazy_add_capacity(self) -> int:
+        """Centered-residue products an int32 accumulates before a
+        reduction is needed (the lazy-reduction budget)."""
+        worst = max((m // 2) ** 2 for m in self.moduli)
+        return (1 << 31) // (2 * worst)
 
     # ---- redundancy: syndromes and single-fault correction ----------------
     def _info_bad(self, res: torch.Tensor, x: torch.Tensor
@@ -433,8 +568,15 @@ class PackedFormat:
         return r1 + m1 * t
 
 
+# Table I's precision rows (P = 16 / 24 / 32 / 64 bits: n = 5 / 8 / 11 / 21)
+# and P21 (n = 7: every centered residue fits int8, the tensor-core sweet
+# spot).  P33 and P64 decode on the device in wrapping int32, as the
+# reference's do; P64 exactly only on the host.
 P16 = special_set(5)
 P21 = special_set(7)
+P24 = special_set(8)
+P33 = special_set(11)
+P64 = special_set(21)
 # Packable 2-channel sets for residue-domain KV pages (numerics/kv_pages.py):
 # KV8 = {15, 16}: one byte per value; KV4 = {3, 4}: one nibble per value.
 KV8 = ModuliSet.make((15, 16))

@@ -288,6 +288,12 @@ SD_HD Plan plan(int C, int M, int cols, int K, bool matvec,
   const long long row = (long long)C * pl.chunks * pl.words * sizeof(Vec);
   long long fit = budget / row / pl.R * pl.R;
   if (fit < pl.R) fit = pl.R;
+  // a pass's rows are grid dimensions: C x row tiles on the chunk launch's
+  // z, the rows themselves on the join's y, each at most 65535
+  // (M 65536 is one VGG-16 conv at batch 64)
+  long long grid = 65535LL / C * pl.R;
+  if (grid > 65535) grid = 65535 / pl.R * pl.R;
+  if (fit > grid) fit = grid;
   pl.rows_pass = fit < M ? (int)fit : M;
   pl.root_bytes = row * pl.rows_pass;
   return pl;

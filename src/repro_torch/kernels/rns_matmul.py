@@ -95,8 +95,10 @@ def rns_matmul_cuda(a_res: torch.Tensor, b_res: torch.Tensor,
     if a_res.device != b_res.device:
         raise ValueError(f"operands on {a_res.device} and {b_res.device}")
     if a_res.dtype != torch.int8 or b_res.dtype != torch.int8:
-        raise TypeError(f"rns_matmul_cuda takes int8 planes, got "
-                        f"{a_res.dtype} and {b_res.dtype}")
+        raise TypeError(f"rns_matmul_cuda takes int8 planes (every "
+                        f"modulus <= 256), got {a_res.dtype} and "
+                        f"{b_res.dtype}: a wider moduli set (P24, P33, "
+                        f"P64) has no residue matmul kernel")
     if a_res.dim() != b_res.dim() or a_res.dim() not in (3, 4):
         raise ValueError("rns_matmul_cuda takes (C, M, K) and (C, K, N), or "
                          "(S, C, M, K) and (S, C, K, N)")

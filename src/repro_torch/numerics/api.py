@@ -131,8 +131,7 @@ def scrub(t: ResidueTensor, *, sync: bool = True):
                          "kv_pages.verify_pages)")
     cf = t.planes.movedim(t.channel_axis, 0).to(torch.int32)
     fixed, det, cor = t.mset.correct(cf)
-    t2 = dataclasses.replace(
-        t, planes=fixed.movedim(0, t.channel_axis).to(t.planes.dtype))
+    t2 = t._with_planes(fixed.movedim(0, t.channel_axis).to(t.planes.dtype))
     det, cor = det.sum(), cor.sum()
     return (t2, int(det), int(cor)) if sync else (t2, det, cor)
 
@@ -274,10 +273,9 @@ def add(x, y, *, kind: str | None = None):
                              "tensors carry their own channel kinds")
         if not x.is_sd:
             return x + y
-        planes = x._per_channel(
+        return x._with_planes(x._per_channel(
             lambda k, a, b: runners.sd_add_run(a, b, kind=k),
-            x.planes, y.planes)
-        return dataclasses.replace(x, planes=planes)
+            x.planes, y.planes))
     if kind is None:
         raise ValueError("raw digit arrays need kind= "
                          "('plain' | 'pow2m1' | 'pow2' | 'pow2p1')")

@@ -36,9 +36,9 @@ from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
 from repro_torch.numerics.registry import get_impl, register_impl
 from repro_torch.numerics.tensor import _digit_width
 
-__all__ = ["DECODE_M", "segment_count", "encode_rns_planes",
-           "encode_packed_planes", "encode_sd_planes", "rns_run", "sdrns_run",
-           "sd_add_run"]
+__all__ = ["DECODE_M", "segment_count", "rns_segments", "sdrns_segments",
+           "encode_rns_planes", "encode_packed_planes", "encode_sd_planes",
+           "rns_run", "sdrns_run", "sd_add_run"]
 
 register_impl("rns_matmul", "cuda", rns_matmul_cuda)
 register_impl("rns_matmul", "ref", rns_matmul_ref)
@@ -72,8 +72,32 @@ def segment_count(K: int, max_abs_a: int, max_abs_b: int,
     return max((K + cap - 1) // cap, 1)
 
 
+def rns_segments(K: int, max_abs_a: int, max_abs_b: int,
+                 mset: ModuliSet) -> list[tuple[int, int]]:
+    """The K segments :func:`rns_run` cuts a matmul into (one kernel launch
+    each): as few as the dynamic range allows, ``seg_len`` rounded up to
+    128 terms as the reference rounds it."""
+    segs = segment_count(K, max_abs_a, max_abs_b, mset)
+    seg_len = _round_up((K + segs - 1) // segs, 128)
+    return [(lo, min(lo + seg_len, K)) for lo in range(0, K, seg_len)]
+
+
+def sdrns_segments(K: int, max_abs_a: int, max_abs_b: int,
+                   mset: ModuliSet) -> list[tuple[int, int]]:
+    """The K segments :func:`sdrns_run` cuts a matmul into: the dynamic
+    range's count, not rounded (the SD kernels hold no partial-product
+    stack)."""
+    segs = segment_count(K, max_abs_a, max_abs_b, mset)
+    seg_len = (K + segs - 1) // segs
+    return [(lo, min(lo + seg_len, K)) for lo in range(0, K, seg_len)]
+
+
 def _res_dtype(mset: ModuliSet) -> torch.dtype:
-    return torch.int8 if max(mset.moduli) <= 257 else torch.int32
+    """int8 where every centered residue keeps its value mod m in a byte:
+    moduli up to 256 (256's +128 wraps to -128, the same residue).  A
+    257 channel's +128 would wrap to -128, 255 away, so P24 takes int32
+    (the reference stores it as int8 and is off by 255 * 256 * 128 there)."""
+    return torch.int8 if max(mset.moduli) <= 256 else torch.int32
 
 
 def encode_rns_planes(w: torch.Tensor, mset: ModuliSet) -> torch.Tensor:
@@ -152,12 +176,8 @@ def rns_run(a: torch.Tensor, b_res: torch.Tensor, *, mset: ModuliSet,
     a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
     if stacked:
         a_res = a_res.movedim(0, 1)
-    segs = segment_count(K, max_abs_a, max_abs_b, mset)
-    seg_len = _round_up((K + segs - 1) // segs, 128)
-    segs = (K + seg_len - 1) // seg_len
     total = None
-    for s in range(segs):
-        lo, hi = s * seg_len, min((s + 1) * seg_len, K)
+    for lo, hi in rns_segments(K, max_abs_a, max_abs_b, mset):
         out_res = impl(a_res[..., lo:hi], b_res[..., lo:hi, :], mset.moduli)
         part = decode(out_res.movedim(-3, 0))
         total = part if total is None else total + part
@@ -211,13 +231,9 @@ def sdrns_run(a: torch.Tensor, b_dig: torch.Tensor, *, mset: ModuliSet,
     impl = get_impl("sdrns_matvec" if matvec else "sdrns_matmul", a.device)
     ws = [sdrns.WRAP_SIGNS[kind] for kind, _ in mset.kinds]
     a_dig = sd.from_int(mset.to_residues(a.to(torch.int32)), n)
-    segs = segment_count(K, max_abs_a, max_abs_b, mset)
-    seg_len = (K + segs - 1) // segs
-    segs = (K + seg_len - 1) // seg_len
     rows = DECODE_M if matvec else M
     total = None
-    for s in range(segs):
-        lo, hi = s * seg_len, min((s + 1) * seg_len, K)
+    for lo, hi in sdrns_segments(K, max_abs_a, max_abs_b, mset):
         outs = [impl(a_dig[:, r:r + rows, lo:hi], b_dig[:, lo:hi], ws)
                 for r in range(0, M, rows)]
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -15,7 +15,10 @@
 
 Ring ops (``+``, ``-``, ``*``, unary ``-``) are exact mod M: centered plane
 arithmetic for ``rns``, the carry-free SD adder and Eq. 2 multiplier of
-``core.sdrns`` per channel for the sd layouts.
+``core.sdrns`` per channel for the sd layouts; :meth:`ResidueTensor.flush`
+re-centers lazily reduced ``rns`` planes.  Every op builds its result with
+:meth:`ResidueTensor._with_planes`, so a subclass
+(:class:`~repro_torch.core.rns.RnsTensor`) keeps its type.
 """
 from __future__ import annotations
 
@@ -52,6 +55,9 @@ class ResidueTensor:
     max_abs: int | None = None
 
     def __post_init__(self):
+        self._validate()
+
+    def _validate(self) -> None:
         if self.layout not in LAYOUTS:
             raise ValueError(
                 f"unknown layout {self.layout!r}; expected one of {LAYOUTS}")
@@ -156,8 +162,14 @@ class ResidueTensor:
                 for c, (kind, _) in enumerate(self.mset.kinds)]
         return torch.stack(outs, dim=0).movedim(0, self.channel_axis)
 
+    def _with_planes(self, planes: torch.Tensor) -> "ResidueTensor":
+        return dataclasses.replace(self, planes=planes)
+
     def _center(self, planes: torch.Tensor) -> torch.Tensor:
-        out = self.mset.center(planes.movedim(self.channel_axis, 0))
+        # int32 inside the reduction (int8 storage would wrap), back to the
+        # storage dtype after (centered residues fit it)
+        out = self.mset.center(
+            planes.movedim(self.channel_axis, 0).to(torch.int32))
         return out.movedim(0, self.channel_axis).to(self.planes.dtype)
 
     def __add__(self, other: "ResidueTensor") -> "ResidueTensor":
@@ -169,7 +181,7 @@ class ResidueTensor:
         else:
             planes = self._center(self.planes.to(torch.int32)
                                   + other.planes.to(torch.int32))
-        return dataclasses.replace(self, planes=planes)
+        return self._with_planes(planes)
 
     def __sub__(self, other: "ResidueTensor") -> "ResidueTensor":
         return self + (-other)
@@ -183,7 +195,7 @@ class ResidueTensor:
         else:
             planes = self._center(self.planes.to(torch.int32)
                                   * other.planes.to(torch.int32))
-        return dataclasses.replace(self, planes=planes)
+        return self._with_planes(planes)
 
     def __neg__(self) -> "ResidueTensor":
         # digit-wise / plane-wise in both layouts: no carry chain at all
@@ -191,4 +203,11 @@ class ResidueTensor:
             raise ValueError("negation of scaled tensors is ill-defined")
         if self.layout == "rns_pack":
             raise ValueError("rns_pack is a storage layout; decode first")
-        return dataclasses.replace(self, planes=-self.planes)
+        return self._with_planes(-self.planes)
+
+    def flush(self) -> "ResidueTensor":
+        """Re-center ``rns`` planes (lazy reduction's flush); sd digits are
+        closed over {-1, 0, 1} and ``rns_pack`` is storage: no-ops."""
+        if self.is_sd or self.layout == "rns_pack":
+            return self
+        return self._with_planes(self._center(self.planes))

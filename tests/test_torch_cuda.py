@@ -29,6 +29,8 @@ from repro_torch.numerics.attention import merge_decode_partials
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.testing.faults import FaultSpec, inject_faults
 
+from torch_threads import one_thread  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
@@ -314,6 +316,20 @@ def test_sdrns_matmul_kernels_digit_exact(gen, M, K, N, n):
         assert torch.equal(sdm.sdrns_matmul_cuda(av, bv, ws), ref)
         if M <= sdm.MATVEC_MAX_M:
             assert torch.equal(sdm.sdrns_matvec_cuda(av, bv, ws), ref)
+
+
+def test_sdrns_matmul_kernel_rows_past_the_grid(gen):
+    """B6 at M 65541 (VGG-16's convs are M 65536 at batch 64): the rows run
+    in passes that fit the grid's 65535 limit; the digits of the rows
+    around the pass boundary and the last ones equal the plain version's."""
+    M, K, N = 65541, 70, 12
+    a = _digits(gen, 3, M, K, 7)
+    b = _digits(gen, 3, K, N, 7)
+    ws = (1, 0, -1)
+    out = sdm.sdrns_matmul_cuda(a, b, ws)
+    for lo, hi in ((0, 8), (65524, 65541)):
+        assert torch.equal(out[:, lo:hi],
+                           sdm.sdrns_matmul_ref(a[:, lo:hi], b, ws))
 
 
 @pytest.mark.parametrize("n", [1, 5, 7, 16])
@@ -830,3 +846,55 @@ def test_engine_unprepared_card_equals_prepared(gen):
     np.testing.assert_array_equal(res[0].prefill_logits,
                                   res[1].prefill_logits)
     np.testing.assert_array_equal(res[0].tokens, res[1].tokens)
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_rns_tensor_matmul_card_launches_b1(gen, batch):
+    """``RnsTensor.matmul`` on the card is one B1 launch (a batch as B1's
+    stack) equal to the CPU's plain version; int32 planes that fit a byte
+    are cast, the wider sets and lazy planes past int8 raise."""
+    from repro_torch.core.moduli import P24
+    from repro_torch.core.rns import RnsTensor
+
+    a = torch.randint(-7, 8, (*batch, 37, 300), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    b = torch.randint(-7, 8, (*batch, 300, 65), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    ta, tb = RnsTensor.from_int(a, P21), RnsTensor.from_int(b, P21)
+    rm.reset_launches()
+    out = ta.matmul(tb)
+    assert rm.launches == 1
+    cpu = RnsTensor.from_int(a.cpu(), P21).matmul(RnsTensor.from_int(
+        b.cpu(), P21))
+    assert torch.equal(out.residues.cpu(), cpu.residues)
+    assert torch.equal(out.to_int().cpu(),
+                       (a.double() @ b.double()).to(torch.int32).cpu())
+    sixty = RnsTensor.from_int(torch.full_like(a, 60), P21)
+    with pytest.raises(ValueError, match="flush"):
+        sixty.lazy_add(sixty).lazy_add(sixty).matmul(tb)
+    with pytest.raises(ValueError, match="exceed 256"):
+        RnsTensor.from_int(a, P24).matmul(RnsTensor.from_int(b, P24))
+    with pytest.raises(TypeError, match="int8 planes"):
+        rm.rns_matmul_cuda(ta.residues, tb.residues, P21.moduli)
+    assert rm.launches == 1
+
+
+@pytest.mark.parametrize("system", ["rns", "sdrns"])
+def test_narrow_cnn_card_matches_cpu(gen, system):
+    """A narrow CNN (``data/cifar.py``; its fc K 2048 in two int6
+    segments, its last fc at M 3 on B7 under sdrns) on the card equals the
+    CPU's plain versions bit for bit."""
+    from repro_torch.data import cifar
+
+    spec = cifar.CnnSpec("narrow", (
+        ("conv", 8, 3, 1), ("pool", 2), ("conv", 32, 3, 1), ("pool", 2),
+        ("fc", 32), ("fc", 10)))
+    params = cifar.init_cnn(gen, spec, device="cuda")
+    x = torch.from_numpy(cifar.synthetic_cifar(3, split="test")[0])
+    kw = {"system": system, "bits": 6, "compute_dtype": torch.float32}
+    with torch.no_grad():
+        card = cifar.cnn_forward(params, spec, x.cuda(), dense_kw=kw)
+        cpu = cifar.cnn_forward(
+            {k: {n: t.cpu() for n, t in v.items()} for k, v in
+             params.items()}, spec, x, dense_kw=kw)
+    assert torch.equal(card.cpu(), cpu)

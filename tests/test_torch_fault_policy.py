@@ -43,6 +43,8 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kv_pool import KVPagePool
 from repro_torch.testing import faults as tfaults
 
+from torch_threads import one_thread  # noqa: F401
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "qwen3-8b", "ckpt_0000000002.npz")
 B, PLEN, MAX_NEW, PS = 3, 10, 8, 8

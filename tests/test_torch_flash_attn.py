@@ -24,6 +24,8 @@ from repro_torch.numerics import attention as tattn
 from repro_torch.numerics import kv_pages as tkv
 from repro_torch.numerics.tensor import ResidueTensor
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 2e-5
 BF16_TOL = 2e-2      # the reference's bf16 tolerance (test_flash_attn._tol)
 

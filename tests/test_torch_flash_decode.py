@@ -26,6 +26,8 @@ from repro.numerics import attention as jattn
 from repro_torch.kernels import flash_attn as tfa
 from repro_torch.numerics import attention as tattn
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 2e-5
 BF16_TOL = 2e-3
 

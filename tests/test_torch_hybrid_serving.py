@@ -39,6 +39,8 @@ from repro_torch.models.api import build_model
 from repro_torch.numerics.attention import set_decode_block
 from repro_torch.serving.engine import ServingEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "qwen3-8b", "ckpt_0000000002.npz")
 LOGIT_TOL = 1e-4

@@ -14,6 +14,8 @@ import torch
 from repro.numerics import kv_pages as jkv
 from repro_torch.numerics import kv_pages as tkv
 
+from torch_threads import one_thread  # noqa: F401
+
 FORMATS = ["bf16", "rns8", "rns4"]
 
 

@@ -19,6 +19,8 @@ import pytest
 from repro.serving.kv_pool import KVPagePool as JPool
 from repro_torch.serving.kv_pool import KVPagePool
 
+from torch_threads import one_thread  # noqa: F401
+
 
 class Both:
     """One reference pool and one port pool driven in step."""

@@ -43,6 +43,8 @@ from repro_torch.models.api import build_model
 from repro_torch.models.ssm import SsmCache
 from repro_torch.numerics.tensor import ResidueTensor
 
+from torch_threads import one_thread  # noqa: F401
+
 LOGIT_TOL = 1e-4
 B, PLEN, NEW = 3, 8, 3          # PLEN: one SSM chunk of the reduced mamba2
 FAMILIES = ["yi-6b", "phi3-medium-14b", "granite-20b", "mamba2-780m",

@@ -16,6 +16,8 @@ from repro.quant import quant as jq
 from repro_torch.core import moduli as tm
 from repro_torch.quant import quant as tq
 
+from torch_threads import one_thread  # noqa: F401
+
 SETS = [("P21", jm.P21, tm.P21), ("P16", jm.special_set(5), tm.special_set(5)),
         ("P24", jm.special_set(8), tm.special_set(8))]
 

@@ -30,6 +30,8 @@ from repro_torch.numerics import api as nx
 from repro_torch.numerics import runners
 from repro_torch.quant import residency
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-5
 D, F, E, K = 32, 48, 4, 2          # reduced moonshot / grok widths
 

@@ -30,6 +30,8 @@ from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.serving.engine import ServingEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 PKG_DIR = os.path.dirname(repro_torch.__file__)
 SRC = os.path.dirname(PKG_DIR)
 
@@ -54,7 +56,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
-    env = dict(os.environ, PYTHONPATH=SRC)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -72,6 +74,34 @@ def test_no_source_file_imports_jax_or_repro():
                     if pat.search(fh.read()):
                         offenders.append(path)
     assert offenders == []
+
+
+def test_examples_import_neither_jax_nor_repro():
+    """The port's examples stand alone: no import of ``jax`` or ``repro``
+    in their source, and the quickstart run on the CPU loads neither."""
+    root = os.path.dirname(SRC)
+    pat = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)",
+                     re.M)
+    examples = [os.path.join(root, "examples", f) for f in (
+        "torch_quickstart.py", "torch_rns_cnn_inference.py")]
+    for path in examples:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{examples[0]!r}, '--device', 'cpu']\n"
+        f"runpy.run_path({examples[0]!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "A@B exact: True" in res.stdout
+    assert "RnsTensor.matmul (lazy reduction, one centering): True" in \
+        res.stdout
 
 
 @pytest.fixture

@@ -26,6 +26,8 @@ from repro_torch.numerics import kv_pages as tkv
 from repro_torch.numerics import runners as trun
 from repro_torch.numerics.tensor import ResidueTensor
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 2e-5
 SETS = ["P21R2", "KV8R2"]
 

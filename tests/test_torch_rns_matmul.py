@@ -22,6 +22,8 @@ from repro_torch.numerics import api as tnx
 from repro_torch.numerics import runners as truns
 from repro_torch.quant import residency as tres
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _planes(rng, C, M, K, N, moduli=(127, 128, 129)):
     half = np.array(moduli).reshape(-1, 1, 1) // 2

@@ -47,6 +47,8 @@ from repro.kernels.ref import rns_matmul_ref as jax_rns_matmul_ref
 from repro_torch.core.moduli import P21, P21R2
 from repro_torch.kernels import rns_matmul as trm
 
+from torch_threads import one_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 H100_SMS = 132
 # the schedule constants the tests read from the header (host_consts)

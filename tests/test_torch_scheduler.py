@@ -42,6 +42,8 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import Request, RequestScheduler
 from repro_torch.testing.faults import FaultSpec, inject_faults
 
+from torch_threads import one_thread  # noqa: F401
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "qwen3-8b", "ckpt_0000000002.npz")
 B, S_MAX, PS = 2, 24, 8

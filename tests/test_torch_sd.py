@@ -22,6 +22,8 @@ from repro_torch.core import moduli as tm
 from repro_torch.core import sd as tsd
 from repro_torch.core import sdrns as tsr
 
+from torch_threads import one_thread  # noqa: F401
+
 KINDS = ("pow2m1", "pow2", "pow2p1")
 
 

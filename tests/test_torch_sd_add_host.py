@@ -33,6 +33,8 @@ import torch
 
 from repro_torch.kernels.sd_add import KINDS, sd_add_ref
 
+from torch_threads import one_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 KIND_CODE = {"pow2m1": 1, "pow2": 0, "pow2p1": -1, "plain": 2}
 TILE = 1024                    # sda::kTile

@@ -41,6 +41,8 @@ from repro.kernels.ref import sdrns_matmul_ref
 from repro_torch.core import sdrns
 from repro_torch.kernels import sdrns_matmul as tsm
 
+from torch_threads import one_thread  # noqa: F401
+
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 CHUNK = 64                     # sdk::kChunk
 WS = (1, 0, -1)                # P21 / P16 channel order
@@ -129,6 +131,13 @@ static void run_pass(const MatmulArgs& g, const Plan& pl, const int* ws,
   }
 }
 
+// The rows a pass of sdrns_matmul_s8 takes (0: the kernels' own budget).
+extern "C" int host_rows_pass(int C, int M, int cols, int K, int matvec,
+                              long long root_budget) {
+  return plan(C, M, cols, K, matvec != 0,
+              root_budget > 0 ? root_budget : kRootBudget).rows_pass;
+}
+
 // sdrns_matmul_s8's arguments, run on the host; root_budget overrides the
 // workspace budget (0: the kernels' own); returns the passes run.
 extern "C" int host_matmul(const int8_t* a, const int8_t* b, int8_t* out,
@@ -170,6 +179,7 @@ def lib(tmp_path_factory):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     h.packed_add.argtypes = [I, I, L, P, P, P]
     h.host_matmul.argtypes = [P, P, P, P, I, I, I, I, I, L, L, L, L, I, L]
+    h.host_rows_pass.argtypes = [I, I, I, I, I, L]
     return h
 
 
@@ -293,3 +303,17 @@ def test_schedule_in_row_passes(lib):
     out, passes = _host(lib, a, b, False, budget=3 * 3 * 3 * 8 * 9)
     assert passes == 3
     np.testing.assert_array_equal(out, _reference(a, b))
+
+
+@pytest.mark.parametrize("C,M,cols,K,budget,want", [
+    (3, 65536, 64, 576, 0, 65532), (3, 65536, 64, 27, 0, 65532),
+    (8, 200000, 8, 64, 0, 32764), (1, 70000, 4, 64, 1 << 40, 65532),
+    (3, 20000, 64, 576, 0, 20000), (3, 19, 10, 140, 3 * 3 * 3 * 8 * 9, 8)])
+def test_row_passes_fit_the_grid(lib, C, M, cols, K, budget, want):
+    """A pass's rows are grid dimensions (C x row tiles on the chunk
+    launch's z, the rows on the join's y): at most 65535 each, whatever the
+    workspace budget allows, so VGG-16's convs at batch 64 (M 65536) run in
+    two passes; smaller shapes keep theirs."""
+    rows = lib.host_rows_pass(C, M, cols, K, 0, budget)
+    assert rows == want
+    assert rows <= 65535 and C * -(-rows // 4) <= 65535   # B6: 4 rows a block

@@ -33,6 +33,8 @@ from repro_torch.numerics import runners as trun
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant import residency as tres
 
+from torch_threads import one_thread  # noqa: F401
+
 WS = (1, 0, -1)                       # P21 / P16 channel order
 
 

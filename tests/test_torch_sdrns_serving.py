@@ -34,6 +34,8 @@ from repro_torch.convert import from_jax_params, load_npz
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import ServingEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CKPT = os.path.join(ROOT, "checkpoints", "qwen3-8b", "ckpt_0000000002.npz")
 LOGIT_TOL = 1e-4
@@ -130,7 +132,8 @@ def test_sdrns_serve_equals_rns_serve_bit_for_bit(tree, prompts):
 
 
 def test_serve_cli_runs_sdrns_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")      # one torch thread (torch_threads)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "qwen3-8b", "--reduced", "--system", "sdrns", "--kv-format", "rns8",

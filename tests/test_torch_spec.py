@@ -49,6 +49,8 @@ from repro_torch.serving import drafters as tdr
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.spec import SpecConfig, accept_blocks
 
+from torch_threads import one_thread  # noqa: F401
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "qwen3-8b", "ckpt_0000000002.npz")
 TOL = 2e-5
@@ -392,6 +394,6 @@ def test_serve_cli_spec():
          "--device", "cpu", "--batch", "2", "--max-new", "6", "--spec",
          "ngram:4"], capture_output=True, text=True, check=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=os.path.join(
-            os.path.dirname(__file__), "..", "src")))
+            os.path.dirname(__file__), "..", "src"), OMP_NUM_THREADS="1"))
     assert "[serve] spec=ngram:4: " in out.stdout
     assert "verify steps for 10 tokens" in out.stdout

@@ -29,6 +29,8 @@ from repro_torch.models import linear as tlinear
 from repro_torch.models import ssm as tssm
 from repro_torch.quant import residency as tres
 
+from torch_threads import one_thread  # noqa: F401
+
 JDIMS = jssm.Mamba2Dims(d_model=32, d_state=16, d_conv=4, expand=2,
                         headdim=16)
 TDIMS = tssm.Mamba2Dims(*JDIMS)

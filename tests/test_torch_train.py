@@ -40,19 +40,11 @@ from repro_torch.train.ft import (FtConfig, SimulatedFailure, run_training,
                                   run_with_restarts)
 from repro_torch.train.loop import loss_and_grads, make_train_step
 
+from torch_threads import one_thread  # noqa: F401
+
 CKPT_DIR = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                         "qwen3-8b")
 OPT = optimizer.OptConfig(peak_lr=3e-3, warmup_steps=2, total_steps=40)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's ops are small: on a loaded CPU (parallel test workers)
-    the intra-op thread pool's barriers cost more than they save."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _assert_tree_equal(a, b):

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import pytest
 
-from torch_train_parity import check_family, one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
+from torch_train_parity import check_family
 
 
 @pytest.mark.parametrize("arch,system", [

@@ -31,6 +31,8 @@ from repro_torch.models.api import build_model
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.serving.engine import ServingEngine
 
+from torch_threads import one_thread  # noqa: F401
+
 LOGIT_TOL = 1e-4
 B, PLEN, NEW, PS = 3, 6, 4, 8
 S_ENC = 12                 # encoder frames of the reduced whisper

@@ -33,7 +33,6 @@ import jax
 import jax.numpy as jnp
 import jax.tree_util as jtu
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as jget_config
@@ -52,16 +51,6 @@ from repro_torch.train.tree import tree_map
 
 B, S, FRAMES = 4, 8, 12
 OPT = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """This module's ops are small: on a loaded CPU (parallel test workers)
-    the intra-op thread pool's barriers cost more than they save."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(cfg, tree):
