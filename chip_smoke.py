@@ -145,6 +145,26 @@ Phases (each prints its lines; any failure raises and the exit code is not
    images/s, each kernel's device ms inside a forward, the peak memory
    and the Eq. 3 speedups at each net's op mix beside the card's ratios.
 
+17. mesh -- qwen3-8b at full width served across ranks that share the
+   card (``torch.multiprocessing``, start method ``spawn``; a ``gloo``
+   group through a ``file://`` init, CUDA tensors staged through host
+   memory for its collectives), on the dense cache, beside the same model
+   served in this process with no shard context: (a) the column plan on a
+   (1, 2) mesh (wo and w_down, K over the model axis, on the row plan),
+   2 layers, batch 8, 256-token prompts, 8 new; (b) the
+   channel plan on (1, 3), one of P21's channels a rank, the decode through
+   the partial-CRT all-reduce; (c) P21R2's channel plan on (1, 5), 1 layer,
+   an information channel's plane corrupted on rank 0; (d) sdrns on (1,
+   3), 1 layer, batch 2, 16-token prompts, 4 new, beside its rns twin.
+   Gates: prefill logits and tokens bit for bit against the single
+   process on every rank; every rank's B1 / B2 / B5 / B6 / B7 launches
+   equal to the single process's and its plane bytes 1 / n of the whole;
+   no plane block gathered by a plan (the collective bytes a decode step
+   are printed); rank 0's first decode step's B1 and B5 launches, and in
+   (d) its every B6 and B7 launch, held against the plain versions; (c)
+   the fault repaired in the output and by ``nx.scrub``; (d) equal to the
+   rns twin.  No collective time is reported.
+
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
 shapes the two dense serves launch it with, at the qwen3 and zamba2 decode
@@ -3783,6 +3803,382 @@ def cnn_eval(torch, smi):
             "model": model}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 17: the mesh
+# ---------------------------------------------------------------------------
+
+# [mesh]: ranks that share the one card, in a gloo group (NCCL refuses two
+# ranks on one device).  Each case: (label, tensor-parallel ranks, layout,
+# system, moduli set, layers, batch, prompt, new tokens); the data axis is
+# 1.  qwen3-8b at full width, depth cut for time (the tied logits weight,
+# K 4096 x N 151936, runs as every serve's does)
+MESH_CASES = [
+    ("a", 2, "col", "rns", "P21", 2, 8, 256, 8),
+    ("b", 3, "chan", "rns", "P21", 2, 8, 256, 8),
+    ("c", 5, "chan", "rns", "P21R2", 1, 8, 256, 8),
+    ("d", 3, "chan", "sdrns", "P21", 1, 2, 16, 4),
+]
+MESH_WORLD = 5
+# (c): the information-channel element of layer 0's wq that rank 0 corrupts
+MESH_FAULT = (0, 3, 5)
+MESH_KERNELS = ("rns_matmul", "flash_attention", "flash_decode",
+                "sdrns_matmul", "sdrns_matvec")
+
+
+def _plane_bytes(node) -> int:
+    """Bytes of this process's residue planes (scales not counted)."""
+    if hasattr(node, "planes") and hasattr(node, "mset"):
+        return node.planes.numel() * node.planes.element_size()
+    if isinstance(node, dict):
+        return sum(_plane_bytes(v) for v in node.values())
+    if isinstance(node, list):
+        return sum(_plane_bytes(v) for v in node)
+    return 0
+
+
+def check_sd_launches(kept, counts, label):
+    """Hold every recorded B6 / B7 launch against the plain version on its
+    own inputs, digit for digit on the first SD_COLS columns (the plain
+    version materializes the partial products)."""
+    from repro_torch.kernels.sdrns_matmul import sdrns_matmul_ref
+
+    for name, rec in kept.items():
+        if len(rec) != counts[name]:
+            raise AssertionError(f"{label}: recorded {len(rec)} {name} "
+                                 f"launches of {counts[name]}")
+        for (a, b, ws), out in rec:
+            if not out[:, :, :SD_COLS].equal(
+                    sdrns_matmul_ref(a, b[:, :, :SD_COLS], ws)):
+                raise AssertionError(f"{label}: a {name} launch "
+                                     f"({tuple(a.shape)} x "
+                                     f"{tuple(b.shape)}) differs from the "
+                                     f"plain version")
+    shapes = {name: sorted({tuple(a.shape[:2]) for (a, _, _), _ in rec})
+              for name, rec in kept.items()}
+    print(f"[{label}] rank 0's {len(kept['sdrns_matmul'])} B6 and "
+          f"{len(kept['sdrns_matvec'])} B7 launches (channels x rows "
+          f"{shapes}) equal the plain version on their own inputs digit "
+          f"for digit (first {SD_COLS} columns)", flush=True)
+
+
+def _mesh_serve(torch, system, mset_name, layers, B, plen, max_new,
+                stagger=None, fault=None, rank=0, hold=False):
+    """Serve qwen3-8b (full width, ``layers`` deep, weights from SEED) on
+    the dense cache under whatever shard context is installed; returns the
+    outputs, this process's launch counts, plane bytes and collective
+    bytes a decode step, and with ``hold`` the first decode step's B1 and
+    B5 launches (rns) or every B6 / B7 launch (sdrns) held against the
+    plain versions."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import moduli
+    from repro_torch.models.api import build_model
+    from repro_torch.numerics import api as nx
+    from repro_torch.numerics import runners
+    from repro_torch.parallel import collectives
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=layers)
+    mset = getattr(moduli, mset_name)
+    kw = {"rns_mset": mset} if system == "rns" else {}
+    model = build_model(cfg, system=system, device="cuda", **kw)
+    t0 = time.perf_counter()
+    if stagger is None:
+        params = model.init(SEED)
+    else:
+        # the ranks make their weights one after another: each encodes the
+        # whole weight before it keeps its block (13 GB of digit planes for
+        # the tied logits weight under sdrns)
+        params = stagger(lambda: model.init(SEED))
+    engine = ServingEngine(model, params, batch=B, s_max=plen + max_new + 1,
+                           paged=False, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    fixed = None
+    if fault is not None:
+        t = engine.params["layers"][0]["attn"]["wq"]["w"]
+        clean = t.planes.clone()
+        if rank == 0:
+            t.planes[fault] += 7
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, plen)).astype(np.int32)
+    plan = runners.weight_plan
+    tags = {}
+
+    def tagged(*a, **k):
+        p = plan(*a, **k)
+        tags[p and p[0]] = tags.get(p and p[0], 0) + 1
+        return p
+
+    # the collectives' bytes when the first decode step starts: the rest
+    # of the run is the decode steps
+    at_decode = {}
+    decode = model.decode
+
+    def marking(*a, **k):
+        if not at_decode:
+            at_decode.update(collectives.moved_bytes(), marked=True)
+        return decode(*a, **k)
+
+    engine.model = dataclasses.replace(model, decode=marking)
+
+    # bytes the plans gathered to build a kernel's planes block
+    cut, plane_gathers = runners.plan_planes, [0]
+
+    def cutting(t, shard):
+        before = sum(collectives.moved_bytes().values())
+        out = cut(t, shard)
+        plane_gathers[0] += sum(collectives.moved_bytes().values()) - before
+        return out
+
+    runners.weight_plan, runners.plan_planes = tagged, cutting
+    per_step = 7 * layers + 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        return engine.generate({"tokens": prompts}, max_new=max_new)
+
+    try:
+        kernels.reset_launch_counts()
+        collectives.reset_moved_bytes()
+        if hold and system == "rns":
+            (res, first_b5), first_b1 = record_launches(
+                "rns_matmul", per_step, lambda: record_first_decode(
+                    layers, run), skip=per_step)
+        elif hold:
+            keep = lambda a, b, ws: (a.clone(), b, list(ws))  # noqa: E731
+            (res, kept_b7), kept_b6 = record_launches(
+                "sdrns_matmul", 1 << 20, lambda: record_launches(
+                    "sdrns_matvec", 1 << 20, run, keep=keep), keep=keep)
+        else:
+            res = run()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        moved = collectives.moved_bytes()
+    finally:
+        runners.weight_plan, runners.plan_planes = plan, cut
+        engine.model = model
+    peak = torch.cuda.max_memory_allocated()
+    steps = max_new - 1
+    if not at_decode.pop("marked", False):
+        raise AssertionError("mesh: the engine ran no decode step")
+    step_bytes = {k: (v - at_decode.get(k, 0)) / steps
+                  for k, v in moved.items()}
+    if hold and system == "rns":
+        check_first_b1(first_b1, per_step, B, "mesh")
+        check_first_decode(first_b5, layers, plen + 1, "mesh")
+    elif hold:
+        check_sd_launches({"sdrns_matmul": kept_b6,
+                           "sdrns_matvec": kept_b7}, counts, "mesh")
+    if fault is not None:
+        fixed_t, det, cor = nx.scrub(t)
+        fixed = dict(detected=det, corrected=cor,
+                     repaired=bool(fixed_t.planes.equal(clean)))
+    return dict(logits=res.prefill_logits, tokens=res.tokens,
+                counts={k: counts[k] for k in MESH_KERNELS},
+                plane_bytes=_plane_bytes(engine.params), init_s=t_init,
+                moved=moved, step_bytes=step_bytes,
+                plane_gathers=plane_gathers[0],
+                prefill_s=res.stats.prefill_s,
+                step_ms=1e3 * res.stats.decode_s / steps, peak=peak,
+                tags=tags, scrub=fixed,
+                fallback_gathers=engine.stats.fallback_gathers)
+
+
+def _mesh_rank(rank, world, init, out_dir):
+    """One rank of [mesh]: every case on its own sub-mesh of the first n
+    ranks (the others wait), results saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import (init_process_group, make_ctx,
+                                         make_test_mesh)
+    from repro_torch.parallel.sharding import shard_ctx
+
+    build.library()            # built by the parent: loaded, not rebuilt
+    # five ranks share the host's cores, and a rank's host work is launches
+    # and host copies: one intra-op thread a rank
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = init_process_group(backend="gloo",
+                                 init_method=f"file://{init}", rank=rank,
+                                 world_size=world)
+    out = {"backend": backend}
+    try:
+        for label, n, layout, system, mset, layers, B, plen, new in \
+                MESH_CASES:
+            mesh = make_test_mesh((1, n), ranks=range(n))
+            if rank < n:
+                ctx = make_ctx(mesh, channel_shard=layout == "chan")
+                group = mesh.get_group("model")
+
+                def stagger(make):
+                    made = None
+                    for r in range(n):
+                        if r == rank:
+                            made = make()
+                            torch.cuda.synchronize()
+                        dist.barrier(group=group)
+                    return made
+
+                with shard_ctx(ctx):
+                    out[label] = _mesh_serve(
+                        torch, system, mset, layers, B, plen, new,
+                        stagger=stagger if system == "sdrns" else None,
+                        fault=MESH_FAULT if mset == "P21R2" else None,
+                        rank=rank, hold=rank == 0)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_mesh(torch, smi):
+    """Phase 17: full-width qwen3-8b served across ranks that share the
+    card (``torch.multiprocessing``, start method ``spawn``, a ``gloo``
+    group through a ``file://`` init), beside the same model served in this
+    process with no shard context.  (a) the column plan on (1, 2) (its
+    row-parallel weights on the row plan), (b) the channel plan on (1, 3),
+    (c) P21R2's channel plan on (1, 5) with an information channel's plane
+    corrupted on rank 0, (d) sdrns on (1, 3) beside its rns twin.  Gates:
+    prefill logits and tokens bit for bit against the single-process run
+    on every rank; each rank's launches equal to the single-process counts,
+    its plane bytes 1 / n of the whole and no plane block gathered; rank
+    0's first decode step's B1 and B5 launches (rns) or every B6 and B7
+    launch (sdrns) held against the plain versions; (c) the fault repaired
+    in the output and found and repaired by ``nx.scrub``; (d) equal to its
+    rns twin."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    base = {}
+    for label, n, layout, system, mset, layers, B, plen, new in MESH_CASES:
+        keys = [(system, mset, layers, B, plen, new)]
+        if system == "sdrns":
+            keys.append(("rns", mset, layers, B, plen, new))
+        for key in keys:
+            if key not in base:
+                base[key] = _mesh_serve(torch, *key)
+                gc.collect()
+                torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    t0 = time.perf_counter()
+    try:
+        pc = mp.start_processes(
+            _mesh_rank, args=(MESH_WORLD, os.path.join(tmp, "init"), tmp),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        try:
+            while not pc.join(timeout=5):
+                pass
+        finally:
+            for p in pc.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_ranks = time.perf_counter() - t0
+    staged = ("every collective's CUDA tensors staged through host memory "
+              "(parallel/collectives.py)" if ranks[0]["backend"] == "gloo"
+              else "no staging")
+    print(f"[mesh] {MESH_WORLD} ranks on one card, backend "
+          f"{ranks[0]['backend']} ({staged}); ranks ran {t_ranks:.1f}s; "
+          f"no collective time is reported (gloo through the host says "
+          f"nothing about NCCL); {smi}", flush=True)
+    out = {}
+    for label, n, layout, system, mset, layers, B, plen, new in MESH_CASES:
+        one = base[(system, mset, layers, B, plen, new)]
+        r0 = ranks[0][label]
+        tags = {str(k): v for k, v in r0["tags"].items()}
+        print(f"[mesh] ({label}) ranks={n} mesh=(1,{n}) layout={layout} "
+              f"system={system} {mset} L={layers} B={B} prompt={plen} "
+              f"new={new}: plan tags {tags}; launches a rank "
+              f"{json.dumps(r0['counts'])} (one process: "
+              f"{json.dumps(one['counts'])}); plane bytes a rank "
+              f"{r0['plane_bytes']} of {one['plane_bytes']}; init_s="
+              f"{r0['init_s']:.2f} prefill_s={r0['prefill_s']:.3f} "
+              f"step_ms={r0['step_ms']:.1f} (one process: prefill_s="
+              f"{one['prefill_s']:.3f} step_ms={one['step_ms']:.1f}); "
+              f"peak a rank {r0['peak']}; collective bytes a rank a decode "
+              f"step {json.dumps(r0['step_bytes'])}, in the whole run "
+              f"{json.dumps(r0['moved'])}, of which plane blocks gathered "
+              f"{r0['plane_gathers']}; {smi}", flush=True)
+        for r in range(n):
+            got = ranks[r][label]
+            if not (np.array_equal(got["logits"], one["logits"])
+                    and np.array_equal(got["tokens"], one["tokens"])):
+                raise AssertionError(f"mesh ({label}) rank {r}: prefill "
+                                     f"logits or tokens differ from the "
+                                     f"single-process run")
+            if got["counts"] != one["counts"]:
+                raise AssertionError(f"mesh ({label}) rank {r}: launches "
+                                     f"{got['counts']}, the single process "
+                                     f"{one['counts']}")
+            if got["plane_bytes"] * n != one["plane_bytes"]:
+                raise AssertionError(f"mesh ({label}) rank {r}: "
+                                     f"{got['plane_bytes']} plane bytes, "
+                                     f"not 1/{n} of {one['plane_bytes']}")
+            plans = {"col", "row"} if layout == "col" else {layout}
+            if set(got["tags"]) != plans or got["fallback_gathers"]:
+                raise AssertionError(f"mesh ({label}) rank {r}: plans "
+                                     f"{got['tags']}, fallbacks "
+                                     f"{got['fallback_gathers']}")
+            if got["plane_gathers"]:
+                raise AssertionError(f"mesh ({label}) rank {r}: the plans "
+                                     f"gathered {got['plane_gathers']} bytes "
+                                     f"of planes")
+        need = ("sdrns_matmul", "sdrns_matvec") if system == "sdrns" \
+            else ("rns_matmul",)
+        if any(r0["counts"][k] == 0 for k in need + ("flash_attention",
+                                                     "flash_decode")):
+            raise AssertionError(f"mesh ({label}): a kernel of the path was "
+                                 f"not launched: {r0['counts']}")
+        print(f"[mesh] ({label}) all {n} ranks: prefill logits and "
+              f"{r0['tokens'].size} tokens bit-identical to the single "
+              f"process, launches equal, plane bytes 1/{n}, no plane "
+              f"gathered", flush=True)
+        if mset == "P21R2":
+            for r in range(n):
+                sc = ranks[r][label]["scrub"]
+                if not (sc["detected"] >= 1 and sc["corrected"] >= 1
+                        and sc["repaired"]):
+                    raise AssertionError(f"mesh ({label}) rank {r}: scrub "
+                                         f"{sc}")
+            print(f"[mesh] ({label}) info channel 0 of layer 0's wq "
+                  f"corrupted at {MESH_FAULT} on rank 0: the outputs equal "
+                  f"the fault-free run through the witnesses held by ranks "
+                  f"3 and 4; nx.scrub detected {r0['scrub']['detected']}, "
+                  f"corrected {r0['scrub']['corrected']}, planes repaired "
+                  f"on every rank", flush=True)
+        if system == "sdrns":
+            twin = base[("rns", mset, layers, B, plen, new)]
+            if not (np.array_equal(r0["logits"], twin["logits"])
+                    and np.array_equal(r0["tokens"], twin["tokens"])):
+                raise AssertionError(f"mesh ({label}): sdrns differs from "
+                                     f"its rns twin")
+            print(f"[mesh] ({label}) equal to the rns twin bit for bit",
+                  flush=True)
+        out[label] = dict(ranks=n, layout=layout, system=system, mset=mset,
+                          counts=r0["counts"], plane_bytes=r0["plane_bytes"],
+                          prefill_s=r0["prefill_s"], step_ms=r0["step_ms"],
+                          peak=r0["peak"], step_bytes=r0["step_bytes"])
+    return out
+
+
 def main() -> int:
     # [serve-moe] makes and encodes 38 layers of 2.2 GB f32 expert stacks one
     # after another beside their planes: fixed-size segments fragment (out
@@ -3908,6 +4304,7 @@ def main() -> int:
     train = phase("train", train_full_width, torch)
     phase("train-small", train_small, torch)
     cnn = phase("cnn", cnn_eval, torch, smi)
+    mesh = phase("mesh", serve_mesh, torch, smi)
 
     src_dir = "src/repro_torch/csrc/"
     entries = [
@@ -4026,6 +4423,19 @@ def main() -> int:
         ms_in_forward=in_forward("sdrns_matvec"))
     line["cnn"] = {k: v for k, v in cnn.items() if k not in (
         "counts", "kernel_ms", "bound_ms")}
+    # [mesh]: each case's launches a rank (every rank's equal the single
+    # process's) for B1, B5, B6 and B7
+    for i in (0, 4, 5, 6):
+        name = line["kernels"][i]["name"]
+        line["kernels"][i]["mesh"] = {
+            label: dict(ranks=v["ranks"], layout=v["layout"],
+                        system=v["system"], launches=v["counts"][name])
+            for label, v in mesh.items()}
+    line["mesh"] = {label: {k: v[k] for k in ("ranks", "layout", "system",
+                                               "mset", "plane_bytes",
+                                               "prefill_s", "step_ms",
+                                               "peak", "step_bytes")}
+                    for label, v in mesh.items()}
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
     print(json.dumps(line))

@@ -1,16 +1,18 @@
 """Moduli sets and residue conversions on torch tensors.
 
-The port's copy of ``repro/core/moduli.py`` without its sharded-decode
-helpers: :class:`ModuliSet` (forward conversion, centering, mixed-radix
-reverse conversion, the exact host codecs of any width, the channel-wise
-ring ops and lazy-reduction budget of :class:`~repro_torch.core.rns.RnsTensor`,
-and with trailing redundant "witness" channels the syndrome check and
-single-fault correction; ``kinds``, the per-modulus tags the signed-digit
-layouts dispatch on), the special-modulus folds :func:`mod_pow2`,
-:func:`mod_pow2_minus1` and :func:`mod_pow2_plus1`, :func:`special_set`,
-:class:`PackedFormat` (the byte-packed 2-channel KV page codec) and the
-sets ``P16``, ``P21``, ``P24``, ``P33``, ``P64`` (Table I's rows),
-``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
+The port's copy of ``repro/core/moduli.py``: :class:`ModuliSet` (forward
+conversion, centering, mixed-radix reverse conversion, the exact host
+codecs of any width, the channel-wise ring ops and lazy-reduction budget
+of :class:`~repro_torch.core.rns.RnsTensor`, with trailing redundant
+"witness" channels the syndrome check and single-fault correction, the
+partial CRT of the channel-split decode (:meth:`ModuliSet.partial_decode`,
+:meth:`~ModuliSet.fold_partials`, :meth:`~ModuliSet.partial_witnesses`,
+:meth:`~ModuliSet.corrected_fold`); ``kinds``, the per-modulus tags the
+signed-digit layouts dispatch on), the special-modulus folds
+:func:`mod_pow2`, :func:`mod_pow2_minus1` and :func:`mod_pow2_plus1`,
+:func:`special_set`, :class:`PackedFormat` (the byte-packed 2-channel KV
+page codec) and the sets ``P16``, ``P21``, ``P24``, ``P33``, ``P64``
+(Table I's rows), ``CRT40``, ``KV8``, ``KV4``, ``P21R2`` and ``KV8R2``.
 
 Residues are stored **centered**: ``r in [-floor(m/2), floor(m/2)]``; an
 even modulus centers ``m/2`` to ``+m/2`` (``r > m//2 -> r - m``).  Every
@@ -31,7 +33,7 @@ import torch
 
 __all__ = ["ModuliSet", "PackedFormat", "modinv", "special_set",
            "mod_pow2", "mod_pow2_minus1", "mod_pow2_plus1", "P16", "P21",
-           "P24", "P33", "P64", "KV8", "KV4", "P21R2", "KV8R2"]
+           "P24", "P33", "P64", "CRT40", "KV8", "KV4", "P21R2", "KV8R2"]
 
 
 def _egcd(a: int, b: int) -> tuple[int, int, int]:
@@ -250,12 +252,15 @@ class ModuliSet:
         return _exact(lambda v: v - self.M if v > self.M // 2 else v, val)
 
     # ---- forward conversion ------------------------------------------------
-    def to_residues(self, x: torch.Tensor, *,
-                    centered: bool = True) -> torch.Tensor:
-        """int32 values (...) -> residues (C, ...) int32."""
+    def to_residues(self, x: torch.Tensor, *, centered: bool = True,
+                    channel_ids=None) -> torch.Tensor:
+        """int32 values (...) -> residues (C, ...) int32; with
+        ``channel_ids``, those channels' only (C_loc, ...)."""
         x = x.to(torch.int32)
+        moduli = (self.moduli if channel_ids is None
+                  else [self.moduli[c] for c in channel_ids])
         planes = []
-        for m in self.moduli:
+        for m in moduli:
             r = torch.remainder(x, m)
             if centered:
                 r = torch.where(r > m // 2, r - m, r)
@@ -474,6 +479,123 @@ class ModuliSet:
             corrected = red_fault | fix
         return self.center(torch.stack(rows, dim=0)), detected, corrected
 
+    # ---- partial CRT: the channel-split decode ------------------------------
+    #
+    # MRC is sequential across channels, so a rank holding only some
+    # channels cannot contribute an MRC digit.  CRT can: each information
+    # channel's projection t_c * (M / m_c), t_c = r_c * inv(M / m_c) mod
+    # m_c, is a local value-domain partial; the sum over all channels is
+    # X mod M, so one all-reduce and one final mod M replace the gather of
+    # the channels.  Every product r * inv stays under max(m)^2 and the sum
+    # under num_info * (M - 1): exact in int32 where
+    # :attr:`supports_partial_decode` holds.
+
+    @functools.cached_property
+    def supports_partial_decode(self) -> bool:
+        """Whether the int32 partial-CRT decode is exact: every ``r * inv``
+        (< max(m)^2) and the summed projections (< num_info * (M - 1)) fit
+        int32.  False for the wide sets (P33, P64, CRT40), which keep the
+        sequential MRC decode."""
+        return (max(self.moduli) <= 46340
+                and self.num_info * (self.M - 1) < (1 << 31))
+
+    @functools.cached_property
+    def _crt_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-channel ``(B, inv)``, both ``(C,)`` int32: ``B[c] = M / m_c``
+        and ``inv[c] = (M / m_c)^-1 mod m_c`` on the information channels,
+        zero on the witness channels (their projections vanish)."""
+        B = np.zeros((self.num_channels,), np.int64)
+        inv = np.zeros((self.num_channels,), np.int64)
+        for c, m in enumerate(self.info_moduli):
+            B[c] = self.M // m
+            inv[c] = modinv((self.M // m) % m, m)
+        return B.astype(np.int32), inv.astype(np.int32)
+
+    @staticmethod
+    def _take(values: Sequence[int], channel_ids, ndim: int,
+              device) -> torch.Tensor:
+        """``values[channel_ids]`` as int32, shaped to broadcast over
+        ``(C_loc, ...)`` planes of rank ``ndim``."""
+        idx = np.asarray(torch.as_tensor(channel_ids).cpu(), np.int64)
+        out = torch.as_tensor(np.asarray(values, np.int64)[idx],
+                              dtype=torch.int32, device=device)
+        return out.reshape((-1,) + (1,) * (ndim - 1))
+
+    def partial_decode(self, planes: torch.Tensor, channel_ids
+                       ) -> torch.Tensor:
+        """Local CRT partial of a channel slice.
+
+        ``planes``: ``(C_loc, ...)`` residues of the channels this rank
+        holds (any int32 representative: centered, canonical or a lazy
+        accumulation); ``channel_ids``: their ``(C_loc,)`` global indices.
+        Returns the sum over them of ``(r_c * inv_c mod m_c) * (M / m_c)``;
+        witness channels add zero.  Summed over every rank and folded by
+        :meth:`fold_partials`, it equals :meth:`from_residues` bit for bit.
+        """
+        if not self.supports_partial_decode:
+            raise ValueError(
+                f"moduli set {self.moduli} exceeds the int32 partial-CRT "
+                "bound (num_info * (M-1) must fit int32); use the gathered "
+                "MRC path (from_residues)")
+        B_tab, inv_tab = self._crt_tables
+        nd, dev = planes.dim(), planes.device
+        m = self._take(self.moduli, channel_ids, nd, dev)
+        B = self._take(B_tab, channel_ids, nd, dev)
+        inv = self._take(inv_tab, channel_ids, nd, dev)
+        r = torch.remainder(planes.to(torch.int32), m)    # canonical [0, m)
+        t = torch.remainder(r * inv, m)                   # r*inv < max(m)^2
+        return (t * B).sum(dim=0, dtype=torch.int32)      # each term < M
+
+    def fold_partials(self, partial_sum: torch.Tensor) -> torch.Tensor:
+        """The all-reduced partials to the signed decode: one final mod M,
+        centred at :meth:`from_residues`' threshold (bit-identical)."""
+        x = torch.remainder(partial_sum.to(torch.int32), self.M)
+        return torch.where(x > self.half_range, x - self.M, x)
+
+    def partial_witnesses(self, planes: torch.Tensor, channel_ids
+                          ) -> torch.Tensor:
+        """Local contribution to the ``(r, ...)`` canonical witness planes:
+        each witness channel's canonical residues where this rank holds it,
+        zero elsewhere, so the all-reduce assembles every witness plane
+        wherever the channels live.  ``(0, ...)`` for a plain set."""
+        cid = torch.as_tensor(channel_ids).cpu().tolist()
+        p32 = planes.to(torch.int32)
+        outs = []
+        for j, m in enumerate(self.redundant_moduli):
+            acc = torch.zeros(planes.shape[1:], dtype=torch.int32,
+                              device=planes.device)
+            for i, c in enumerate(cid):
+                if c == self.num_info + j:
+                    acc = acc + torch.remainder(p32[i], m)
+            outs.append(acc)
+        if not outs:
+            return torch.zeros((0, *planes.shape[1:]), dtype=torch.int32,
+                               device=planes.device)
+        return torch.stack(outs, dim=0)
+
+    def corrected_fold(self, partial_sum: torch.Tensor,
+                       witnesses: torch.Tensor) -> torch.Tensor:
+        """:meth:`fold_partials` with the witness check, the all-reduce
+        sibling of :meth:`corrected_decode`: when every syndrome fires (an
+        information channel is corrupted, ``redundant >= 2``) the canonical
+        residue vector is rebuilt from ``(x, witnesses)`` (the CRT value
+        satisfies ``x = r_i mod m_i`` for every stored information residue,
+        corrupted or not) and the value taken from its unique legitimate
+        leave-one-out projection.  Bit-identical to
+        :meth:`corrected_decode` on the gathered planes; the projections
+        always run and ``torch.where`` selects (no host read)."""
+        x = self.fold_partials(partial_sum)
+        if self.redundant < 2:
+            return x
+        w = witnesses.to(torch.int32)
+        info_fault = functools.reduce(torch.logical_and, [
+            torch.remainder(w[j] - torch.remainder(x, m), m) != 0
+            for j, m in enumerate(self.redundant_moduli)])
+        res = torch.stack([torch.remainder(x, m) for m in self.info_moduli]
+                          + [w[j] for j in range(self.redundant)], dim=0)
+        best, n_legit = self._project_info(res)
+        return torch.where(info_fault & (n_legit == 1), best, x)
+
     def packed(self) -> "PackedFormat":
         """The byte-packed storage format of this set's two information
         channels."""
@@ -577,6 +699,10 @@ P21 = special_set(7)
 P24 = special_set(8)
 P33 = special_set(11)
 P64 = special_set(21)
+# A six-channel set whose residues all fit int8 (~2^42 of range): C = 6
+# splits over 2 or 3 ranks, and past the int32 partial-CRT bound it keeps
+# the gathered MRC decode.
+CRT40 = ModuliSet.make((121, 125, 127, 128, 129, 131))
 # Packable 2-channel sets for residue-domain KV pages (numerics/kv_pages.py):
 # KV8 = {15, 16}: one byte per value; KV4 = {3, 4}: one nibble per value.
 KV8 = ModuliSet.make((15, 16))

@@ -7,10 +7,13 @@ PyTorch's headers, so a build takes seconds.  The library lands in the
 repository's git-ignored ``build/`` directory under a name carrying the
 sources' hash: a changed source is rebuilt at first use, an unchanged one
 is loaded as it is.  Nothing is built when this module is imported.
+Processes that start together (the ranks of a mesh) build under one file
+lock: the first builds, the others load its library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -103,6 +106,14 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():       # another process may have built it
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     objs, procs = [], []
     for src in _sources():
@@ -130,7 +141,6 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, out)
-    return out
 
 
 def library() -> ctypes.CDLL:

@@ -43,7 +43,15 @@ and the audio encoder-decoder (``models/encdec.py``):
   count of KV elements whose witnesses disagree (rns8r pages);
 * ``verify_paged(params, tokens, kv, block_tab, pos, page_size=...)`` --
   the speculative verify of ``tokens (B, V)`` at ``pos .. pos + V - 1``,
-  ``(logits (B, V, vocab), kv)``; the dense, moe and vlm families.
+  ``(logits (B, V, vocab), kv)``; the dense, moe and vlm families;
+* ``cache_roles(cache)`` -- the sharding roles of a cache's leaves (a
+  :class:`~repro_torch.parallel.sharding.Roles` each, the reference's).
+
+Under an installed :class:`~repro_torch.parallel.sharding.ShardCtx`,
+``init`` and ``prepare_params`` keep this rank's block of every resident
+weight, placed by its name rule (``sharding.rule_roles``; the channel
+axis C over tp under ``ctx.channel_shard``), right after the weight is
+made; the float leaves stay whole.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
 missing card raises; callers ask for the CPU with ``device="cpu"``.
@@ -59,11 +67,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moduli import ModuliSet
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SsmCache
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.parallel import sharding
 from repro_torch.quant import residency
 
 __all__ = ["Model", "build_model", "cross_entropy", "resolve_device",
-           "resident_bytes", "MOE_AUX_WEIGHT"]
+           "resident_bytes", "cache_roles", "MOE_AUX_WEIGHT"]
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -106,6 +117,7 @@ class Model:
     # a paged decode (ssm, hybrid, audio)
     decode_paged: Callable[..., Any] | None = None
     verify_paged: Callable[..., Any] | None = None
+    cache_roles: Callable[[Any], Any] | None = None
 
 
 def build_model(cfg: ArchConfig, *, system: str = "bns",
@@ -136,21 +148,34 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         if rns_mset is not None:
             dense_kw["mset"] = prep_kw["mset"] = rns_mset
 
-    def prepare_tree(node, name=None):
+    def resident(w, path, in_list):
+        """``w`` made resident, and under a shard context this rank's
+        block on the specs of its name rule."""
+        t = residency.prepare_weight(w, roles=False, **prep_kw)
+        ctx = sharding.get_shard_ctx()
+        if ctx is None:
+            return t
+        roles = sharding.rule_roles(path, t.shape, ctx.axis_size("tp"),
+                                    in_list=in_list)
+        return sharding.shard_residue_tensor(t, roles, ctx)
+
+    def prepare_tree(node, name=None, path=(), in_list=False):
         if isinstance(node, list):
-            return [prepare_tree(v) for v in node]
+            return [prepare_tree(v, None, path + (str(i),), True)
+                    for i, v in enumerate(node)]
         if residency.makes_resident(name, node):
             if isinstance(node, dict):
-                return residency.prepare_dense(node, **prep_kw)
-            return residency.prepare_weight(node, **prep_kw)
+                return {"w": resident(node["w"], path + ("w",), in_list)}
+            return resident(node, path, in_list)
         if not isinstance(node, dict):
             return node
-        out = {k: prepare_tree(v, k) for k, v in node.items()}
+        out = {k: prepare_tree(v, k, path + (k,), in_list)
+               for k, v in node.items()}
         if name == "embed" and "logits_w" not in out and not encdec:
             # tied-embedding logits matmul; the f32 table stays for the
             # embedding gather
-            out["logits_w"] = residency.prepare_weight(
-                out["table"].to(torch.float32).T, **prep_kw)
+            out["logits_w"] = resident(out["table"].to(torch.float32).T,
+                                       path + ("logits_w",), in_list)
         return out
 
     encdec = cfg.is_encdec
@@ -166,7 +191,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         residue-resident; the moe router stays float."""
         if system == "bns":
             return params
-        return {k: prepare_tree(v, k) for k, v in params.items()}
+        return {k: prepare_tree(v, k, (k,)) for k, v in params.items()}
 
     pd = getattr(torch, cfg.param_dtype)
 
@@ -264,7 +289,39 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
                  prepare_weight=prepare_weight, prefill=prefill,
                  decode=decode, init_cache=init_cache,
                  decode_paged=decode_paged if paged else None,
-                 verify_paged=verify_paged if paged else None)
+                 verify_paged=verify_paged if paged else None,
+                 cache_roles=cache_roles)
+
+
+def cache_roles(cache) -> Any:
+    """Roles of every cache leaf (:class:`~repro_torch.parallel.sharding.
+    Roles`, the reference's rule): KV ``(L, B, T, kv, hd)`` batch over dp
+    and sequence over tp (over ``("tp", "dp")`` at B 1, so a batch of one
+    still splits the sequence), the conv history ``(L, B, K-1, conv_dim)``
+    its channels over tp, the SSM state ``(L, B, H, P, N)`` its heads."""
+    Roles = sharding.Roles
+
+    def roles_for(leaf, kind: str) -> Roles:
+        if kind == "kv":
+            seq = ("tp",) if leaf.shape[1] > 1 else ("tp", "dp")
+            return Roles.of(None, "dp", seq, None, None)
+        if kind == "conv":
+            return Roles.of(None, "dp", None, "tp")
+        return Roles.of(None, "dp", "tp", None, None)
+
+    def map_kv(c: KVCache):
+        return KVCache(roles_for(c.k, "kv"), roles_for(c.v, "kv"))
+
+    def map_ssm(c: SsmCache):
+        return SsmCache(roles_for(c.conv, "conv"),
+                        roles_for(c.state, "state"))
+
+    if isinstance(cache, KVCache):
+        return map_kv(cache)
+    if isinstance(cache, SsmCache):
+        return map_ssm(cache)
+    return {k: map_kv(v) if isinstance(v, KVCache) else map_ssm(v)
+            for k, v in cache.items()}
 
 
 def resident_bytes(params: Any) -> int:

@@ -15,7 +15,10 @@ page and runs the split-KV paged decode kernel over the slot's page list;
 the speculative verify appends a block of V tokens a slot and runs the
 same kernel with the V rows folded into its batch.  KV heads stay
 ungrouped ``(B, T, Kv, hd)``; the kernels map query head ``h`` onto KV
-head ``h // (H // Kv)``.  The attention width ``n_heads * head_dim`` may
+head ``h // (H // Kv)``.  Under a shard context the kernels run in both
+plane layouts (``numerics/attention.py`` splits the batch over dp): the
+reference's switch to materialized scores under its column layout is not
+copied.  The attention width ``n_heads * head_dim`` may
 differ from ``d_model`` (pixtral-12b's is 4096 against 5120): ``wq`` maps
 onto it and ``wo`` back.  ``apply_rope=False`` (the audio family, whose
 positions are sinusoidal embeddings added to the input) leaves q and k

@@ -65,12 +65,14 @@ def _check_resident(w: ResidueTensor, bits: int, mset: ModuliSet,
 def _qmatmul_resident(x: torch.Tensor, w: ResidueTensor, bits: int,
                       subscripts: str | None = None) -> torch.Tensor:
     """x: (M, K) f32, w: prepared (K, N) -> (M, N) f32; with
-    ``subscripts`` the stacked einsum (*stack, M, K) x (*stack, K, N)."""
+    ``subscripts`` the stacked einsum (*stack, M, K) x (*stack, K, N).
+    Under a shard context the product comes back whole on every rank, and
+    so does the scale of a sharded weight."""
     qmax = qmax_for_bits(bits)
     qx, sx = quantize_symmetric(x, bits, axis=-1)       # per-token scales
     acc = (nx.matmul(qx, w, max_abs_a=qmax) if subscripts is None
            else nx.einsum(subscripts, qx, w, max_abs_a=qmax))
-    return acc.to(torch.float32) * sx * w.scale
+    return acc.to(torch.float32) * sx * w.whole_scale()
 
 
 def _split_subscripts(subscripts: str) -> tuple[str, str, str]:

@@ -13,6 +13,13 @@ Layouts: ``"rns"`` (centered residue planes, the channel-wise matmul),
 to its matvec schedule) and ``"sd_matvec"`` (the matvec schedule pinned).
 
 The kernel implementation follows the tensors' device (numerics/registry).
+
+Under an installed :class:`~repro_torch.parallel.sharding.ShardCtx`,
+:func:`matmul` and :func:`einsum` resolve a plan from the context, the
+tensor's moduli set and where its planes sit (``runners.weight_plan``),
+take this rank's planes block for it (``runners.plan_planes``) and run the
+runner's per-rank body; every rank gets the whole result.  A sharded tensor decodes and scrubs as
+the whole tensor does.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import runners
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.parallel.sharding import relayout
 from repro_torch.quant.quant import qmax_for_bits, quantize_symmetric
 
 __all__ = ["EncodeSpec", "encode", "decode", "scrub", "matmul", "einsum",
@@ -97,6 +105,7 @@ def decode(t: ResidueTensor, *, check: bool = False) -> torch.Tensor:
     """
     if not isinstance(t, ResidueTensor):
         raise TypeError(f"decode expects a ResidueTensor, got {type(t)}")
+    t = t.unsharded()
     if check and t.mset.redundant and t.layout == "rns":
         cf = t.planes.movedim(t.channel_axis, 0).to(torch.int32)
         codes = t.mset.corrected_decode(cf)
@@ -118,7 +127,9 @@ def scrub(t: ResidueTensor, *, sync: bool = True):
     and the counts of inconsistent and repaired elements, host ints, or
     with ``sync=False`` 0-d device tensors the caller reads later (the
     engine's overlapped scrub).  Sets without redundancy come back as they
-    are with zero counts.
+    are with zero counts.  A sharded tensor is checked whole (its blocks
+    gathered) and comes back as this rank's block of the repaired planes,
+    with the whole tensor's counts.
     """
     if not isinstance(t, ResidueTensor):
         raise TypeError(f"scrub expects a ResidueTensor, got {type(t)}")
@@ -129,9 +140,16 @@ def scrub(t: ResidueTensor, *, sync: bool = True):
         raise ValueError(f"scrub supports the 'rns' layout, got {t.layout!r}"
                          " (redundant rns_pack pages go through "
                          "kv_pages.verify_pages)")
-    cf = t.planes.movedim(t.channel_axis, 0).to(torch.int32)
+    whole = t.unsharded()
+    cf = whole.planes.movedim(t.channel_axis, 0).to(torch.int32)
     fixed, det, cor = t.mset.correct(cf)
-    t2 = t._with_planes(fixed.movedim(0, t.channel_axis).to(t.planes.dtype))
+    fixed = fixed.movedim(0, t.channel_axis).to(t.planes.dtype)
+    if t.sharding is not None:
+        sh = t.sharding
+        fixed = relayout(fixed, sh.ctx.mesh, (None,) * fixed.dim(),
+                         sh.planes).clone(
+                             memory_format=torch.contiguous_format)
+    t2 = t._with_planes(fixed)
     det, cor = det.sum(), cor.sum()
     return (t2, int(det), int(cor)) if sync else (t2, det, cor)
 
@@ -162,12 +180,15 @@ def matmul(a: torch.Tensor, t: ResidueTensor, *,
         raise ValueError("tensor has no magnitude bound (encode with "
                          "qbits=); the bound drives K-segmentation")
     maa = t.max_abs if max_abs_a is None else max_abs_a
+    shard = runners.weight_plan(t, a.shape[0])
+    planes = runners.plan_planes(t, shard)
     if t.is_sd:
-        return runners.sdrns_run(a, t.planes, mset=t.mset, max_abs_a=maa,
+        return runners.sdrns_run(a, planes, mset=t.mset, max_abs_a=maa,
                                  max_abs_b=t.max_abs,
-                                 force_matvec=t.layout == "sd_matvec")
-    return runners.rns_run(a, t.planes, mset=t.mset, max_abs_a=maa,
-                           max_abs_b=t.max_abs)
+                                 force_matvec=t.layout == "sd_matvec",
+                                 shard=shard)
+    return runners.rns_run(a, planes, mset=t.mset, max_abs_a=maa,
+                           max_abs_b=t.max_abs, shard=shard)
 
 
 def _parse_stacked(subscripts: str) -> int:
@@ -206,7 +227,8 @@ def einsum(subscripts: str, a: torch.Tensor, t: ResidueTensor, *,
     (E, d, f) expert-stacked encoded weights.  Every slice equals
     :func:`matmul` of its own bit for bit.  ``rns`` planes run as one stack
     through ``runners.rns_run`` (one kernel launch a K segment for the
-    whole stack, where the reference scans its runner over the slices);
+    whole stack, where the reference scans its runner over the slices; on
+    the channel plan B1's stack mode runs S x C_loc folded channels);
     the sd layouts run slice by slice through ``runners.sdrns_run``.
     Returns ``(*stack, M, N)`` int32.
     """
@@ -237,18 +259,21 @@ def einsum(subscripts: str, a: torch.Tensor, t: ResidueTensor, *,
         raise ValueError("tensor has no magnitude bound (encode with "
                          "qbits=); the bound drives K-segmentation")
     maa = t.max_abs if max_abs_a is None else max_abs_a
+    shard = runners.weight_plan(t, a.shape[-2])
+    planes = runners.plan_planes(t, shard)
     S = 1
     for n in stack_shape:
         S *= n
     a_r = a.reshape(S, *a.shape[stack_nd:])
-    p_r = t.planes.reshape(S, *t.planes.shape[stack_nd:])
+    p_r = planes.reshape(S, *planes.shape[stack_nd:])
     if t.is_sd:
         out = torch.stack([runners.sdrns_run(
             a_r[i], p_r[i], mset=t.mset, max_abs_a=maa, max_abs_b=t.max_abs,
-            force_matvec=t.layout == "sd_matvec") for i in range(S)])
+            force_matvec=t.layout == "sd_matvec", shard=shard)
+            for i in range(S)])
     else:
         out = runners.rns_run(a_r, p_r, mset=t.mset, max_abs_a=maa,
-                              max_abs_b=t.max_abs)
+                              max_abs_b=t.max_abs, shard=shard)
     return out.reshape(*stack_shape, *out.shape[1:])
 
 

@@ -17,6 +17,16 @@
 The decodes combine their partials with :func:`merge_decode_partials`.
 
 The implementation follows the device of ``q`` (numerics/registry).
+
+Under an installed :class:`~repro_torch.parallel.sharding.ShardCtx`,
+:func:`flash_attention` and :func:`flash_decode` run their kernel on this
+rank's batch rows over ``dp`` (when B divides) and all-gather the rows, so
+attention is replicated over ``tp`` and every rank holds the whole output
+(:func:`_batch_plan`, the counterpart of the reference's
+``_channel_ctx_plan``).  The port does this under both plane layouts: the
+reference sends its column layout to materialized attention for the sake
+of its partitioner's layouts, which the port does not have.  The paged
+decode runs as it is: serving engines take the dense cache under a mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +42,8 @@ from repro_torch.kernels.flash_attn import (
 )
 from repro_torch.numerics import kv_pages as _kv
 from repro_torch.numerics.registry import get_impl, register_impl
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as _sh
 
 __all__ = ["flash_attention", "flash_decode", "paged_decode", "paged_verify",
            "merge_decode_partials", "pick_block", "set_decode_block"]
@@ -82,6 +94,30 @@ def merge_decode_partials(o_p: torch.Tensor, m_p: torch.Tensor,
     return o / torch.clamp(l_tot, min=1e-30)[..., None]
 
 
+def _batch_plan(B: int):
+    """``(mesh, dp)`` when a shard context splits the batch over dp (B
+    divides), else None: the kernel then runs on every rank's whole
+    batch."""
+    ctx = _sh.get_shard_ctx()
+    if ctx is None:
+        return None
+    dp = ctx.resolve("dp")
+    if not dp or ctx.axis_size(dp) <= 1 or B % ctx.axis_size(dp):
+        return None
+    return ctx.mesh, dp
+
+
+def _per_rows(plan, fn, *batched):
+    """``fn`` on this rank's batch rows of each tensor (None passes), the
+    output's rows gathered over dp."""
+    if plan is None:
+        return fn(*batched)
+    mesh, dp = plan
+    local = [None if x is None else _sh.local_block(x, 0, dp, mesh)
+             for x in batched]
+    return collectives.all_gather(fn(*local), 0, mesh, dp)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     kv_len: torch.Tensor | None = None) -> torch.Tensor:
@@ -91,7 +127,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, Sq, H, hd) in q's dtype.
     """
     impl = get_impl("flash_attention", q.device)
-    return impl(q, k, v, kv_len, causal=causal)
+    return _per_rows(_batch_plan(q.shape[0]),
+                     lambda q_, k_, v_, len_: impl(
+                         q_.contiguous(), k_.contiguous(), v_.contiguous(),
+                         len_, causal=causal),
+                     q, k, v, kv_len)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -107,7 +147,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = torch.as_tensor(kv_len, device=q.device).to(
         torch.int32).expand(B).contiguous()
     impl = get_impl("flash_decode", q.device)
-    return merge_decode_partials(*impl(q.contiguous(), k, v, kv_len, bk))
+    return _per_rows(_batch_plan(B),
+                     lambda q_, k_, v_, len_: merge_decode_partials(*impl(
+                         q_.contiguous(), k_.contiguous(), v_.contiguous(),
+                         len_.contiguous(), bk)),
+                     q, k, v, kv_len)
 
 
 def paged_decode(q: torch.Tensor, kv_layer: "_kv.PagedKV",

@@ -12,6 +12,11 @@
 * ``mset``, ``layout``, ``qbits``, ``max_abs``: the moduli set, the layout
   tag, the prepare-time bit width and the magnitude bound that drives
   K-segmentation.
+* ``sharding``: None, or where this rank's block sits on a mesh
+  (``parallel.sharding.ResidueSharding``): ``planes`` and ``scale`` then
+  hold the rank's blocks, while :attr:`~ResidueTensor.shape` is the whole
+  value's.  :meth:`ResidueTensor.leaf_roles` maps roles of the value onto
+  the planes and the scale (the hook the sharding rules traverse).
 
 Ring ops (``+``, ``-``, ``*``, unary ``-``) are exact mod M: centered plane
 arithmetic for ``rns``, the carry-free SD adder and Eq. 2 multiplier of
@@ -23,6 +28,7 @@ re-centers lazily reduced ``rns`` planes.  Every op builds its result with
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -53,6 +59,7 @@ class ResidueTensor:
     layout: str = "rns"
     qbits: int | None = None
     max_abs: int | None = None
+    sharding: Any = None
 
     def __post_init__(self):
         self._validate()
@@ -64,6 +71,7 @@ class ResidueTensor:
         if self.mset is None:
             raise ValueError("ResidueTensor needs a ModuliSet")
         need = 4 if self.is_sd else 3
+        planes_shape = self.whole_shapes()[0]
         if self.planes.dim() < need:
             raise ValueError(
                 f"{self.layout} planes need >= {need} dims (*stack, C, K, N"
@@ -77,10 +85,10 @@ class ResidueTensor:
                 raise ValueError(
                     "redundant rns_pack needs one value per byte, got "
                     f"vpb={fmt.values_per_byte} for {self.mset.moduli}")
-        if self.planes.shape[self.channel_axis] != lanes:
+        if planes_shape[self.channel_axis] != lanes:
             raise ValueError(
                 f"{self.layout} planes need {lanes} channel lane(s) at axis "
-                f"{self.channel_axis}, got shape {tuple(self.planes.shape)}")
+                f"{self.channel_axis}, got shape {planes_shape}")
         if self.is_sd:
             if self.mset.redundant:
                 raise ValueError(
@@ -105,10 +113,19 @@ class ResidueTensor:
     def channel_axis(self) -> int:
         return self.planes.dim() - (4 if self.is_sd else 3)
 
+    def whole_shapes(self) -> tuple[tuple[int, ...], tuple[int, ...] | None]:
+        """Shapes of the whole planes and scale (this rank's blocks' shapes
+        when the tensor is not sharded)."""
+        if self.sharding is not None:
+            return self.sharding.planes_shape, self.sharding.scale_shape
+        return (tuple(self.planes.shape),
+                None if self.scale is None else tuple(self.scale.shape))
+
     @property
     def shape(self) -> tuple[int, ...]:
-        """Shape of the represented integer value."""
-        s = list(self.planes.shape)
+        """Shape of the represented integer value (the whole value's when
+        the tensor is sharded)."""
+        s = list(self.whole_shapes()[0])
         if self.is_sd:
             del s[-1]
         del s[self.channel_axis]
@@ -121,14 +138,17 @@ class ResidueTensor:
         return self.shape[:-2]
 
     def nbytes(self) -> int:
-        """Bytes held by the planes and the scale."""
+        """Bytes held by the planes and the scale (this rank's blocks)."""
         n = self.planes.numel() * self.planes.element_size()
         if self.scale is not None:
             n += self.scale.numel() * self.scale.element_size()
         return n
 
     def to_int(self) -> torch.Tensor:
-        """Reverse conversion to int32 values (ignores ``scale``)."""
+        """Reverse conversion to int32 values (ignores ``scale``); a sharded
+        tensor is gathered whole first."""
+        if self.sharding is not None:
+            return self.unsharded().to_int()
         if self.layout == "rns_pack":
             return self.mset.packed().decode(
                 self.planes.select(self.channel_axis, 0))
@@ -137,10 +157,76 @@ class ResidueTensor:
             return sdrns.sdrns_decode(cf, self.mset)
         return self.mset.from_residues(cf.to(torch.int32))
 
+    def whole_scale(self) -> torch.Tensor | None:
+        """The whole scale (gathered over the mesh when sharded)."""
+        sh = self.sharding
+        if sh is None or self.scale is None:
+            return self.scale
+        from repro_torch.parallel.sharding import relayout
+
+        return relayout(self.scale, sh.ctx.mesh, sh.scale,
+                        (None,) * len(sh.scale))
+
+    def unsharded(self) -> "ResidueTensor":
+        """The whole tensor (gathered over the mesh when sharded)."""
+        from repro_torch.parallel.sharding import unshard_residue_tensor
+
+        return unshard_residue_tensor(self)
+
+    # -- sharding ------------------------------------------------------------
+    def leaf_roles(self, value_roles, *, channel_role=None):
+        """Roles of the planes and the scale from roles of the represented
+        ``(*stack, K, N)`` value (``len(value_roles) == len(self.shape)``).
+
+        * planes ``(*stack, C, K, N[, n])``: stack, K and N roles pass
+          through around the channel axis, which takes ``channel_role``
+          (None: replicated channels; ``"tp"``: the channel-split layout);
+          the SD digit axis is never split.
+        * scale (broadcastable against the value): the value roles aligned
+          from the right, size-1 dims replicated.
+
+        Under a channel role that role is stripped from every other dim (a
+        mesh axis appears once in a spec: the two layouts are
+        alternatives); roles on other axes (dp on K, or on N of a
+        row-parallel weight) stay.  Returns ``(planes_roles,
+        scale_roles)``, ``scale_roles`` None without a scale.
+        """
+        roles = list(value_roles)
+        if len(roles) != len(self.shape):
+            raise ValueError(f"{len(roles)} value roles for represented "
+                             f"shape {self.shape} (want {len(self.shape)})")
+        stack_roles = tuple(roles[:-2])
+        k_role, n_role = roles[-2], roles[-1]
+        if channel_role is not None:
+            def drop(r):
+                if r == channel_role:
+                    return None
+                if isinstance(r, (tuple, list)):
+                    return tuple(x for x in r if x != channel_role) or None
+                return r
+
+            stack_roles = tuple(drop(r) for r in stack_roles)
+            k_role, n_role = drop(k_role), drop(n_role)
+        planes_roles = stack_roles + (channel_role, k_role, n_role)
+        if self.is_sd:
+            planes_roles += (None,)
+        scale_shape = self.whole_shapes()[1]
+        if scale_shape is None:
+            return planes_roles, None
+        vroles = stack_roles + (k_role, n_role)
+        offset = len(vroles) - len(scale_shape)
+        scale_roles = tuple(
+            None if dim == 1 or i + offset < 0 else vroles[i + offset]
+            for i, dim in enumerate(scale_shape))
+        return planes_roles, scale_roles
+
     # -- ring ops (exact mod M) ----------------------------------------------
     def _check_ring_op(self, other: "ResidueTensor") -> None:
         if not isinstance(other, ResidueTensor):
             raise TypeError(f"expected ResidueTensor, got {type(other)}")
+        if self.sharding is not None or other.sharding is not None:
+            raise ValueError("ring ops take whole tensors; unshard a "
+                             "sharded one first (ResidueTensor.unsharded)")
         if "rns_pack" in (self.layout, other.layout):
             raise ValueError("rns_pack is a storage layout (bit-packed KV "
                              "pages); decode before arithmetic")
@@ -199,6 +285,8 @@ class ResidueTensor:
 
     def __neg__(self) -> "ResidueTensor":
         # digit-wise / plane-wise in both layouts: no carry chain at all
+        if self.sharding is not None:
+            raise ValueError("ring ops take whole tensors; unshard first")
         if self.scale is not None:
             raise ValueError("negation of scaled tensors is ill-defined")
         if self.layout == "rns_pack":
@@ -210,4 +298,6 @@ class ResidueTensor:
         closed over {-1, 0, 1} and ``rns_pack`` is storage: no-ops."""
         if self.is_sd or self.layout == "rns_pack":
             return self
+        if self.sharding is not None:
+            raise ValueError("flush takes a whole tensor; unshard first")
         return self._with_planes(self._center(self.planes))

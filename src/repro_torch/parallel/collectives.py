@@ -1,0 +1,188 @@
+"""The collectives of the sharded paths, over the axes of a device mesh.
+
+Port-side helper (the reference names ``jax.lax`` collectives inside its
+``shard_map`` bodies).  Each function takes the
+``torch.distributed.device_mesh.DeviceMesh`` and a tuple of its axis names;
+a tuple of several axes runs one collective per axis, ordered so that the
+result equals one collective over the axes' flattened group, its blocks
+ordered major to minor (the spec order of a tuple entry).
+
+``gloo`` takes CPU tensors only for most collectives, so a CUDA tensor on a
+``gloo`` group is staged through host memory (:func:`_staged`); the kernels
+keep their operands on the card either way.  ``nccl`` takes it as it is.
+An axis of size 1 needs no collective and gets none.
+
+:func:`moved_bytes` counts, per collective, the payload bytes this process
+sent or received since :func:`reset_moved_bytes`: an all-gather the blocks
+of the other members, an all-reduce its tensor, a reduce-scatter its input,
+a broadcast, send or recv its tensor.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["axis_index", "axis_size", "all_gather", "all_reduce",
+           "reduce_scatter", "broadcast", "send", "recv", "moved_bytes",
+           "reset_moved_bytes"]
+
+_MOVED: dict[str, int] = {}
+
+
+def moved_bytes() -> dict[str, int]:
+    """``{collective: payload bytes}`` since the last reset."""
+    return dict(_MOVED)
+
+
+def reset_moved_bytes() -> None:
+    _MOVED.clear()
+
+
+def _count(name: str, nbytes: int) -> None:
+    _MOVED[name] = _MOVED.get(name, 0) + nbytes
+
+
+def _dim(mesh, name: str) -> int:
+    return list(mesh.mesh_dim_names).index(name)
+
+
+def axis_size(mesh, axes: tuple[str, ...]) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.size(_dim(mesh, a))
+    return n
+
+
+def axis_index(mesh, axes: tuple[str, ...]) -> int:
+    """This rank's linear index over ``axes``, major to minor."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.size(_dim(mesh, a)) + mesh.get_local_rank(a)
+    return idx
+
+
+def _staged(x: torch.Tensor, group, op: Callable[[torch.Tensor], object]
+            ) -> object:
+    """``op`` on ``x``, through a host copy when ``group`` is a ``gloo``
+    group and ``x`` lies on the card."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return op(x.cpu())
+    return op(x)
+
+
+def _to(out, like: torch.Tensor):
+    if isinstance(out, torch.Tensor):
+        return out.to(like.device)
+    return out
+
+
+def all_gather(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...]
+               ) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim`` over ``axes`` (the
+    minor axis first, so the blocks land major to minor)."""
+    for a in reversed(axes):
+        n = mesh.size(_dim(mesh, a))
+        if n == 1:
+            continue
+        group = mesh.get_group(a)
+        _count("all_gather", (n - 1) * x.numel() * x.element_size())
+
+        def op(t, group=group, n=n):
+            t = t.contiguous()
+            bufs = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(bufs, t, group=group)
+            return torch.cat(bufs, dim=dim)
+
+        x = _to(_staged(x, group, op), x)
+    return x
+
+
+def all_reduce(x: torch.Tensor, mesh, axes: tuple[str, ...],
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or ``"max"``) of every rank's ``x`` over ``axes`` (``x``
+    itself when every axis has size 1)."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in axes:
+        if mesh.size(_dim(mesh, a)) == 1:
+            continue
+        group = mesh.get_group(a)
+        _count("all_reduce", x.numel() * x.element_size())
+
+        def fn(t, group=group):
+            t = t.clone()
+            dist.all_reduce(t, op=red, group=group)
+            return t
+
+        x = _to(_staged(x, group, fn), x)
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes: tuple[str, ...]
+                   ) -> torch.Tensor:
+    """The sum over ``axes`` of every rank's ``x``, cut on dim 0 into
+    ``axis_size`` blocks: this rank keeps block ``axis_index`` (the major
+    axis first)."""
+    for a in axes:
+        n = mesh.size(_dim(mesh, a))
+        if n == 1:
+            continue
+        group = mesh.get_group(a)
+        _count("reduce_scatter", x.numel() * x.element_size())
+
+        def fn(t, group=group, n=n):
+            t = t.contiguous()
+            out = torch.empty((t.shape[0] // n, *t.shape[1:]),
+                              dtype=t.dtype, device=t.device)
+            dist.reduce_scatter_tensor(out, t, group=group)
+            return out
+
+        x = _to(_staged(x, group, fn), x)
+    return x
+
+
+def _global(mesh, axis: str, index: int) -> int:
+    """The global rank of the member at ``index`` on ``axis`` that shares
+    this rank's other coordinates."""
+    coord = list(mesh.get_coordinate())
+    coord[_dim(mesh, axis)] = index
+    return int(mesh.mesh[tuple(coord)])
+
+
+def broadcast(x: torch.Tensor, src: int, mesh, axis: str) -> torch.Tensor:
+    """``x`` of the member at index ``src`` on ``axis``, on every member."""
+    group = mesh.get_group(axis)
+    root = _global(mesh, axis, src)
+    _count("broadcast", x.numel() * x.element_size())
+
+    def fn(t):
+        t = t.contiguous().clone()
+        dist.broadcast(t, src=root, group=group)
+        return t
+
+    return _to(_staged(x, group, fn), x)
+
+
+def send(x: torch.Tensor, dst: int, mesh, axis: str) -> None:
+    """Send ``x`` to the member at index ``dst`` on ``axis``."""
+    group = mesh.get_group(axis)
+    peer = _global(mesh, axis, dst)
+    _count("send", x.numel() * x.element_size())
+    _staged(x, group, lambda t: dist.send(t.contiguous(), dst=peer,
+                                          group=group))
+
+
+def recv(like: torch.Tensor, src: int, mesh, axis: str) -> torch.Tensor:
+    """Receive a tensor shaped like ``like`` from the member at index
+    ``src`` on ``axis``."""
+    group = mesh.get_group(axis)
+    peer = _global(mesh, axis, src)
+    _count("recv", like.numel() * like.element_size())
+
+    def fn(t):
+        buf = torch.empty_like(t)
+        dist.recv(buf, src=peer, group=group)
+        return buf
+
+    return _to(_staged(like, group, fn), like)

@@ -6,7 +6,9 @@ per-output-channel scale: residue planes under ``system="rns"`` (P21 by
 default, witness planes included for a redundant set), SD digit planes
 (layout ``"sd"``) under ``system="sdrns"``; bit-identical to the
 reference's ``repro/quant/residency.py::prepare_weight``.  The float
-weight is not kept: prepared weights are inference-only.
+weight is not kept: prepared weights are inference-only.  Under an
+installed :class:`~repro_torch.parallel.sharding.ShardCtx` the prepared
+tensor keeps this rank's block (``sharding.shard_residue_tensor``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import api as nx
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.parallel import sharding
 
 __all__ = ["SYSTEM_LAYOUT", "EXPERT_STACKS", "makes_resident",
            "prepared_kind", "prepare_weight", "prepare_dense",
@@ -48,11 +51,16 @@ def prepared_kind(w: ResidueTensor) -> str | None:
 
 
 def prepare_weight(w: torch.Tensor, *, system: str, bits: int = 4,
-                   mset: ModuliSet = P21) -> ResidueTensor:
+                   mset: ModuliSet = P21,
+                   roles: Any | None = None) -> ResidueTensor:
     """Float weight (..., K, N) -> residue-resident :class:`ResidueTensor`.
 
     Symmetric quantization per output channel (reduction over K, axis -2);
-    leading stack axes are preserved.
+    leading stack axes are preserved.  Under a shard context the result is
+    this rank's block on the specs of ``roles`` (roles of the ``(*stack, K,
+    N)`` value; None: the generic dense rule, FSDP on K and TP on N);
+    ``roles=False`` keeps it whole (``Model.prepare_params`` places each
+    weight by its name rule instead).
     """
     if system not in SYSTEM_LAYOUT:
         raise ValueError(f"prepare_weight: system must be 'rns' or "
@@ -72,14 +80,21 @@ def prepare_weight(w: torch.Tensor, *, system: str, bits: int = 4,
                          f"{tuple(w.shape)}")
     spec = nx.EncodeSpec(layout=SYSTEM_LAYOUT[system], mset=mset,
                          qbits=bits)
-    return nx.encode(w.to(torch.float32), spec)
+    t = nx.encode(w.to(torch.float32), spec)
+    ctx = sharding.get_shard_ctx()
+    if ctx is not None and roles is not False:
+        if roles is None:
+            roles = [None] * (w.dim() - 2) + ["dp", "tp"]
+        t = sharding.shard_residue_tensor(t, roles, ctx)
+    return t
 
 
 def prepare_dense(params: dict[str, Any], *, system: str, bits: int = 4,
-                  mset: ModuliSet = P21) -> dict[str, Any]:
+                  mset: ModuliSet = P21,
+                  roles: Any | None = None) -> dict[str, Any]:
     """``{"w": float}`` -> ``{"w": ResidueTensor}``."""
     return {"w": prepare_weight(params["w"], system=system, bits=bits,
-                                mset=mset)}
+                                mset=mset, roles=roles)}
 
 
 def map_resident(params: Any, fn: Callable[[ResidueTensor], Any]) -> Any:

@@ -63,6 +63,13 @@ raises; ``scrub`` still checks the weight planes before the loop.
 
 Greedy decoding takes the ``argmax``; temperature sampling draws from a
 ``torch.Generator``.
+
+Under an installed :class:`~repro_torch.parallel.sharding.ShardCtx` (a
+mesh) the engine serves from the dense cache, as the reference's does: the
+page pool is off and ``spec=`` is refused.  The weights come out of
+``prepare_params`` as this rank's blocks, and the runners' plans carry the
+matmuls; ``stats.fallback_gathers`` counts the channel-split plans that
+fell back to the gathered layout since the engine was made.
 """
 from __future__ import annotations
 
@@ -77,7 +84,9 @@ import torch
 from repro_torch.models.api import Model, resolve_device
 from repro_torch.numerics import api as nx
 from repro_torch.numerics import kv_pages as kvp
+from repro_torch.numerics import runners
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.parallel.sharding import get_shard_ctx
 from repro_torch.quant.residency import map_resident
 from repro_torch.serving.drafters import make_drafter
 from repro_torch.serving.kv_pool import KVPagePool
@@ -155,6 +164,9 @@ class ServingEngine:
         docstring).  It needs paged serving, greedy sampling and
         ``policy="off"``; the ``rns`` drafter derives its draft weights
         from this engine's resident ones here.
+
+        Under a shard context paged serving is off (the dense cache serves)
+        and ``spec`` is refused.
         """
         dev = resolve_device(device)
         if dev != model.device:
@@ -169,12 +181,16 @@ class ServingEngine:
         self.page_size = page_size
         self.kv_format = kv_format
         self.cache_dtype = cache_dtype
-        supported = model.decode_paged is not None
+        # baseline of the process-lifetime fallback counter
+        self._fallback_base = runners.fallback_gather_count()
+        mesh = get_shard_ctx() is not None
+        supported = model.decode_paged is not None and not mesh
         if paged is None:
             paged = supported
         elif paged and not supported:
-            logger.info("paged serving unsupported for family %s: serving "
-                        "from the dense cache", model.cfg.family)
+            logger.info("paged serving unsupported here (family %s, mesh "
+                        "%s): serving from the dense cache",
+                        model.cfg.family, mesh)
             paged = False
         self.paged = paged
         self.pool = None
@@ -193,6 +209,10 @@ class ServingEngine:
         self.spec = None
         self._drafter = None
         if spec is not None:
+            if mesh:
+                raise ValueError("spec= is not supported under a mesh (the "
+                                 "engine serves from the dense cache "
+                                 "there)")
             if not self.paged:
                 raise ValueError("spec= needs paged serving (a family with a "
                                  "paged decode, and paged not False)")
@@ -597,6 +617,13 @@ class ServingEngine:
             f.syndromes += fresh
         return buf, n, done, recompute
 
+    def _sync_fallback_gathers(self) -> None:
+        """``stats.fallback_gathers`` from the runners' counter: nonzero
+        means this engine's mesh and moduli set do not fit the channel
+        split, and its matmuls gather the channels instead."""
+        self.stats.fallback_gathers = (runners.fallback_gather_count()
+                                       - self._fallback_base)
+
     # -- the dense-cache loop ------------------------------------------------
 
     def _generate_dense(self, tok, cache, plen, max_new, eos_vec, done0,
@@ -628,6 +655,7 @@ class ServingEngine:
         t2 = time.perf_counter()
         self.stats.decode_steps += steps
         self.stats.decode_dispatches += steps
+        self._sync_fallback_gathers()
         return GenerateResult(
             tokens=tokens_np, prefill_logits=prefill_logits, steps=steps,
             stats=RequestStats(decode_steps=steps, decode_dispatches=steps,
@@ -766,6 +794,7 @@ class ServingEngine:
         for p in slot_pages:
             pool.release(p)
         f_det, f_cor = self._last_scrub
+        self._sync_fallback_gathers()
         return GenerateResult(
             tokens=tokens_np, prefill_logits=prefill_logits, steps=steps,
             stats=RequestStats(
@@ -874,6 +903,7 @@ class ServingEngine:
                 tabs, seg, 0.0, None, stop_on_finish)
             counts = np.full(B, steps, np.int64)
         f_det, f_cor = self._last_scrub
+        self._sync_fallback_gathers()
         return SegmentResult(tokens=buf, steps=steps, done=done,
                              faults_detected=f_det, faults_corrected=f_cor,
                              counts=counts, proposed=prop, accepted=acc,

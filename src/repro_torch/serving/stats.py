@@ -100,6 +100,12 @@ class EngineStats:
 
     decode_steps: int = 0
     decode_dispatches: int = 0
+    # channel_shard plans that fell back to the gathered layout (C not
+    # dividing the tensor axis, no moduli set, or a set past the int32
+    # partial-CRT bound) since the engine was made; the port resolves a
+    # plan at every matmul call, so this counts calls.  Mirrors
+    # runners.fallback_gather_count()
+    fallback_gathers: int = 0
     pool: PoolStats | None = None
     faults: FaultStats = dataclasses.field(default_factory=FaultStats)
     spec: SpecStats | None = None   # set when the engine runs with spec=

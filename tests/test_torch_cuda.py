@@ -898,3 +898,27 @@ def test_narrow_cnn_card_matches_cpu(gen, system):
             {k: {n: t.cpu() for n, t in v.items()} for k, v in
              params.items()}, spec, x, dense_kw=kw)
     assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("n,layout", [(2, "col"), (2, "row"), (3, "chan")])
+def test_mesh_plans_on_card_equal_one_launch(tmp_path, n, layout):
+    """The column and row plans on 2 ranks and the channel plan on 3, ranks
+    that share the card in a gloo group: one full-width qwen3 projection
+    (w_up, K 4096 x N 12288) at M 8 and M 2048, and w_down (K 12288) at M
+    8; each rank's output equals the single-device product (one B1 launch)
+    bit for bit, with one B1 launch a rank on its block (N / 2 columns,
+    K / 2 rows, or one of P21's channels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh
+
+    shapes = [(4096, 12288, 8), (4096, 12288, 2048), (12288, 4096, 8)]
+    ranks = torch_mesh.RankRun(torch_mesh.card_plan_body, n, tmp_path, n,
+                               layout, shapes).results(timeout=600)
+    for out in ranks:
+        for (K, N, M), r in out.items():
+            assert r["equal"], (K, N, M)
+            assert r["launches"] == (1, 1)
+            assert r["block"] == {"col": (3, K, N // 2),
+                                  "row": (3, K // 2, N),
+                                  "chan": (1, K, N)}[layout]
