@@ -71,6 +71,14 @@ Phases (each prints its lines; any failure raises and the exit code is not
    both with the decode chunk set to the page size: prefill logits and
    tokens equal bit for bit, exact launch counts, and the B5 launches of
    the first decode step equal to the plain version on their own inputs.
+   roofline -- the work of one prefill and one decode step of that model
+   (``model.prefill`` at s_max = prompt + 1, then ``model.decode`` of one
+   token on the dense cache) counted by ``roofline/op_cost.py`` on the card
+   and on a meta build of the same config and shapes: equal op by op and
+   kind by kind, the decode step's B1 bound equal to the kernel table's
+   (QWEN3_STEP's shapes at this depth); prints the counts, the compute and
+   memory terms, the measured steps, the roofline share and the MFU beside
+   the card's name and power limit.
 9. serve-hybrid -- zamba2-7b at full width and depth (81 Mamba2 layers, 13
    applications of the shared attention block, 3 tail layers) under
    ``system="rns"`` on the dense bf16 cache, batch 8, 256-token prompts, 64
@@ -129,7 +137,9 @@ Phases (each prints its lines; any failure raises and the exit code is not
    from its checkpoint ends bit-identical to an uninterrupted one; the
    sdrns step's loss and gradients equal the rns step's bit for bit, every
    B6 launch held; ``ServingEngine(prepare=False)`` gives the prepared
-   engine's prefill logits and tokens.
+   engine's prefill logits and tokens; the prepared tree saved from the card
+   (``train/checkpoint.py``, the reference's ``.../w/0`` / ``.../w/1``
+   layout) and restored onto the card serves the same logits and tokens.
 16. cnn -- the paper's DNN evaluation (``data/cifar.py``) at its published
    CIFAR shapes: AlexNet trained as ``examples/torch_rns_cnn_inference.py``
    trains it (60 float SGD steps under ``bns``), VGG-16 on random weights
@@ -195,9 +205,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet; dense): bytes/s and operations/s.
-HBM_BPS = 3.35e12
-PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 SEED = 0
 FLUSH_BYTES = 256 << 20      # > the 50 MB L2: every timed launch starts cold
 
@@ -366,10 +373,14 @@ def earlier(key: str) -> str:
     return f" (before the redesign: {BEFORE_MS[key]:.3f}{draw})"
 
 
-def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK[kind]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_ms(work) -> tuple[float, str]:
+    """The least ms on the card for ``work`` (a ``roofline.op_cost.Work``
+    from the op's cost function): its bytes at the HBM rate or its
+    operations at their kind's peak (``roofline/hw.py``), whichever is
+    larger, and which one it is."""
+    from repro_torch.roofline import op_cost
+
+    return op_cost.bound_ms(work.bytes, work.ops, work.kind)
 
 
 class Timer:
@@ -507,6 +518,7 @@ def b1_shape(torch, timer, gen, mset, label, M, K, N):
     plain version, then kernel, plain version, ``_int_mm`` and a bf16
     ``bmm`` yardstick timed beside the bound (see ``check_rns_matmul``)."""
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+    from repro_torch.roofline import op_cost
 
     C, h = mset.num_channels, max(mset.moduli) // 2
     a = torch.randint(-h, h + 1, (C, M, K), generator=gen, device="cuda",
@@ -528,8 +540,7 @@ def b1_shape(torch, timer, gen, mset, label, M, K, N):
     ms = timer(lambda: rns_matmul_cuda(a, b, mset.moduli), 10)
     plain = timer(lambda: rns_matmul_ref(a, b, mset.moduli), 3)
     bmm = timer(lambda: torch.bmm(ab, bb), 10)
-    nbytes = C * (M * K + K * N + 4 * M * N)
-    bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+    bms, by = bound_ms(op_cost.COSTS["rns_matmul"](a, b, mset.moduli))
     key = f"rns_matmul[{label},{M},{K},{N}]"
     padded = f", M padded to {pad}" if pad != M else ""
     print(f"[kernels] rns_matmul[{label}] C={C} M={M} K={K} N={N} "
@@ -636,6 +647,7 @@ def check_rns_matmul_spec(torch, timer, gen):
     Returns one entry a (planes, M) with its step total."""
     from repro_torch.core.moduli import P16, P21
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+    from repro_torch.roofline import op_cost
 
     mv = SERVE_B * (SPEC_K + 1)
     res = {}
@@ -684,8 +696,11 @@ def check_rns_matmul_spec(torch, timer, gen):
                     layouts.add(lay_s)
                     del a_s, b_s, ref
                 layout = "; ".join(sorted(layouts))
-                nbytes = C * (M * K + K * N + 4 * M * N * len(segs))
-                bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+                work = None
+                for lo, hi in segs:
+                    w = op_cost.rns_matmul_work(C, M, hi - lo, N)
+                    work = w if work is None else work + w
+                bms, by = bound_ms(work)
                 per[(K, N)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                    bound_ms=bms, bound_by=by,
                                    segments=len(segs))
@@ -725,6 +740,7 @@ def check_rns_matmul_moe(torch, timer, gen):
     from repro_torch.core.moduli import P21
     from repro_torch.kernels import rns_matmul as rmk
     from repro_torch.models.moe import moe_capacity
+    from repro_torch.roofline import hw, op_cost
 
     E, C, h = MOE_E, P21.num_channels, max(P21.moduli) // 2
     res = {}
@@ -763,16 +779,16 @@ def check_rns_matmul_moe(torch, timer, gen):
             ab = a.reshape(E * C, M, K).bfloat16()
             bb = b.reshape(E * C, K, N).bfloat16()
             bmm = timer(lambda: torch.bmm(ab, bb), 10)
-            nbytes = E * C * (M * K + K * N + 4 * M * N)
-            ops = 2 * E * C * M * K * N
-            bms, by = bound_ms(nbytes, ops, "int8")
+            work = op_cost.COSTS["rns_matmul"](a, b, P21.moduli)
+            nbytes, ops = work.bytes, work.ops
+            bms, by = bound_ms(work)
             print(f"[kernels] {what} P21, one stacked launch: bit-exact "
                   f"against the plain version and {E} launches; kernel_ms="
                   f"{ms:.4f} ({E} launches: {sep:.4f}) plain_ms={plain:.4f} "
                   f"library_ms(_int_mm per slice and channel, {layout})="
                   f"{lib:.4f} yardstick bf16_bmm_ms={bmm:.4f} bound_ms="
                   f"{bms:.4f} ({by}; {nbytes / 1e6:.1f} MB, ops "
-                  f"{1e3 * ops / PEAK['int8']:.4f} ms)", flush=True)
+                  f"{1e3 * ops / hw.PEAK_OPS_INT8:.4f} ms)", flush=True)
             per[f"{M},{K},{N}"] = dict(
                 ms=ms, slices_ms=sep, plain_ms=plain, library_ms=lib,
                 yardstick_bf16_bmm_ms=bmm, bound_ms=bms, bound_by=by)
@@ -805,6 +821,7 @@ def check_paged_verify(torch, timer, gen):
                                                 paged_decode_ref)
     from repro_torch.numerics import kv_pages as kvp
     from repro_torch.numerics.attention import merge_decode_partials
+    from repro_torch.roofline import op_cost
 
     B, V, H, Kv, hd, ps, n_pmax = SERVE_B, SPEC_K + 1, 32, 8, 128, 64, 6
     P = 1 + B * n_pmax
@@ -827,10 +844,9 @@ def check_paged_verify(torch, timer, gen):
         if fmt.is_residue:
             pages = (lay.k.planes.select(-3, 0), lay.v.planes.select(-3, 0),
                      lay.k.scale, lay.v.scale)
-            pack, row_bytes, kind = fmt.pack, hd + 4, "f32"
+            pack = fmt.pack
         else:
-            pages, pack, row_bytes, kind = (lay.k, lay.v, None, None), None, \
-                2 * hd, "bf16"
+            pages, pack = (lay.k, lay.v, None, None), None
         args = (*pages, tab, kv_len, ps, pack)
         parts = paged_decode_cuda(q, *args)
         rows = torch.arange(B * V, device="cuda").reshape(B, V)
@@ -864,13 +880,8 @@ def check_paged_verify(torch, timer, gen):
         lib = timer(lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], vals[0], vals[1], attn_mask=mask,
             enable_gqa=True), 20)
-        n_rows = int(kv_len.sum())
         # each slot's pages are read once for its V rows
-        uniq = int(kv_len.reshape(B, V)[:, -1].sum())
-        nbytes = (2 * q.numel() + 2 * uniq * Kv * row_bytes
-                  + 4 * B * V * H * n_pmax * (hd + 2) + 4 * tab1.numel()
-                  + 4 * B * V)
-        bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, kind)
+        bms, by = bound_ms(op_cost.COSTS["paged_decode"](q, *args))
         print(f"[kernels] paged_decode[{name}, folded verify] {B} slots x "
               f"V={V} rows, kv_len {int(kv_len.min())}..{int(kv_len.max())}"
               f" stepping by one a row: rows equal their own launches bit "
@@ -902,6 +913,7 @@ def check_flash_attention(torch, timer, gen, cases=None):
 
     from repro_torch.kernels.flash_attn import (flash_attention_cuda,
                                                 flash_attention_ref)
+    from repro_torch.roofline import op_cost
 
     # the default shapes after the serves' two draw from their own
     # generator, so that the later checks draw what they drew before
@@ -951,14 +963,12 @@ def check_flash_attention(torch, timer, gen, cases=None):
             lib = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
         lens = [T] * B if kv_len is None else kv_len.tolist()
-        nbytes = (2 * (2 * q.numel() + 2 * sum(lens) * Kv * hd)
-                  + (0 if kv_len is None else 4 * B))
-        pairs = H * sum(sum(min(i + 1, n) for i in range(Sq)) if causal
-                        else Sq * n for n in lens)
-        bms, by = bound_ms(nbytes, 4 * hd * pairs, "bf16")
+        work = op_cost.COSTS["flash_attention"](q, k, v, kv_len,
+                                                causal=causal)
+        bms, by = bound_ms(work)
         kind = ("causal" if causal else "non-causal") + (
             "" if kv_len is None else f" kv_len 7..{max(lens)}")
-        tflops = 4 * hd * pairs / ms / 1e9
+        tflops = work.ops / ms / 1e9
         print(f"[kernels] flash_attention[{label}] B={B} Sq={Sq} T={T} H={H} "
               f"Kv={Kv} hd={hd} bf16 {kind}: max_abs_err={err:.3e} (tol "
               f"{tol:.3e}, max |ref| {ref_max:.3e}); kernel_ms={ms:.4f}"
@@ -985,6 +995,7 @@ def check_paged_decode(torch, timer, gen, H=32, Kv=8,
                                                 paged_decode_ref)
     from repro_torch.numerics import kv_pages as kvp
     from repro_torch.numerics.attention import merge_decode_partials
+    from repro_torch.roofline import op_cost
 
     B, hd, ps, n_pmax = 8, 128, 64, 5
     P = 1 + B * n_pmax
@@ -1005,11 +1016,8 @@ def check_paged_decode(torch, timer, gen, H=32, Kv=8,
         if fmt.is_residue:
             args = (lay.k.planes.select(-3, 0), lay.v.planes.select(-3, 0),
                     lay.k.scale, lay.v.scale, tab, kv_len, ps, fmt.pack)
-            row_bytes = hd // fmt.pack.values_per_byte + 4
-            kind = "f32"
         else:
             args = (lay.k, lay.v, None, None, tab, kv_len, ps, None)
-            row_bytes, kind = 2 * hd, "bf16"
         out = merge_decode_partials(*paged_decode_cuda(q, *args))
         ref = merge_decode_partials(*paged_decode_ref(q, *args))
         err = float((out - ref).abs().max())
@@ -1037,9 +1045,7 @@ def check_paged_decode(torch, timer, gen, H=32, Kv=8,
             q4, lay_vals[0], lay_vals[1], attn_mask=mask, enable_gqa=True),
             20)
         n_rows = int(kv_len.sum())
-        nbytes = (2 * q.numel() + 2 * n_rows * Kv * row_bytes
-                  + 4 * B * H * n_pmax * (hd + 2) + 4 * tab.numel() + 4 * B)
-        bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, kind)
+        bms, by = bound_ms(op_cost.COSTS["paged_decode"](q, *args))
         key = f"paged_decode[{name}{tag}]"
         print(f"[kernels] {key} B={B} H={H} Kv={Kv} hd={hd} "
               f"ps={ps} kv_len 1..{n_pmax * ps} (sum {n_rows}): "
@@ -1063,6 +1069,7 @@ def check_paged_decode_syndrome(torch, timer, gen):
                                                 paged_decode_ref)
     from repro_torch.numerics import kv_pages as kvp
     from repro_torch.numerics.attention import merge_decode_partials
+    from repro_torch.roofline import op_cost
 
     B, H, Kv, hd, ps, n_pmax = 8, 32, 8, 128, 64, 5
     P = 1 + B * n_pmax
@@ -1116,10 +1123,8 @@ def check_paged_decode_syndrome(torch, timer, gen):
         enable_gqa=True), 20)
     n_rows = int(kv_len.sum())
     # 3 B per K/V element (lane 0 and two witness lanes) + 4 B of scale per
-    # row and KV head; q in, partials and syn out
-    nbytes = (2 * q.numel() + 2 * n_rows * Kv * (3 * hd + 4)
-              + 4 * B * H * n_pmax * (hd + 3) + 4 * tab.numel() + 4 * B)
-    bms, by = bound_ms(nbytes, 4 * hd * H * n_rows, "f32")
+    # row and KV head; q in, partials and syn out (op_cost.decode_work)
+    bms, by = bound_ms(op_cost.COSTS["paged_decode"](q, *args))
 
     # planted faults: slot 1 holds all 320 rows, slot 0 one row
     planes_k, planes_v = pool.k.planes[0], pool.v.planes[0]
@@ -1187,6 +1192,7 @@ def check_sdrns_matmul(torch, timer, gen):
     from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
                                                   sdrns_matmul_ref,
                                                   sdrns_matvec_cuda)
+    from repro_torch.roofline import op_cost
 
     mset, C, n = P21, P21.num_channels, 7
     ws = [sdrns.WRAP_SIGNS[k] for k, _ in mset.kinds]
@@ -1224,8 +1230,7 @@ def check_sdrns_matmul(torch, timer, gen):
         rns_ms = timer(lambda: rns_matmul_cuda(a_res, b_res, mset.moduli), 5)
         ab, bb = a_res.to(torch.bfloat16), b_res.to(torch.bfloat16)
         bmm = timer(lambda: torch.bmm(ab, bb), 5)
-        nbytes = C * n * (M * K + K * N + M * N)
-        bms, by = bound_ms(nbytes, 2 * C * M * K * N, "int8")
+        bms, by = bound_ms(op_cost.COSTS[name](a, b, ws))
         per[(M, K, N)] = dict(ms=ms, plain_ms=plain, rns_ms=rns_ms,
                               bmm_ms=bmm, bound_ms=bms, bound_by=by, err=err)
         print(f"[kernels] {name} C={C} M={M} K={K} N={N} n={n}: digits "
@@ -1283,6 +1288,7 @@ def check_sd_add(torch, timer):
     from repro_torch import kernels
     from repro_torch.kernels.sd_add import KINDS, sd_add_cuda, sd_add_ref
     from repro_torch.numerics import api as nx
+    from repro_torch.roofline import op_cost
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     spec = nx.EncodeSpec(layout="sd", qbits=4)
@@ -1306,8 +1312,7 @@ def check_sd_add(torch, timer):
         ms = timer(lambda: sd_add_cuda(x, y, kind), 10)
         plain = timer(lambda: sd_add_ref(x, y, kind), 3)
         yard = timer(lambda: torch.add(x, y), 10)
-        out_n = n + 1 if kind == "plain" else n
-        bms, by = bound_ms(x.shape[0] * (2 * n + out_n), 0, "int8")
+        bms, by = bound_ms(op_cost.COSTS["sd_add"](x, y, kind))
         res[kind] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                          yardstick_int8_add_ms=yard)
         print(f"[kernels] sd_add[{kind}] {x.shape[0]} vectors of {n} "
@@ -1360,6 +1365,7 @@ def check_flash_decode(torch, timer, gen, cases=None):
     from repro_torch.numerics.attention import (DEFAULT_DECODE_BLOCK,
                                                 merge_decode_partials,
                                                 pick_block)
+    from repro_torch.roofline import op_cost
 
     B = SERVE_B
     T_serve, lo_serve = SERVE_PROMPT + SERVE_NEW + 1, SERVE_PROMPT + 1
@@ -1419,11 +1425,8 @@ def check_flash_decode(torch, timer, gen, cases=None):
         lib = timer(lambda: F.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=mask, enable_gqa=True), 20)
         n_rows = int(kv_len.sum())
-        esz = k.element_size()
-        nbytes = (q.numel() * q.element_size() + 2 * n_rows * Kv * hd * esz
-                  + 4 * B * H * n_k * (hd + 2) + 4 * B)
-        bms, by = bound_ms(nbytes, 4 * hd * H * n_rows,
-                           "f32" if dt == torch.float32 else "bf16")
+        bms, by = bound_ms(op_cost.COSTS["flash_decode"](q, k, v, kv_len,
+                                                         bk))
         print(f"[kernels] flash_decode[{label}] B={B} H={H} Kv={Kv} hd={hd} "
               f"T={T} bk={bk} ({n_k} chunks) {str(dt)[6:]} kv_len "
               f"{lo}..{T} (sum {n_rows}): errors o {errs['o']:.2e} l "
@@ -2540,6 +2543,122 @@ def serve_dense(torch, model, params):
     return counts
 
 
+def roofline(torch, smi, model, params):
+    """Phase 8b: the work of one prefill and one decode step of [serve]'s
+    model and weights (qwen3-8b, full width, SERVE_LAYERS deep, P21), on the
+    engine-free step functions the dry run costs: ``model.prefill`` of the
+    B x SERVE_PROMPT prompts at s_max = prompt + 1, then ``model.decode`` of
+    one token at position SERVE_PROMPT (the dense cache, kernel B5).  Each
+    step is counted by ``roofline/op_cost.py`` on the card, then the same
+    steps of a meta build of the same config and shapes: the two counts must
+    be equal op by op and kind by kind.  The decode step's summed B1 bound
+    must equal the kernel table's, from QWEN3_STEP's shapes at this depth.
+    Prints each step's counts, its compute and memory terms (the card's
+    data-sheet peaks), the measured step (host clock after a synchronize,
+    the median of three, uncounted), roofline_share = max(compute, memory)
+    / step and mfu = MODEL_FLOPS / step / the bf16 peak."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.params import model_flops_total
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline import hw, op_cost
+    from repro_torch.roofline.analysis import roofline_terms
+
+    cfg = model.cfg
+    B, S = SERVE_B, SERVE_PROMPT
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, S)), dtype=torch.int64)
+    t0 = time.perf_counter()
+    meta = build_model(cfg, system="rns", device="meta")
+    meta_params = meta.init(SEED)
+    t_meta = time.perf_counter() - t0
+
+    def steps(m, p, dev):
+        tokens = prompts.to(dev)
+        with op_cost.OpCost() as pre:
+            _, cache = m.prefill(p, tokens, s_max=S + 1)
+        with op_cost.OpCost() as dec:
+            m.decode(p, tokens[:, -1:], cache, S)
+        return {"prefill": pre, "decode": dec}, (tokens, cache)
+
+    card, (tokens, cache) = steps(model, params, "cuda")
+    torch.cuda.synchronize()
+    on_meta, _ = steps(meta, meta_params, "meta")
+
+    def timed(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts)
+
+    step_s = {"prefill": timed(lambda: model.prefill(params, tokens,
+                                                     s_max=S + 1)),
+              "decode": timed(lambda: model.decode(params, tokens[:, -1:],
+                                                   cache, S))}
+    out = {}
+    for name, c in card.items():
+        d, m = c.as_dict(), on_meta[name].as_dict()
+        if d != m:
+            diff = sorted(k for k in set(d["by_op"]) | set(m["by_op"])
+                          if d["by_op"].get(k) != m["by_op"].get(k))
+            raise AssertionError(f"roofline: the {name} step counts "
+                                 f"differently on the card and on meta: "
+                                 f"{diff[:8]} {d['ops']} {m['ops']}")
+        comp, mem, _ = roofline_terms(d["ops"], d["bytes"], 0)
+        kind = "decode" if name == "decode" else "prefill"
+        mf = model_flops_total(cfg, ShapeConfig(name, S, B, kind))
+        st = step_s[name]
+        out[name] = dict(
+            ops=d["ops"], bytes=d["bytes"], launches=d["launches"],
+            compute_ms=1e3 * comp, memory_ms=1e3 * mem,
+            bound_by="compute" if comp >= mem else "memory",
+            step_ms=1e3 * st, roofline_share=max(comp, mem) / st,
+            mfu=mf / st / hw.PEAK_FLOPS_BF16, model_flops=mf,
+            kernel_bound_ms=d["bound_ms"])
+        r = out[name]
+        print(f"[roofline] {name} (qwen3-8b L={cfg.n_layers} B={B} prompt="
+              f"{S}, P21; {smi}): card == meta op by op and kind by kind "
+              f"({len(d['by_op'])} ops); ops {json.dumps(d['ops'])} bytes "
+              f"{d['bytes']} launches {json.dumps(d['launches'])}",
+              flush=True)
+        print(f"[roofline] {name} ({smi}): compute_ms={r['compute_ms']:.4f} "
+              f"memory_ms={r['memory_ms']:.4f} ({r['bound_by']}-bound; "
+              f"data-sheet peaks) step_ms={r['step_ms']:.3f} (measured, "
+              f"median of 3) roofline_share={r['roofline_share']:.4f} "
+              f"mfu={r['mfu']:.5f} (MODEL_FLOPS {mf:.4g} over the bf16 "
+              f"peak); kernel bounds ms {json.dumps(d['bound_ms'])}",
+              flush=True)
+    # B1's decode bound against the kernel table's row, at this depth
+    L = cfg.n_layers
+    table = [((K, N), L * n) for (K, N), n in LAYER_MATMULS] + [(LOGITS, 1)]
+    C = 3
+    want = None
+    for (K, N), n in table:
+        w = op_cost.rns_matmul_work(C, B, K, N)
+        w = op_cost.Work(w.ops * n, w.bytes * n, w.kind)
+        want = w if want is None else want + w
+    want_ms = sum(n * bound_ms(op_cost.rns_matmul_work(C, B, K, N))[0]
+                  for (K, N), n in table)
+    got = card["decode"].kernel_work("rns_matmul")
+    got_ms = card["decode"].bound["rns_matmul"]
+    print(f"[roofline] decode B1 ({smi}): {card['decode'].launches['rns_matmul']}"
+          f" launches, {got.bytes} bytes, {got.ops} int8 ops, bound_ms="
+          f"{got_ms:.4f}; the kernel table's one qwen3 decode step at {L} "
+          f"layers: {want.bytes} bytes, {want.ops} ops, bound_ms="
+          f"{want_ms:.4f}; meta build {t_meta:.1f}s", flush=True)
+    if (got.bytes, got.ops) != (want.bytes, want.ops) or \
+            abs(got_ms - want_ms) > 1e-9 * want_ms:
+        raise AssertionError("roofline: the decode step's B1 work differs "
+                             "from the kernel table's")
+    out["b1_decode_bound_ms"] = got_ms
+    return out
+
+
 def serve_hybrid(torch, smi):
     """Phase 9: zamba2-7b at full width and depth under system="rns" on the
     dense bf16 cache (the hybrid family has no paged decode)."""
@@ -2801,6 +2920,7 @@ def serve_moe(torch, smi):
     from repro_torch.models.api import build_model, resident_bytes
     from repro_torch.numerics import kv_pages as kvp
     from repro_torch.numerics import registry
+    from repro_torch.roofline import hw
     from repro_torch.serving.engine import ServingEngine
 
     full = get_config("moonshot-v1-16b-a3b")
@@ -2843,8 +2963,8 @@ def serve_moe(torch, smi):
                 f"{engine.pool.pool_bytes()} device total={total} free at "
                 f"the peak={total - peak}")
     print(f"[serve-moe] the step's byte bound: {rb} resident bytes (every "
-          f"expert's planes are read) at {HBM_BPS / 1e12:.2f} TB/s = "
-          f"{1e3 * rb / HBM_BPS:.2f} ms", flush=True)
+          f"expert's planes are read) at {hw.HBM_BW / 1e12:.2f} TB/s = "
+          f"{1e3 * rb / hw.HBM_BW:.2f} ms", flush=True)
     print(f"[serve-moe] launches {json.dumps(counts)}", flush=True)
     want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
                 flash_attention=L, paged_decode=L * steps)
@@ -3358,6 +3478,7 @@ def train_small(torch):
     from repro_torch.kernels.sdrns_matmul import sdrns_matmul_ref
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train import checkpoint
     from repro_torch.train.ft import (FtConfig, SimulatedFailure,
                                       run_training)
     from repro_torch.train.loop import loss_and_grads, make_train_step
@@ -3461,6 +3582,37 @@ def train_small(torch):
     if not (same_logits and same_tokens):
         raise AssertionError(f"{label}: prepare=False serving differs")
 
+    # the prepared tree through a checkpoint: saved from the card, restored
+    # onto the card into another prepared tree, served
+    prepared = model.prepare_params(params)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, prepared)
+        back = checkpoint.restore(d, model.init(SEED + 9))
+    pairs = list(zip(_resident(back), _resident(prepared)))
+    same_planes = all(a.planes.is_cuda and torch.equal(a.planes, b.planes)
+                      and torch.equal(a.scale, b.scale) for a, b in pairs)
+    served = ServingEngine(model, back, batch=3, s_max=17, page_size=8,
+                           kv_format="rns8", device="cuda").generate(
+        {"tokens": prompts}, max_new=8)
+    same_logits = np.array_equal(served.prefill_logits,
+                                 gens[0].prefill_logits)
+    same_tokens = np.array_equal(served.tokens, gens[0].tokens)
+    print(f"[{label}] prepared tree saved from the card and restored onto "
+          f"it ({len(pairs)} ResidueTensors as .../w/0 planes and .../w/1 "
+          f"scales): planes and scales equal {same_planes}; prefill logits "
+          f"bit-identical {same_logits}, tokens equal {same_tokens}",
+          flush=True)
+    if not (pairs and same_planes and same_logits and same_tokens):
+        raise AssertionError(f"{label}: the restored prepared tree differs")
+
+
+def _resident(tree):
+    from repro_torch.quant import residency
+
+    out = []
+    residency.map_resident(tree, out.append)
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Phase 16: the paper's DNN evaluation
@@ -3478,6 +3630,7 @@ def check_cnn_kernels(torch, timer, gen):
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda
     from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
                                                   sdrns_matmul_ref)
+    from repro_torch.roofline import op_cost
 
     b1 = {f"{M},{K},{N}": b1_shape(torch, timer, gen, P21, "cnn", M, K, N)
           for M, K, N in CNN_B1_SHAPES}
@@ -3502,8 +3655,7 @@ def check_cnn_kernels(torch, timer, gen):
     ms = timer(lambda: sdrns_matmul_cuda(a, b, ws), 3)
     plain = timer(lambda: sdrns_matmul_ref(a_s, b_s, ws), 1)
     rns_ms = timer(lambda: rns_matmul_cuda(a_res, b_res, mset.moduli), 5)
-    bms, by = bound_ms(C * n * (M * K + K * N + M * N), 2 * C * M * K * N,
-                       "int8")
+    bms, by = bound_ms(op_cost.sdrns_work(C, M, K, N, n))
     print(f"[kernels] sdrns_matmul[cnn] C={C} M={M} K={K} N={N} n={n} (VGG-16 "
           f"conv2 at batch 64): digits equal the plain version on "
           f"{CNN_ROWS} rows x {min(N, SD_COLS)} columns, decoded residues "
@@ -3555,6 +3707,7 @@ def cnn_bounds(spec, batch, system):
     from repro_torch.data.cifar import dense_shapes
     from repro_torch.numerics import runners
     from repro_torch.quant.quant import qmax_for_bits
+    from repro_torch.roofline import op_cost
 
     q, C, out = qmax_for_bits(CNN_BITS), P21.num_channels, {}
     for M, K, N in dense_shapes(spec, batch) if system != "bns" else ():
@@ -3566,10 +3719,9 @@ def cnn_bounds(spec, batch, system):
             cuts = runners.sdrns_segments(K, q, q, P21)
         for lo, hi in cuts:
             k = hi - lo
-            nbytes = (C * (M * k + k * N + 4 * M * N) if system == "rns"
-                      else C * 7 * (M * k + k * N + M * N))
-            out[name] = out.get(name, 0.0) + bound_ms(
-                nbytes, 2 * C * M * k * N, "int8")[0]
+            work = (op_cost.rns_matmul_work(C, M, k, N) if system == "rns"
+                    else op_cost.sdrns_work(C, M, k, N, 7))
+            out[name] = out.get(name, 0.0) + bound_ms(work)[0]
     return out
 
 
@@ -4290,6 +4442,7 @@ def main() -> int:
     spec = phase("serve-spec", serve_spec, torch, *ctx)
     sched = phase("serve-sched", serve_sched, torch, *ctx[:2])
     counts_dense = phase("serve-dense", serve_dense, torch, *ctx[:2])
+    roof = phase("roofline", roofline, torch, smi, *ctx[:2])
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -4438,6 +4591,9 @@ def main() -> int:
                     for label, v in mesh.items()}
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
+    # [roofline]: the counted work of one prefill and one decode step of
+    # [serve]'s model (card == meta), its terms and the measured steps
+    line["roofline"] = roof
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

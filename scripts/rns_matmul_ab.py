@@ -176,6 +176,7 @@ def main() -> int:
         return 2
     from repro_torch.core.moduli import P21, P21R2
     from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
+    from repro_torch.roofline import op_cost
 
     old = build_old(args.old_source)
     smi = cs.nvidia_smi()
@@ -214,8 +215,7 @@ def main() -> int:
             t_old.append(timer(lambda: old_call(torch, old, a, b,
                                                 mset.moduli), args.reps))
             o, n = sum(t_old) / 2, sum(t_new) / 2
-            bms, by = cs.bound_ms(C * (M * K + K * N + 4 * M * N),
-                                  2 * C * M * K * N, "int8")
+            bms, by = cs.bound_ms(op_cost.rns_matmul_work(C, M, K, N))
             per[(M, K, N)] = (o, n)
             rows.append(dict(label=label, C=C, M=M, K=K, N=N, old_ms=t_old,
                              new_ms=t_new, bound_ms=bms, bound_by=by))

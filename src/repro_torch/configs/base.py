@@ -2,7 +2,8 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig`` and its ``reduced()`` are kept field for field and value for
-value: the parity tests build the same reduced model in both packages and
+value, and so are the shape cells (``ShapeConfig``, ``SHAPES``,
+``cells_for``, ``all_cells``) the dry run iterates: the parity tests build the same reduced model in both packages and
 load the same committed checkpoint into each.  Every architecture of the
 reference is ported: the dense ``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b``
 and ``granite-20b``, the hybrid ``zamba2-7b``, the ssm ``mamba2-780m``, the
@@ -13,8 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Iterator
 
-__all__ = ["ArchConfig", "ARCH_IDS", "get_config"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
+           "cells_for", "all_cells"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +107,21 @@ class ArchConfig:
         return dataclasses.replace(self, **r)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS: tuple[str, ...] = (
     "zamba2-7b",
     "granite-20b",
@@ -124,3 +142,22 @@ def get_config(arch: str) -> ArchConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[arch]).get_config()
+
+
+def cells_for(arch: str) -> list[tuple[str, str, bool, str]]:
+    """(arch, shape, runnable, skip_reason) for each of the arch's 4 cells."""
+    cfg = get_config(arch)
+    out = []
+    for shape in SHAPES:
+        if shape == "long_500k" and not cfg.sub_quadratic:
+            out.append((arch, shape, False,
+                        "full quadratic attention at 524288 — skipped per "
+                        "assignment (sub-quadratic archs only)"))
+        else:
+            out.append((arch, shape, True, ""))
+    return out
+
+
+def all_cells() -> Iterator[tuple[str, str, bool, str]]:
+    for a in ARCH_IDS:
+        yield from cells_for(a)

@@ -12,8 +12,11 @@ family's Mamba2 layers are per-layer leaves like any other).  bfloat16
 leaves (a ``param_dtype="bfloat16"`` config such as grok-1-314b) come
 across as float32, which holds them exactly.  Residue preparation then
 runs in the port (``Model.prepare_params``).  :func:`to_jax_params` is the
-inverse, for a float tree or anything that mirrors one (the optimizer's
-moments).  :func:`cnn_from_jax_params` carries the reference's CNN tree
+inverse, for a float tree, anything that mirrors one (the optimizer's
+moments) or a prepared tree: a ``ResidueTensor`` becomes ``{"0": planes,
+"1": scale}`` (no ``"1"`` without a scale), the children the reference's
+``ResidueTensor.tree_flatten`` gives, so its planes stack on the layer
+axis like any leaf (a sharded one is gathered whole first).  :func:`cnn_from_jax_params` carries the reference's CNN tree
 (``data/cifar.py::init_cnn``) across the same way.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.numerics.tensor import ResidueTensor
 
 __all__ = ["load_npz", "from_jax_params", "to_jax_params",
            "cnn_from_jax_params"]
@@ -108,10 +112,15 @@ def to_jax_params(tree: Any) -> Any:
         return {k: to_jax_params(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return _stack([to_jax_params(v) for v in tree])
+    if isinstance(tree, ResidueTensor):
+        t = tree.unsharded()
+        out = {"0": to_jax_params(t.planes)}
+        if t.scale is not None:
+            out["1"] = to_jax_params(t.scale)
+        return out
     if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"to_jax_params takes float tensors, got "
-                        f"{type(tree).__name__} (residue-resident trees "
-                        "carry no float weights)")
+        raise TypeError(f"to_jax_params takes tensors and ResidueTensors, "
+                        f"got {type(tree).__name__}")
     t = tree.detach().cpu()
     return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
 

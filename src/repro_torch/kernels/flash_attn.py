@@ -41,8 +41,9 @@ from repro_torch.core.moduli import PackedFormat
 from repro_torch.kernels import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_ref",
-           "paged_decode_cuda", "paged_decode_ref", "flash_decode_cuda",
-           "flash_decode_ref", "launches", "reset_launches"]
+           "flash_attention_meta", "paged_decode_cuda", "paged_decode_ref",
+           "paged_decode_meta", "flash_decode_cuda", "flash_decode_ref",
+           "flash_decode_meta", "launches", "reset_launches"]
 
 NEG_BIG = -1e30
 launches = {"flash_attention": 0, "paged_decode": 0,
@@ -108,7 +109,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).to(torch.float32),
                      vz.to(torch.float32))
     o = o / torch.clamp(lsum, min=1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(
+        q.dtype).contiguous()
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor | None = None, *,
+                         causal: bool = True) -> torch.Tensor:
+    """The contract's output, empty (the meta device)."""
+    return torch.empty_like(q)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,8 +192,9 @@ def _chunk_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
     lsum = p.sum(dim=-1)
     o = torch.einsum("bkgjt,bjtkd->bkgdj", p.to(vb.dtype).to(torch.float32),
                      vb.to(torch.float32))
-    return (o.reshape(B, H, hd, n), m.reshape(B, H, n),
-            lsum.reshape(B, H, n))
+    return (o.reshape(B, H, hd, n).contiguous(),
+            m.reshape(B, H, n).contiguous(),
+            lsum.reshape(B, H, n).contiguous())
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,6 +217,19 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     kl = torch.clamp(_full_len(kv_len, B, T, q.device), max=T)
     return _chunk_partials(q, chunks(k), chunks(v), _chunk_rows(n_k, bk, kl))
+
+
+def _partials_meta(q: torch.Tensor, n: int):
+    B, H, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((B, H, hd, n), **f32), torch.empty((B, H, n), **f32),
+            torch.empty((B, H, n), **f32))
+
+
+def flash_decode_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, bk: int):
+    """The contract's partials, empty (the meta device)."""
+    return _partials_meta(q, -(-k.shape[1] // bk))
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -312,6 +335,22 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     per_head = cnt.to(torch.int32).repeat_interleave(g, dim=2)  # (B,np,H)
     syn = torch.where(lead[None, None], per_head, 0).permute(0, 2, 1)
     return (*out, syn.contiguous())
+
+
+def paged_decode_meta(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, k_scale: torch.Tensor | None,
+                      v_scale: torch.Tensor | None, tab: torch.Tensor,
+                      kv_len: torch.Tensor, page_size: int,
+                      pack: PackedFormat | None = None,
+                      k_wit: torch.Tensor | None = None,
+                      v_wit: torch.Tensor | None = None,
+                      red_moduli: tuple[int, ...] | None = None):
+    """The contract's partials (and ``syn``), empty (the meta device)."""
+    parts = _partials_meta(q, tab.shape[1])
+    if red_moduli is None:
+        return parts
+    return (*parts, torch.empty(parts[1].shape, dtype=torch.int32,
+                                device=q.device))
 
 
 def _pool_strides(pages: torch.Tensor, what: str) -> tuple[int, int]:

@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rns_matmul_cuda", "rns_matmul_ref", "launches",
+__all__ = ["rns_matmul_cuda", "rns_matmul_ref", "rns_matmul_meta",
+           "launches",
            "reset_launches"]
 
 launches = 0
@@ -83,6 +84,13 @@ def rns_matmul_ref(a_res: torch.Tensor, b_res: torch.Tensor,
                            b_res[c].to(torch.float64)).to(torch.int32)
         outs.append(_center_rem(acc, int(m)))
     return torch.stack(outs, dim=0)
+
+
+def rns_matmul_meta(a_res: torch.Tensor, b_res: torch.Tensor,
+                    moduli: Sequence[int]) -> torch.Tensor:
+    """The contract's output shape and dtype, empty (the meta device)."""
+    return torch.empty((*a_res.shape[:-1], b_res.shape[-1]),
+                       dtype=torch.int32, device=a_res.device)
 
 
 def rns_matmul_cuda(a_res: torch.Tensor, b_res: torch.Tensor,

@@ -23,7 +23,7 @@ import torch
 from repro_torch.core import sd, sdrns
 from repro_torch.kernels import build
 
-__all__ = ["KINDS", "sd_add_cuda", "sd_add_ref", "launches",
+__all__ = ["KINDS", "sd_add_cuda", "sd_add_ref", "sd_add_meta", "launches",
            "reset_launches"]
 
 KINDS = ("pow2m1", "pow2", "pow2p1", "plain")
@@ -49,6 +49,13 @@ def sd_add_ref(x: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "plain":
         return sd.carry_free_add(x, y)
     return sdrns.modular_add(x, y, kind)
+
+
+def sd_add_meta(x: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:
+    """The contract's output shape, empty (the meta device)."""
+    _check_kind(kind)
+    n = x.shape[-1] + (1 if kind == "plain" else 0)
+    return torch.empty((*x.shape[:-1], n), dtype=torch.int8, device=x.device)
 
 
 def sd_add_cuda(x: torch.Tensor, y: torch.Tensor, kind: str) -> torch.Tensor:

@@ -39,6 +39,7 @@ from repro_torch.core import sd, sdrns
 from repro_torch.kernels import build
 
 __all__ = ["sdrns_matmul_cuda", "sdrns_matvec_cuda", "sdrns_matmul_ref",
+           "sdrns_matmul_meta",
            "MATVEC_MAX_M", "launches", "reset_launches"]
 
 MATVEC_MAX_M = 8
@@ -73,6 +74,15 @@ def sdrns_matmul_ref(a_dig: torch.Tensor, b_dig: torch.Tensor,
         outs.append(torch.cat(blocks, dim=1) if blocks else
                     a_dig.new_zeros((M, 0, n)))
     return torch.stack(outs)
+
+
+def sdrns_matmul_meta(a_dig: torch.Tensor, b_dig: torch.Tensor,
+                      wrap_signs: Sequence[int]) -> torch.Tensor:
+    """The contract's (C, M, N, n) int8 digits, empty (the meta device):
+    no partial-product stack is built."""
+    C, M, _, n = a_dig.shape
+    return torch.empty((C, M, b_dig.shape[2], n), dtype=torch.int8,
+                       device=a_dig.device)
 
 
 def _launch(a_dig: torch.Tensor, b_dig: torch.Tensor,

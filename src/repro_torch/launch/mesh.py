@@ -9,6 +9,11 @@ refuses two ranks on one device).  The meshes are
 ``torch.distributed.device_mesh.DeviceMesh``\\ es over the ranks in row-major
 order; the runners take their groups from them, never a backend of their
 own.
+
+:func:`abstract_production_mesh` gives the reference's production meshes
+as :class:`~repro_torch.parallel.sharding.AbstractMesh`` objects (sizes, no
+ranks): the dry run (``launch/dryrun.py``) costs rank 0's program on them
+with no process group.
 """
 from __future__ import annotations
 
@@ -18,10 +23,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.parallel.sharding import ShardCtx
+from repro_torch.parallel.sharding import AbstractMesh, ShardCtx
 
 __all__ = ["choose_backend", "init_process_group", "make_production_mesh",
-           "make_ctx", "make_test_mesh"]
+           "abstract_production_mesh", "make_ctx", "make_test_mesh"]
 
 
 def choose_backend(local_world_size: int) -> str:
@@ -90,6 +95,25 @@ def make_production_mesh(*, channel: int | None = None) -> DeviceMesh:
     else:
         shape = (1, world)
     return _mesh(shape, ("data", "model"))
+
+
+def abstract_production_mesh(*, multi_pod: bool = False,
+                             channel: int | None = None) -> AbstractMesh:
+    """The reference's pod meshes (``repro/launch/mesh.py``), sizes only:
+    single (16, 16) over ("data", "model"), multi (2, 16, 16) over ("pod",
+    "data", "model"), and with ``channel=C`` the channel-parallel (256 //
+    C, C) over ("data", "model"), the model axis sized to the moduli
+    channel count (single-pod only)."""
+    if channel is not None:
+        if multi_pod:
+            raise ValueError("channel-parallel meshes are single-pod")
+        if channel < 2 or channel > 256:
+            raise ValueError(f"channel axis must be in [2, 256], got "
+                             f"{channel}")
+        return AbstractMesh((256 // channel, channel), ("data", "model"))
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
 
 
 def make_ctx(mesh, *, channel_shard: bool = False) -> ShardCtx:

@@ -45,7 +45,12 @@ and the audio encoder-decoder (``models/encdec.py``):
   the speculative verify of ``tokens (B, V)`` at ``pos .. pos + V - 1``,
   ``(logits (B, V, vocab), kv)``; the dense, moe and vlm families;
 * ``cache_roles(cache)`` -- the sharding roles of a cache's leaves (a
-  :class:`~repro_torch.parallel.sharding.Roles` each, the reference's).
+  :class:`~repro_torch.parallel.sharding.Roles` each, the reference's);
+* ``input_specs(shape)`` -- the inputs of one step of a
+  :class:`~repro_torch.configs.base.ShapeConfig` cell as empty tensors on
+  the meta device, under the reference's keys: ``tokens`` / ``labels``
+  (and ``frames`` or ``patches``) for train and prefill, ``token`` (B, 1)
+  and a 0-d ``pos`` for decode.
 
 Under an installed :class:`~repro_torch.parallel.sharding.ShardCtx`,
 ``init`` and ``prepare_params`` keep this rank's block of every resident
@@ -54,7 +59,10 @@ axis C over tp under ``ctx.channel_shard``), right after the weight is
 made; the float leaves stay whole.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a
-missing card raises; callers ask for the CPU with ``device="cpu"``.
+missing card raises; callers ask for the CPU with ``device="cpu"``, and
+for shapes alone with ``device="meta"`` (the dry run: ``init`` draws from a
+CPU generator, which ``torch.randn`` takes for a meta tensor, and every
+registered kernel op returns empty outputs of its shapes).
 """
 from __future__ import annotations
 
@@ -63,9 +71,10 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.moduli import ModuliSet
 from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import frontends
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SsmCache
@@ -91,13 +100,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 def resolve_device(device: torch.device | str) -> torch.device:
     """The device to run on; raises when a CUDA device is asked for and no
-    card is present (nothing falls back to the CPU)."""
+    card is present (nothing falls back to the CPU).  ``"meta"`` is taken
+    when asked for by name: shapes and dtypes, no values."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
@@ -118,6 +128,8 @@ class Model:
     decode_paged: Callable[..., Any] | None = None
     verify_paged: Callable[..., Any] | None = None
     cache_roles: Callable[[Any], Any] | None = None
+    input_specs: Callable[[ShapeConfig], dict[str, torch.Tensor]] | None = \
+        None
 
 
 def build_model(cfg: ArchConfig, *, system: str = "bns",
@@ -206,7 +218,9 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
         return node
 
     def init(seed: int = 0, prepare: bool = True):
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # a meta tensor takes a CPU generator (a meta one does not exist)
+        gen = torch.Generator(
+            device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
         prep = (cast_layer if system == "bns" or not prepare
                 else lambda p: prepare_tree(cast_layer(p)))
         with torch.no_grad():
@@ -283,6 +297,31 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             params, cfg, tokens, kv, block_tab, pos, page_size=page_size,
             dense_kw=dense_kw, cache_dtype=cache_dtype)
 
+    def input_specs(shape: ShapeConfig) -> dict[str, torch.Tensor]:
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(*dims):
+            return torch.empty(dims, dtype=torch.int32, device="meta")
+
+        if shape.kind == "decode":
+            # one new token against an S-long cache
+            return {"token": tok(B, 1), "pos": tok()}
+        train = shape.kind == "train"
+        if encdec:
+            out = {"frames": frontends.frames_struct(B, S, cfg),
+                   "tokens": tok(B, cfg.dec_len)}
+            if train:
+                out["labels"] = tok(B, cfg.dec_len)
+            return out
+        if cfg.family == "vlm":
+            out = {"tokens": tok(B, S - cfg.n_img_tokens),
+                   "patches": frontends.patches_struct(B, cfg)}
+        else:
+            out = {"tokens": tok(B, S)}
+        if train:
+            out["labels"] = tok(B, S)
+        return out
+
     paged = cfg.family in ("dense", "moe", "vlm")
     return Model(cfg=cfg, device=dev, init=init, loss=loss,
                  prepare_params=prepare_params,
@@ -290,7 +329,7 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
                  decode=decode, init_cache=init_cache,
                  decode_paged=decode_paged if paged else None,
                  verify_paged=verify_paged if paged else None,
-                 cache_roles=cache_roles)
+                 cache_roles=cache_roles, input_specs=input_specs)
 
 
 def cache_roles(cache) -> Any:

@@ -193,7 +193,7 @@ def decode_attention(params, x, cache: KVCache, pos: int, *, n_heads, n_kv,
                            dense_kw=dense_kw, apply_rope=apply_rope)
     cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-    o = nxattn.flash_decode(q[:, 0], cache.k, cache.v, kv_len=pos_t + 1)
+    o = nxattn.flash_decode(q[:, 0], cache.k, cache.v, kv_len=pos + 1)
     out = o.to(q.dtype).reshape(B, 1, n_heads * head_dim)
     return linear.dense(params["wo"], out, **dense_kw)
 

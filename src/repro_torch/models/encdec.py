@@ -156,8 +156,7 @@ def _cross_attend(lp, x, k, v, cfg: ArchConfig, dense_kw, *, mode: str):
     if mode == "decode":
         o = nxattn.flash_decode(
             q[:, 0], k.contiguous(), v.contiguous(),
-            kv_len=torch.full((B,), k.shape[1], dtype=torch.int32,
-                              device=x.device))
+            kv_len=k.shape[1])
         out = o.to(q.dtype).reshape(B, 1, H * hd)
     elif mode == "train":
         out = attn_mod.core(q, k, v, causal=False)

@@ -87,11 +87,19 @@ def route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int):
     return probs, gates, expert_idx
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as a comparison (int64): the same on every
+    device, where ``F.one_hot`` reads its indices back to the host on the
+    CPU to check them (a step's work count must not depend on the
+    device)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def place(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     """Each (token, slot)'s expert and position inside it, flattened to
     ``(T·k,)``, and which of them fit the capacity."""
     flat_e = expert_idx.reshape(-1)
-    onehot = F.one_hot(flat_e, n_experts).to(torch.int32)
+    onehot = _one_hot(flat_e, n_experts).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
     return flat_e, pos_in_e, pos_in_e < capacity
@@ -100,7 +108,7 @@ def place(expert_idx: torch.Tensor, n_experts: int, capacity: int):
 def _switch_aux(probs: torch.Tensor, expert_idx: torch.Tensor,
                 n_experts: int) -> torch.Tensor:
     frac_prob = probs.mean(dim=0)
-    frac_tok = F.one_hot(expert_idx, n_experts).to(torch.float32).sum(
+    frac_tok = _one_hot(expert_idx, n_experts).to(torch.float32).sum(
         1).mean(0)
     return n_experts * (frac_prob * frac_tok).sum()
 

@@ -34,10 +34,13 @@ import torch
 
 from repro_torch.kernels.flash_attn import (
     flash_attention_cuda,
+    flash_attention_meta,
     flash_attention_ref,
     flash_decode_cuda,
+    flash_decode_meta,
     flash_decode_ref,
     paged_decode_cuda,
+    paged_decode_meta,
     paged_decode_ref,
 )
 from repro_torch.numerics import kv_pages as _kv
@@ -56,6 +59,9 @@ register_impl("flash_decode", "cuda", flash_decode_cuda)
 register_impl("flash_decode", "ref", flash_decode_ref)
 register_impl("paged_decode", "cuda", paged_decode_cuda)
 register_impl("paged_decode", "ref", paged_decode_ref)
+register_impl("flash_attention", "meta", flash_attention_meta)
+register_impl("flash_decode", "meta", flash_decode_meta)
+register_impl("paged_decode", "meta", paged_decode_meta)
 
 
 def pick_block(n: int, pref: int) -> int:
@@ -135,17 +141,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 kv_len: torch.Tensor, bk: int | None = None) -> torch.Tensor:
+                 kv_len: torch.Tensor | int, bk: int | None = None
+                 ) -> torch.Tensor:
     """One-token split-KV attention over a (padded) dense KV cache.
 
     q: (B, H, hd); k, v: (B, T, Kv, hd) contiguous; kv_len: (B,) valid
-    prefix lengths.  Returns (B, H, hd) f32 (callers cast at the boundary).
+    prefix lengths, or one length for every slot as an int.  Returns
+    (B, H, hd) f32 (callers cast at the boundary).
     """
     B = q.shape[0]
     T = k.shape[1]
     bk = bk or _DECODE_BLOCK_OVERRIDE or pick_block(T, DEFAULT_DECODE_BLOCK)
-    kv_len = torch.as_tensor(kv_len, device=q.device).to(
-        torch.int32).expand(B).contiguous()
+    # a meta tensor holds no values: in a dry run the lengths stay on the
+    # host, where the work count reads them
+    dev = "cpu" if q.is_meta else q.device
+    if isinstance(kv_len, int):                 # no host copy, no sync
+        kv_len = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
+    else:
+        kv_len = torch.as_tensor(kv_len, device=dev).to(
+            torch.int32).expand(B).contiguous()
     impl = get_impl("flash_decode", q.device)
     return _per_rows(_batch_plan(B),
                      lambda q_, k_, v_, len_: merge_decode_partials(*impl(

@@ -70,9 +70,11 @@ import torch
 
 from repro_torch.core import sd, sdrns
 from repro_torch.core.moduli import ModuliSet
-from repro_torch.kernels.rns_matmul import rns_matmul_cuda, rns_matmul_ref
-from repro_torch.kernels.sd_add import sd_add_cuda, sd_add_ref
+from repro_torch.kernels.rns_matmul import (rns_matmul_cuda, rns_matmul_meta,
+                                            rns_matmul_ref)
+from repro_torch.kernels.sd_add import sd_add_cuda, sd_add_meta, sd_add_ref
 from repro_torch.kernels.sdrns_matmul import (sdrns_matmul_cuda,
+                                              sdrns_matmul_meta,
                                               sdrns_matmul_ref,
                                               sdrns_matvec_cuda)
 from repro_torch.numerics.registry import get_impl, register_impl
@@ -93,6 +95,10 @@ register_impl("sdrns_matvec", "cuda", sdrns_matvec_cuda)
 register_impl("sdrns_matvec", "ref", sdrns_matmul_ref)
 register_impl("sd_add", "cuda", sd_add_cuda)
 register_impl("sd_add", "ref", sd_add_ref)
+register_impl("rns_matmul", "meta", rns_matmul_meta)
+register_impl("sdrns_matmul", "meta", sdrns_matmul_meta)
+register_impl("sdrns_matvec", "meta", sdrns_matmul_meta)
+register_impl("sd_add", "meta", sd_add_meta)
 
 # At or below this M the sd path takes the matvec schedule (kernel B7).
 DECODE_M = 8

@@ -12,6 +12,15 @@ ordered major to minor (the spec order of a tuple entry).
 keep their operands on the card either way.  ``nccl`` takes it as it is.
 An axis of size 1 needs no collective and gets none.
 
+On a :class:`~repro_torch.parallel.sharding.AbstractMesh` (sizes, no ranks:
+the dry run) this process is rank 0: :func:`axis_index` is 0 and each
+collective returns an empty meta tensor of the shape it would have, moving
+nothing.  It takes meta tensors only: a tensor that holds values raises
+there, since no other rank's values exist to fill the result.  On either
+kind of mesh a collective reports itself, one collective an axis, to the
+work count in use (:data:`OBSERVER`), which counts nothing it runs inside
+as HBM traffic.
+
 :func:`moved_bytes` counts, per collective, the payload bytes this process
 sent or received since :func:`reset_moved_bytes`: an all-gather the blocks
 of the other members, an all-reduce its tensor, a reduce-scatter its input,
@@ -20,6 +29,8 @@ a broadcast, send or recv its tensor.
 from __future__ import annotations
 
 from typing import Callable
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -44,23 +55,64 @@ def _count(name: str, nbytes: int) -> None:
     _MOVED[name] = _MOVED.get(name, 0) + nbytes
 
 
+# the work count in use (``roofline/op_cost.py::OpCost``), or None: called
+# as ``OBSERVER(collective, payload bytes, group size)``, it returns a
+# context inside which nothing is counted
+OBSERVER: Callable | None = None
+
+
+def _is_abstract(mesh) -> bool:
+    return hasattr(mesh, "axis_sizes")
+
+
+def _abstract(mesh, x: torch.Tensor) -> bool:
+    """Whether ``mesh`` is abstract; there ``x`` must be a meta tensor."""
+    if not _is_abstract(mesh):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a collective on an AbstractMesh takes meta "
+                         f"tensors only (rank 0's program in a dry run); "
+                         f"got one on {x.device}")
+    return True
+
+
 def _dim(mesh, name: str) -> int:
     return list(mesh.mesh_dim_names).index(name)
+
+
+def _size(mesh, name: str) -> int:
+    if _is_abstract(mesh):
+        return mesh.axis_sizes[list(mesh.axis_names).index(name)]
+    return mesh.size(_dim(mesh, name))
 
 
 def axis_size(mesh, axes: tuple[str, ...]) -> int:
     n = 1
     for a in axes:
-        n *= mesh.size(_dim(mesh, a))
+        n *= _size(mesh, a)
     return n
 
 
 def axis_index(mesh, axes: tuple[str, ...]) -> int:
-    """This rank's linear index over ``axes``, major to minor."""
+    """This rank's linear index over ``axes``, major to minor (0 on an
+    abstract mesh)."""
+    if _is_abstract(mesh):
+        return 0
     idx = 0
     for a in axes:
-        idx = idx * mesh.size(_dim(mesh, a)) + mesh.get_local_rank(a)
+        idx = idx * _size(mesh, a) + mesh.get_local_rank(a)
     return idx
+
+
+@contextlib.contextmanager
+def _counted(name: str, out_bytes: int, g: int):
+    """Report one collective (its output's bytes, its group's size) to the
+    work count in use, and count nothing it runs."""
+    if OBSERVER is None:
+        yield
+        return
+    with OBSERVER(name, out_bytes, g):
+        yield
 
 
 def _staged(x: torch.Tensor, group, op: Callable[[torch.Tensor], object]
@@ -83,19 +135,25 @@ def all_gather(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...]
     """Concatenate every rank's ``x`` along ``dim`` over ``axes`` (the
     minor axis first, so the blocks land major to minor)."""
     for a in reversed(axes):
-        n = mesh.size(_dim(mesh, a))
+        n = _size(mesh, a)
         if n == 1:
             continue
-        group = mesh.get_group(a)
-        _count("all_gather", (n - 1) * x.numel() * x.element_size())
+        shape = list(x.shape)
+        shape[dim] *= n
+        with _counted("all-gather", n * x.numel() * x.element_size(), n):
+            if _abstract(mesh, x):
+                x = x.new_empty(shape)
+                continue
+            group = mesh.get_group(a)
+            _count("all_gather", (n - 1) * x.numel() * x.element_size())
 
-        def op(t, group=group, n=n):
-            t = t.contiguous()
-            bufs = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(bufs, t, group=group)
-            return torch.cat(bufs, dim=dim)
+            def op(t, group=group, n=n):
+                t = t.contiguous()
+                bufs = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(bufs, t, group=group)
+                return torch.cat(bufs, dim=dim)
 
-        x = _to(_staged(x, group, op), x)
+            x = _to(_staged(x, group, op), x)
     return x
 
 
@@ -105,17 +163,22 @@ def all_reduce(x: torch.Tensor, mesh, axes: tuple[str, ...],
     itself when every axis has size 1)."""
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for a in axes:
-        if mesh.size(_dim(mesh, a)) == 1:
+        n = _size(mesh, a)
+        if n == 1:
             continue
-        group = mesh.get_group(a)
-        _count("all_reduce", x.numel() * x.element_size())
+        with _counted("all-reduce", x.numel() * x.element_size(), n):
+            if _abstract(mesh, x):
+                x = x.new_empty(x.shape)
+                continue
+            group = mesh.get_group(a)
+            _count("all_reduce", x.numel() * x.element_size())
 
-        def fn(t, group=group):
-            t = t.clone()
-            dist.all_reduce(t, op=red, group=group)
-            return t
+            def fn(t, group=group):
+                t = t.clone()
+                dist.all_reduce(t, op=red, group=group)
+                return t
 
-        x = _to(_staged(x, group, fn), x)
+            x = _to(_staged(x, group, fn), x)
     return x
 
 
@@ -125,20 +188,26 @@ def reduce_scatter(x: torch.Tensor, mesh, axes: tuple[str, ...]
     ``axis_size`` blocks: this rank keeps block ``axis_index`` (the major
     axis first)."""
     for a in axes:
-        n = mesh.size(_dim(mesh, a))
+        n = _size(mesh, a)
         if n == 1:
             continue
-        group = mesh.get_group(a)
-        _count("reduce_scatter", x.numel() * x.element_size())
+        shape = (x.shape[0] // n, *x.shape[1:])
+        with _counted("reduce-scatter", x.numel() * x.element_size() // n,
+                      n):
+            if _abstract(mesh, x):
+                x = x.new_empty(shape)
+                continue
+            group = mesh.get_group(a)
+            _count("reduce_scatter", x.numel() * x.element_size())
 
-        def fn(t, group=group, n=n):
-            t = t.contiguous()
-            out = torch.empty((t.shape[0] // n, *t.shape[1:]),
-                              dtype=t.dtype, device=t.device)
-            dist.reduce_scatter_tensor(out, t, group=group)
-            return out
+            def fn(t, group=group, n=n):
+                t = t.contiguous()
+                out = torch.empty((t.shape[0] // n, *t.shape[1:]),
+                                  dtype=t.dtype, device=t.device)
+                dist.reduce_scatter_tensor(out, t, group=group)
+                return out
 
-        x = _to(_staged(x, group, fn), x)
+            x = _to(_staged(x, group, fn), x)
     return x
 
 
@@ -152,30 +221,40 @@ def _global(mesh, axis: str, index: int) -> int:
 
 def broadcast(x: torch.Tensor, src: int, mesh, axis: str) -> torch.Tensor:
     """``x`` of the member at index ``src`` on ``axis``, on every member."""
-    group = mesh.get_group(axis)
-    root = _global(mesh, axis, src)
-    _count("broadcast", x.numel() * x.element_size())
+    with _counted("collective-permute", x.numel() * x.element_size(),
+                  _size(mesh, axis)):
+        if _abstract(mesh, x):
+            return x.new_empty(x.shape)
+        group = mesh.get_group(axis)
+        root = _global(mesh, axis, src)
+        _count("broadcast", x.numel() * x.element_size())
 
-    def fn(t):
-        t = t.contiguous().clone()
-        dist.broadcast(t, src=root, group=group)
-        return t
+        def fn(t):
+            t = t.contiguous().clone()
+            dist.broadcast(t, src=root, group=group)
+            return t
 
-    return _to(_staged(x, group, fn), x)
+        return _to(_staged(x, group, fn), x)
 
 
 def send(x: torch.Tensor, dst: int, mesh, axis: str) -> None:
     """Send ``x`` to the member at index ``dst`` on ``axis``."""
-    group = mesh.get_group(axis)
-    peer = _global(mesh, axis, dst)
-    _count("send", x.numel() * x.element_size())
-    _staged(x, group, lambda t: dist.send(t.contiguous(), dst=peer,
-                                          group=group))
+    with _counted("collective-permute", x.numel() * x.element_size(),
+                  _size(mesh, axis)):
+        if _abstract(mesh, x):
+            return
+        group = mesh.get_group(axis)
+        peer = _global(mesh, axis, dst)
+        _count("send", x.numel() * x.element_size())
+        _staged(x, group, lambda t: dist.send(t.contiguous(), dst=peer,
+                                              group=group))
 
 
 def recv(like: torch.Tensor, src: int, mesh, axis: str) -> torch.Tensor:
     """Receive a tensor shaped like ``like`` from the member at index
     ``src`` on ``axis``."""
+    if _abstract(mesh, like):
+        return like.new_empty(like.shape)
     group = mesh.get_group(axis)
     peer = _global(mesh, axis, src)
     _count("recv", like.numel() * like.element_size())

@@ -18,7 +18,9 @@
 * :func:`shard_params` / :func:`shard_residue_tensor` -- keep this rank's
   block of each resident weight and record where it sits
   (:class:`ResidueSharding`, the counterpart of the reference's
-  ``NamedSharding``).
+  ``NamedSharding``).  On an :class:`AbstractMesh` this process is rank 0
+  (the dry run costs rank 0's program): its blocks, on the meta device in
+  the dry run.
 
 The port runs explicit SPMD over ``torch.distributed``: one process a rank,
 each holding its block of every sharded leaf, and every sharded op a
@@ -35,7 +37,7 @@ A spec (:class:`Spec`) is a tuple of entries ``None``, an axis name or a
 tuple of names, as a ``PartitionSpec`` is.  ``ShardCtx.mesh`` is a
 ``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``, or an
 :class:`AbstractMesh` (names and sizes only): specs and plans need only the
-sizes; placing a block needs the ranks.
+sizes; placing a block needs a rank (rank 0 on an abstract mesh).
 """
 from __future__ import annotations
 
@@ -357,10 +359,14 @@ class ResidueSharding:
     scale_shape: tuple[int, ...] | None
 
 
-def _check_ranked(ctx: ShardCtx) -> None:
+def _check_ranked(ctx: ShardCtx, x: torch.Tensor) -> None:
     if isinstance(ctx.mesh, AbstractMesh):
-        raise ValueError("an AbstractMesh has no ranks: specs and plans "
-                         "only; place blocks on a DeviceMesh")
+        if x.device.type != "meta":     # rank 0's blocks, shapes only
+            raise ValueError("an AbstractMesh has no ranks: it places "
+                             "blocks of meta tensors only (rank 0's "
+                             "program in a dry run); place blocks of a "
+                             "tensor on a DeviceMesh")
+        return
     if ctx.mesh.get_coordinate() is None:
         raise ValueError("this rank is not a member of the context's mesh")
 
@@ -400,7 +406,7 @@ def shard_residue_tensor(t: Any, value_roles: Sequence, ctx: ShardCtx
     """This rank's block of one ResidueTensor on its role-derived specs,
     with its :class:`ResidueSharding` recorded.  A tensor already sharded
     is re-laid from its blocks."""
-    _check_ranked(ctx)
+    _check_ranked(ctx, t.planes)
     specs = residue_specs(t, value_roles, ctx)
     planes_shape, scale_shape = t.whole_shapes()
     mesh = ctx.mesh

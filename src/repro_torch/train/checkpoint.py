@@ -15,11 +15,19 @@ template leaf's dtype and put on its device.  A float <-> integer cast is
 refused: integer leaves are exact and a cast across kinds is a structure
 mismatch.  bfloat16 leaves are written as float32 (numpy has no bfloat16;
 float32 holds them exactly); a reference checkpoint's bfloat16 leaves are
-read bit for bit.  Residue-resident (prepared) trees are refused
-(``convert.to_jax_params``).
+read bit for bit.
+
+Residue-resident (prepared) trees take the same path, in the reference's
+layout: each ``ResidueTensor`` is written as ``<path>/0`` (its planes,
+layers stacked on axis 0) and ``<path>/1`` (its scale), and :func:`restore`
+rebuilds it from a prepared template, taking ``mset``, ``layout``,
+``qbits`` and ``max_abs`` from the template; the planes are exact integer
+encodings, so the float <-> integer refusal guards them too.  A sharded
+tensor is saved whole; a template must be whole.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import to_jax_params
+from repro_torch.numerics.tensor import ResidueTensor
 
 __all__ = ["save", "restore", "latest_step", "all_steps"]
 
@@ -106,6 +115,14 @@ def _rebuild(node: Any, key: str, flat: dict[str, np.ndarray],
     if isinstance(node, list):
         return [_rebuild(v, key, flat, index + (i,), lens + (len(node),))
                 for i, v in enumerate(node)]
+    if isinstance(node, ResidueTensor):
+        if node.sharding is not None:
+            raise ValueError(f"{key}: restore into a whole ResidueTensor "
+                             "template (this one is sharded)")
+        planes = _rebuild(node.planes, f"{key}/0", flat, index, lens)
+        scale = None if node.scale is None else _rebuild(
+            node.scale, f"{key}/1", flat, index, lens)
+        return dataclasses.replace(node, planes=planes, scale=scale)
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key!r}")
     arr = flat[key]

@@ -371,9 +371,13 @@ def test_restore_refuses_kind_casts_and_misfits(tmp_path):
         checkpoint.restore(d, dict(ok, c=torch.zeros(1)))
     with pytest.raises(FileNotFoundError):
         checkpoint.restore(str(tmp_path / "empty"), ok)
+    # a prepared tree saves (planes and scale as leaves); its integer planes
+    # refuse a float template
     prepared = residency.prepare_weight(torch.ones(8, 4), system="rns")
-    with pytest.raises(TypeError, match="residue-resident"):
-        checkpoint.save(d, 2, {"w": prepared})
+    checkpoint.save(d, 2, {"w": prepared})
+    with pytest.raises(ValueError, match="dtype-kind"):
+        checkpoint.restore(d, {"w": dataclasses.replace(
+            prepared, planes=prepared.planes.float())})
 
 
 def test_retention_keeps_newest(tmp_path):
