@@ -106,7 +106,7 @@ Phases (each prints its lines; any failure raises and the exit code is not
    launch held against its plain version as it returns, and the step
    bit-identical to the same step run with one B1 launch per expert (both
    timed warm).
-13. serve-vlm -- pixtral-12b at full width and depth (40 layers, attention
+13. serve-vlm -- pixtral-12b at full width, 20 of its 40 layers (attention
    width 4096 against d_model 5120) under ``system="rns"`` on rns8 pages,
    batch 8, 1024 synthetic patch embeddings then 256 text tokens, 32 new:
    finite logits, exact launch counts, the B1 and B3 launches of the first
@@ -152,8 +152,10 @@ Phases (each prints its lines; any failure raises and the exit code is not
    AlexNet and a VGG forward held against the plain versions (B6 / B7 on
    a sample of rows and columns), launch counts equal to the segment
    cuts', AlexNet's rns accuracy within 0.08 of float.  Prints ms a batch,
-   images/s, each kernel's device ms inside a forward, the peak memory
-   and the Eq. 3 speedups at each net's op mix beside the card's ratios.
+   images/s, each kernel's device ms inside a forward beside
+   ``torch._int_mm``'s time over the same B1 launch shapes, the peak
+   memory and the Eq. 3 speedups at each net's op mix beside the card's
+   ratios.
 
 17. mesh -- qwen3-8b at full width served across ranks that share the
    card (``torch.multiprocessing``, start method ``spawn``; a ``gloo``
@@ -173,7 +175,18 @@ Phases (each prints its lines; any failure raises and the exit code is not
    are printed); rank 0's first decode step's B1 and B5 launches, and in
    (d) its every B6 and B7 launch, held against the plain versions; (c)
    the fault repaired in the output and by ``nx.scrub``; (d) equal to the
-   rns twin.  No collective time is reported.
+   rns twin.  No collective time is reported.  Then, in the same ranks,
+   the sharded train step (``train/loop.py``'s ``TrainSharding``, FSDP
+   over the data axis and TP over the model axis, ``seq_shard`` on) of
+   qwen3-8b at full width, 2 layers, ``rns``, f32 activations, 8 x 128
+   tokens in 2 micro-batches, 2 AdamW steps: (e) on (1, 2), (f) on (2,
+   2), beside the same steps in this process.  Gates: losses and gradient
+   norms within 1e-5, the first step's gradients and the parameters after
+   the last within rtol 2e-4 / atol 2e-5 on 4096 seeded elements a leaf,
+   every rank's B1 launches a step equal to the single process's, rank
+   0's first-step B1 launches held against the plain version, (e)'s
+   forward logits bit for bit.  Prints the parameter and moment bytes a
+   rank, the collective bytes a step and the step seconds.
 
 Phase 3 also serves the reduced zamba2 on the card and on the CPU
 ([small-hybrid]); phase 2 also holds B5 (the dense-cache decode) at the
@@ -262,6 +275,10 @@ PIXTRAL_MATMULS = [((5120, 4096), 40), ((5120, 1024), 80),
                    ((4096, 5120), 40), ((5120, 14336), 80),
                    ((14336, 5120), 40), ((5120, 131072), 1)]
 VLM_TEXT, VLM_NEW = 256, 32
+# [serve-vlm]'s depth: 20 of pixtral's 40 layers, for time ([mesh]'s train
+# cases spend ~200 s in gloo collectives through the host; at 40 layers
+# this phase took ~45 s on an NVIDIA H100 80GB HBM3 at 700 W)
+VLM_LAYERS = 20
 # [serve-audio]: whisper-small at full width and depth (12 encoder and 12
 # decoder layers); the decode step's matmuls: (768, 768) six a layer (self
 # q, k, v, o; cross q, o), up, down.  Its logits are a float product, as
@@ -3061,8 +3078,8 @@ def serve_moe(torch, smi):
 
 
 def serve_vlm(torch, smi):
-    """Phase [serve-vlm]: pixtral-12b at full width and depth (40 layers,
-    attention width 32 x 128 = 4096 against d_model 5120, tied logits at
+    """Phase [serve-vlm]: pixtral-12b at full width, VLM_LAYERS of its 40
+    layers (attention width 32 x 128 = 4096 against d_model 5120, tied logits at
     N 131072) under system="rns" on rns8 pages: B 8, 1024 synthetic patch
     embeddings from the seed, then VLM_TEXT text tokens, VLM_NEW new
     tokens, greedy.  Gates: every logit finite, exact launch counts, the B1
@@ -3077,7 +3094,7 @@ def serve_vlm(torch, smi):
     from repro_torch.models.frontends import synthetic_patches
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("pixtral-12b")
+    cfg = dataclasses.replace(get_config("pixtral-12b"), n_layers=VLM_LAYERS)
     L, B, max_new = cfg.n_layers, SERVE_B, VLM_NEW
     plen = cfg.n_img_tokens + VLM_TEXT
     s_max = plen + max_new + 1
@@ -3725,6 +3742,39 @@ def cnn_bounds(spec, batch, system):
     return out
 
 
+def cnn_library_ms(torch, timer, spec, batch):
+    """The library's time for one rns forward's B1 launches: per launch
+    (each K segment of each ``dense`` call, ``cnn_launches``'s cuts) the
+    faster ``torch._int_mm`` layout of ``_int_mm_best`` on operands over
+    the centred P21 range, held equal to the plain version; summed over the
+    launches (a shape seen before is timed once)."""
+    from repro_torch.core.moduli import P21
+    from repro_torch.data.cifar import dense_shapes
+    from repro_torch.kernels.rns_matmul import rns_matmul_ref
+    from repro_torch.numerics import runners
+    from repro_torch.quant.quant import qmax_for_bits
+
+    q, C, h = qmax_for_bits(CNN_BITS), P21.num_channels, max(P21.moduli) // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    seen, total = {}, 0.0
+    for M, K, N in dense_shapes(spec, batch):
+        for lo, hi in runners.rns_segments(K, q, q, P21):
+            key = (M, hi - lo, N)
+            if key not in seen:
+                a, b = (torch.randint(-h, h + 1, shape, generator=gen,
+                                      device="cuda", dtype=torch.int32
+                                      ).to(torch.int8)
+                        for shape in ((C, M, hi - lo), (C, hi - lo, N)))
+                seen[key] = _int_mm_best(
+                    torch, timer, a, b, P21.moduli,
+                    rns_matmul_ref(a, b, P21.moduli),
+                    f"rns_matmul[cnn library] M={M} K={hi - lo} N={N}")[0]
+                del a, b
+            total += seen[key]
+    torch.cuda.empty_cache()
+    return total
+
+
 def _oracle_dense(torch):
     """``linear.dense`` under rns as a plain integer oracle: the same int
     codes (per token and per output channel), their product in float64 on
@@ -3927,6 +3977,17 @@ def cnn_eval(torch, smi):
         raise AssertionError(f"{label}: non-finite logits or rns accuracy "
                              f"{acc_r} below float {acc_f} - 0.08")
 
+    timer = Timer(torch)
+    library = {net: cnn_library_ms(torch, timer, spec, CNN_BATCH)
+               for net, spec in nets.items()}
+    del timer
+    for net in nets:
+        print(f"[{label}] {net} rns: torch._int_mm in place of the "
+              f"{cnn_launches(nets[net], CNN_BATCH, 'rns')['rns_matmul']} "
+              f"B1 launches of one forward of {CNN_BATCH} images (per "
+              f"launch, the faster B layout, summed) {library[net]:.4f} ms "
+              f"against B1's {dev_ms[(net, 'rns')]['rns_matmul']:.3f} ms "
+              f"in the forward; {smi}", flush=True)
     model = {}
     for net, spec in nets.items():
         ops = cifar.op_counts(spec)
@@ -3947,6 +4008,7 @@ def cnn_eval(torch, smi):
               f"bns/sdrns {m['card_bns_over_sdrns']:.3f}; {smi}",
               flush=True)
     return {"counts": counts, "peak_gb": peak, "train_s": t_train,
+            "library_ms": library,
             "bound_ms": {f"{n} {s}": v for (n, s), v in bounds.items()},
             "losses": [losses[0], losses[-1]],
             "stats": {f"{n} {s}": res[(n, s, "stats")] for n in nets
@@ -3976,6 +4038,22 @@ MESH_WORLD = 5
 MESH_FAULT = (0, 3, 5)
 MESH_KERNELS = ("rns_matmul", "flash_attention", "flash_decode",
                 "sdrns_matmul", "sdrns_matvec")
+# [mesh]'s train cases, in the same spawned ranks: (label, mesh shape) of
+# the sharded train step (train/loop.py's TrainSharding, seq_shard on) of
+# qwen3-8b at full width cut to MESH_TRAIN_LAYERS, under rns, batch
+# MESH_TRAIN_B x MESH_TRAIN_S tokens in MESH_TRAIN_MICRO micro-batches,
+# MESH_TRAIN_STEPS AdamW steps (16 B a parameter: ~16 GB whole, a quarter
+# of the blocks a rank on (2, 2)); rank 0 runs the one-process steps they
+# are held against on the same card.  Activations in f32, as the CPU tests
+# whose limits hold here: in bf16 a sum taken in another order (the column
+# plan's over the tensor axis) moves single elements by a bf16 ulp, past
+# those limits (as these cases show on the CPU at reduced width)
+MESH_TRAIN = [("e", (1, 2)), ("f", (2, 2))]
+MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = 2, 8, 128
+MESH_TRAIN_MICRO, MESH_TRAIN_STEPS = 2, 2
+MESH_TRAIN_OPT = dict(peak_lr=1e-4, warmup_steps=0, total_steps=10)
+# the CPU tests' limits (tests/test_torch_mesh_train.py)
+MESH_RTOL, MESH_ATOL, MESH_LOSS_RTOL = 2e-4, 2e-5, 1e-5
 
 
 def _plane_bytes(node) -> int:
@@ -4142,6 +4220,256 @@ def _mesh_serve(torch, system, mset_name, layers, B, plen, max_new,
                 fallback_gathers=engine.stats.fallback_gathers)
 
 
+def _tree_err(torch, got, want):
+    """The worst ``|got - want| / (MESH_ATOL + MESH_RTOL |want|)`` over
+    two trees of one structure (<= 1: within the CPU tests' limits) and the
+    count of elements past 1."""
+    from repro_torch.train.tree import tree_leaves
+
+    worst, bad = 0.0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        r = ((a.float() - b.float()).abs()
+             / (MESH_ATOL + MESH_RTOL * b.float().abs()))
+        worst = max(worst, float(r.max()))
+        bad += int((r > 1).sum())
+    return worst, bad
+
+
+def _logits_digest(torch, logits):
+    """An exact position-weighted checksum of a logits tensor's bits."""
+    bits = logits.contiguous().view(-1).view(torch.int32).to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * w).sum())
+
+
+def _mesh_train(torch, ctx, rank):
+    """One rank of [mesh]'s train case on ``ctx``'s mesh: weights made
+    from SEED, placed on this rank's blocks; MESH_TRAIN_STEPS sharded
+    steps (the launches counted, rank 0's first step's B1 launches held
+    against the plain version).  Rank 0 also runs the one-process steps
+    on the same card: step 0 from the same weights (the loss, the gradient
+    norm, its block of the gradients and of the state after it compared),
+    the one-process run continued (its loss printed beside the sharded
+    one), and, from the sharded parameters after step 0 gathered whole,
+    step 1's loss and gradients (the loss, the gradient norm and its block
+    of the gradients compared: the same inputs).  The forward's logits on this rank's rows
+    of batch 0 are compared with one process's bit for bit on a mesh with
+    no data axis."""
+    import dataclasses as dc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import relayout, shard_ctx
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             global_norm, init_opt_state)
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              n_layers=MESH_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    n = MESH_TRAIN_MICRO
+    model = build_model(cfg, system="rns", device="cuda")
+    ocfg = OptConfig(**MESH_TRAIN_OPT, moment_dtype=cfg.opt_state_dtype)
+    pipe = TokenPipeline(cfg.vocab, MESH_TRAIN_S, MESH_TRAIN_B, seed=SEED)
+    batches = [pipe.batch_at(i) for i in range(MESH_TRAIN_STEPS)]
+    kw = {"system": "rns", "compute_dtype": torch.float32}
+    rows = loop.local_rows({"tokens": torch.as_tensor(
+        batches[0]["tokens"], device="cuda")}, n, ctx)["tokens"].long()
+    params = model.init(SEED, prepare=False)
+    state = {"params": params, "opt_state": init_opt_state(params, ocfg)}
+    sh = loop.TrainSharding.of(params, ctx)
+    blocks = sh.place_state(state)
+    rec = dict(losses=[], grad_norms=[], counts=[], moved=[], step_s=[],
+               held_bytes=sum(x.numel() * x.element_size()
+                              for x in tree_leaves(blocks["params"])),
+               moment_bytes=sum(x.numel() * x.element_size() for x in (
+                   tree_leaves(blocks["opt_state"]["m"])
+                   + tree_leaves(blocks["opt_state"]["v"]))),
+               whole_bytes=sum(x.numel() * x.element_size()
+                               for x in tree_leaves(params)))
+    step_one = loop.make_train_step(model, ocfg, n)
+    if rank == 0:
+        # the one-process steps on the same card, kept as rank 0's blocks
+        with torch.no_grad():
+            one_logits = transformer.lm_forward(params, cfg, rows,
+                                                dense_kw=kw)[0]
+        rec["one_digest"] = _logits_digest(torch, one_logits)
+        del one_logits
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        (loss, _), g = loop.make_grad_fn(model, n)(params, batches[0])
+        p1, st1, met = adamw_update(params, g, state["opt_state"], ocfg)
+        torch.cuda.synchronize()
+        rec["one_s"] = time.perf_counter() - t0
+        rec["one_counts"] = kernels.launch_counts()["rns_matmul"]
+        rec["one_loss"], rec["one_gn"] = float(loss), float(met["grad_norm"])
+        one_g, one_1 = sh.place(g), sh.place_state(
+            {"params": p1, "opt_state": st1})
+        del g, state, params
+        _, _, met = step_one(p1, st1, batches[1])
+        rec["one_cont_loss"] = float(met["loss"])
+        rec["one_cont_gn"] = float(met["grad_norm"])
+        del p1, st1, met
+    else:
+        del state, params
+    torch.cuda.empty_cache()
+    p, st = blocks["params"], blocks["opt_state"]
+    del blocks
+    with torch.no_grad(), shard_ctx(dc.replace(ctx, rows_local=True)):
+        logits = transformer.lm_forward(loop.forward_tree(p, sh.specs, ctx),
+                                        cfg, rows, dense_kw=kw)[0]
+    rec["digest"] = _logits_digest(torch, logits)
+    del logits
+    torch.cuda.reset_peak_memory_stats()
+    grads_fn = loop.make_grad_fn(model, n, sh)
+    for i, batch in enumerate(batches):
+        kernels.reset_launch_counts()
+        collectives.reset_moved_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def run():
+            (loss, _), g = grads_fn(p, batch)
+            return loss, g, adamw_update(p, g, st, ocfg, sharding=sh)
+
+        if i == 0 and rank == 0:
+            (loss, g, (p_next, st_next, met)), rec["held"] = hold_launches(
+                held_checks("rns_matmul"), run)
+        else:
+            loss, g, (p_next, st_next, met) = run()
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["counts"].append(kernels.launch_counts()["rns_matmul"])
+        rec["moved"].append(collectives.moved_bytes())
+        rec["losses"].append(float(loss))
+        rec["grad_norms"].append(float(met["grad_norm"]))
+        if i == 0 and rank == 0:
+            rec["err_grads"] = _tree_err(torch, g, one_g)
+            rec["err_state"] = _tree_err(torch, {"p": p_next, **st_next},
+                                         {"p": one_1["params"],
+                                          **one_1["opt_state"]})
+            del one_g, one_1
+        if i == 1:
+            p1, g1 = p, g           # step 1's parameters and gradients
+        del g
+        p, st = p_next, st_next
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    # step 1 in one process from the sharded parameters it started from,
+    # gathered whole on rank 0 (a leaf at a time on the others)
+    t0 = time.perf_counter()
+
+    def gathered(x, spec):
+        w = relayout(x, ctx.mesh, spec, (None,) * x.dim())
+        return w if rank == 0 else None
+
+    whole = tree_map(gathered, p1, sh.specs)
+    del p1
+    torch.cuda.synchronize()
+    rec["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        (loss, _), g = loop.make_grad_fn(model, n)(whole, batches[1])
+        del whole
+        rec["one_step1_loss"] = float(loss)
+        rec["one_step1_gn"] = float(global_norm(g))
+        rec["err_step1"] = _tree_err(torch, g1, sh.place(g))
+        del g
+    del g1, p, st, model
+    return rec
+
+
+def _check_mesh_train(label, shape, ranks, smi):
+    """The gates of a [mesh] train case (``_mesh_train``): every rank's
+    losses and gradient norms equal rank 0's (the global batch's); step 0
+    against one process from the same weights and step 1 against one
+    process from the same sharded state: the loss and the gradient norm
+    within MESH_LOSS_RTOL, rank 0's blocks of the gradients (and of the
+    state after step 0) within rtol MESH_RTOL / atol MESH_ATOL; every
+    rank's B1 launches a step equal to one process's; rank 0's first-step
+    B1 launches held; with no data axis, the forward's logits bit for
+    bit on every rank.  Prints the bytes a rank, the collective bytes and
+    seconds a step, and the continued one-process run's losses beside the
+    sharded run's (not gated: the int4 codes of a forward are a
+    discontinuous function of the weights, which the two runs hold
+    rounded apart after a step)."""
+    n = shape[0] * shape[1]
+    rs = [ranks[r][label] for r in range(n)]
+    r0 = rs[0]
+    fails = []
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for r, got in enumerate(rs):
+        if got["losses"] != r0["losses"] or \
+                got["grad_norms"] != r0["grad_norms"]:
+            fails.append(f"rank {r}'s losses or gradient norms differ from "
+                         f"rank 0's")
+        if any(c != r0["one_counts"] for c in got["counts"]):
+            fails.append(f"rank {r}: B1 launches {got['counts']}, one "
+                         f"process {r0['one_counts']} a step")
+        if shape[0] == 1 and got["digest"] != r0["one_digest"]:
+            fails.append(f"rank {r}: the forward's logits differ from one "
+                         f"process's")
+    checks = {
+        "step 0 loss": rel(r0["losses"][0], r0["one_loss"]),
+        "step 0 grad_norm": rel(r0["grad_norms"][0], r0["one_gn"]),
+        "step 1 loss": rel(r0["losses"][1], r0["one_step1_loss"]),
+        "step 1 grad_norm": rel(r0["grad_norms"][1], r0["one_step1_gn"])}
+    for what, err in checks.items():
+        if not err <= MESH_LOSS_RTOL:
+            fails.append(f"{what} off by {err:.3e} relative")
+    for what in ("err_grads", "err_state", "err_step1"):
+        if r0[what][0] > 1:
+            fails.append(f"{what}: {r0[what][1]} elements past the limits "
+                         f"(worst {r0[what][0]:.3f})")
+    print(f"[mesh] ({label}) train: qwen3-8b L={MESH_TRAIN_LAYERS} full "
+          f"width, rns, f32 activations, mesh=({shape[0]},{shape[1]}) "
+          f"seq_shard, batch {MESH_TRAIN_B} x {MESH_TRAIN_S} in "
+          f"{MESH_TRAIN_MICRO} micro-batches, {MESH_TRAIN_STEPS} AdamW "
+          f"steps: losses {r0['losses']}, grad_norm {r0['grad_norms']}; one "
+          f"process on the same inputs: step 0 {r0['one_loss']} / "
+          f"{r0['one_gn']}, step 1 from the gathered sharded parameters "
+          f"{r0['one_step1_loss']} / {r0['one_step1_gn']} (relative "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in checks.items()})});"
+          f" rank 0's blocks, worst |d| / (atol + rtol |ref|) and elements "
+          f"past 1: gradients {r0['err_grads']}, state after step 0 "
+          f"{r0['err_state']}, gradients of step 1 {r0['err_step1']}; the "
+          f"one-process run continued: step 1 loss {r0['one_cont_loss']} "
+          f"grad_norm {r0['one_cont_gn']} (not gated); parameter bytes a "
+          f"rank {[g['held_bytes'] for g in rs]}, moment bytes "
+          f"{[g['moment_bytes'] for g in rs]}, of {r0['whole_bytes']} "
+          f"parameter bytes whole; collective payload bytes a step (rank "
+          f"0) {json.dumps(r0['moved'])}; step_s a rank "
+          f"{[[round(t, 3) for t in g['step_s']] for g in rs]} (one process "
+          f"{r0['one_s']:.3f} for step 0, on the card beside the ranks); "
+          f"parameters gathered whole in {r0['gather_s']:.1f}s; peak a rank "
+          f"{[g['peak'] for g in rs]}; B1 launches a step {r0['counts']}"
+          + ("; forward logits bit for bit on every rank" if shape[0] == 1
+             else "") + f"; {smi}", flush=True)
+    check_held(r0["held"], {"rns_matmul": r0["one_counts"]},
+               f"mesh ({label})", "rank 0's first train step")
+    if fails:
+        raise AssertionError(f"mesh ({label}) train: " + "; ".join(fails))
+    return dict(ranks=n, layout=f"train ({shape[0]},{shape[1]}) seq_shard",
+                system="rns", losses=r0["losses"],
+                grad_norms=r0["grad_norms"],
+                one_losses=[r0["one_loss"], r0["one_step1_loss"]],
+                one_continued_loss=r0["one_cont_loss"],
+                held_bytes=[g["held_bytes"] for g in rs],
+                moment_bytes=[g["moment_bytes"] for g in rs],
+                whole_bytes=r0["whole_bytes"], step_s=r0["step_s"],
+                one_step_s=r0["one_s"], step_bytes=r0["moved"],
+                peak=r0["peak"], counts=dict(NO_LAUNCHES,
+                                             rns_matmul=r0["counts"][0]),
+                errors={k: r0[k] for k in ("err_grads", "err_state",
+                                           "err_step1")})
+
+
 def _mesh_rank(rank, world, init, out_dir):
     """One rank of [mesh]: every case on its own sub-mesh of the first n
     ranks (the others wait), results saved for the parent."""
@@ -4189,6 +4517,14 @@ def _mesh_rank(rank, world, init, out_dir):
             gc.collect()
             torch.cuda.empty_cache()
             dist.barrier()
+        for label, shape in MESH_TRAIN:
+            mesh = make_test_mesh(shape, ranks=range(shape[0] * shape[1]))
+            if rank < shape[0] * shape[1]:
+                out[label] = _mesh_train(
+                    torch, make_ctx(mesh, seq_shard=True), rank)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
     finally:
@@ -4209,7 +4545,9 @@ def serve_mesh(torch, smi):
     0's first decode step's B1 and B5 launches (rns) or every B6 and B7
     launch (sdrns) held against the plain versions; (c) the fault repaired
     in the output and found and repaired by ``nx.scrub``; (d) equal to its
-    rns twin."""
+    rns twin.  Then the train cases (MESH_TRAIN) in the same ranks, rank 0
+    running the one-process steps they are held against
+    (``_mesh_train``, ``_check_mesh_train``)."""
     import shutil
     import tempfile
 
@@ -4328,6 +4666,8 @@ def serve_mesh(torch, smi):
                           counts=r0["counts"], plane_bytes=r0["plane_bytes"],
                           prefill_s=r0["prefill_s"], step_ms=r0["step_ms"],
                           peak=r0["peak"], step_bytes=r0["step_bytes"])
+    for label, shape in MESH_TRAIN:
+        out[label] = _check_mesh_train(label, shape, ranks, smi)
     return out
 
 
@@ -4562,7 +4902,10 @@ def main() -> int:
     # [cnn]: B1 at the CNN's new shapes, B6 at VGG-16's conv2, and each
     # kernel's device ms inside one forward of a batch of 64, by net
     def in_forward(name):
-        return {k: dict(ms=v[name], bound_ms=cnn["bound_ms"][k][name])
+        return {k: dict(ms=v[name], bound_ms=cnn["bound_ms"][k][name],
+                        **({"library_ms": cnn["library_ms"][k.split()[0]]}
+                           if name == "rns_matmul" and k.endswith(" rns")
+                           else {}))
                 for k, v in cnn["kernel_ms"].items() if name in v}
 
     line["kernels"][0]["cnn"] = dict(
@@ -4575,7 +4918,7 @@ def main() -> int:
         launches=cnn["counts"]["sdrns_matvec"],
         ms_in_forward=in_forward("sdrns_matvec"))
     line["cnn"] = {k: v for k, v in cnn.items() if k not in (
-        "counts", "kernel_ms", "bound_ms")}
+        "counts", "kernel_ms", "bound_ms", "library_ms")}
     # [mesh]: each case's launches a rank (every rank's equal the single
     # process's) for B1, B5, B6 and B7
     for i in (0, 4, 5, 6):
@@ -4584,10 +4927,7 @@ def main() -> int:
             label: dict(ranks=v["ranks"], layout=v["layout"],
                         system=v["system"], launches=v["counts"][name])
             for label, v in mesh.items()}
-    line["mesh"] = {label: {k: v[k] for k in ("ranks", "layout", "system",
-                                               "mset", "plane_bytes",
-                                               "prefill_s", "step_ms",
-                                               "peak", "step_bytes")}
+    line["mesh"] = {label: {k: v[k] for k in v if k != "counts"}
                     for label, v in mesh.items()}
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}

@@ -4,7 +4,8 @@ device, with no card and no process group (port of
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
         --shape decode_32k --system rns [--mesh single|multi|channel] \\
-        [--channel-shard] [--reduced] [--tag T] [--out-dir DIR] [--all]
+        [--seq-shard] [--channel-shard] [--reduced] [--tag T] \\
+        [--out-dir DIR] [--all]
 
 The port runs explicit SPMD, one process a rank, so a cell costs **rank
 0's program** on the reference's production mesh
@@ -18,13 +19,16 @@ channel mesh (85, 3) for P21).  Per cell:
    sharding specs (``parallel/sharding.py``), each leaf's bytes over the
    mesh axes its spec splits it on, as the reference's ``sharded_bytes``;
 3. the step runs under a :class:`~repro_torch.roofline.op_cost.OpCost`
-   count on rank 0's blocks (``shard_params`` on the abstract mesh): train
-   -- the loss's forward and backward (remat as the config sets it) and
-   AdamW; prefill -- ``model.prefill`` at ``s_max = S``; decode --
+   count on rank 0's blocks: train -- the sharded train step
+   (``train/loop.py`` with a ``TrainSharding``: rank 0's rows of the
+   global batch, its blocks of the parameters, ``m`` and ``v``, the loss's
+   forward and backward with remat as the config sets it, and AdamW;
+   ``--seq-shard`` puts the norms and residual adds on sequence shards);
+   prefill -- ``model.prefill`` at ``s_max = S`` and decode --
    ``model.decode`` of one token against an S-long cache (the audio
    family's: at its last decoder position against S frames of encoder
-   memory).  The collectives
-   of the runners' plans add their ring-model bytes;
+   memory), both on the prepared tree's blocks (``shard_params``).  The
+   collectives of the plans add their ring-model bytes;
 4. one JSON record is written: the reference's framework-free fields and
    an ``op_cost`` block (operations by kind, bytes, collective bytes, the
    kernel ops' launches and bounds) in place of its ``hlo_cost``;
@@ -33,8 +37,9 @@ channel mesh (85, 3) for P21).  Per cell:
 Nothing here is measured: every number is modelled from the counts.
 ``--all`` runs every cell of ``configs.all_cells()`` on the single and multi
 meshes, one subprocess a cell; existing JSONs are kept and a cell that is
-not runnable gets a ``_SKIP`` record.  Sequence-sharded layouts
-(``--seq-shard``) are not ported (ROADMAP.md, queue A item 6).
+not runnable gets a ``_SKIP`` record, and so do the audio family's train
+cells: the sharded step runs the decoder-only families (``run_cell``
+raises on them).
 """
 from __future__ import annotations
 
@@ -50,9 +55,8 @@ from typing import Any
 __all__ = ["run_cell", "main", "sharded_bytes"]
 
 DEFAULT_OUT = "experiments/dryrun_torch"
-SEQ_SHARD_REFUSAL = ("--seq-shard: sequence-sharded layouts (the reference's "
-                     "ShardCtx.seq_shard, Megatron-SP) are not ported; see "
-                     "ROADMAP.md, queue A item 6")
+AUDIO_TRAIN = ("the sharded train step runs the decoder-only families; "
+               "the audio encoder-decoder trains in one process")
 
 
 def _cell_filename(arch, shape, mesh_name, system, tag):
@@ -117,17 +121,15 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
                                                shard_params,
                                                specs_from_roles)
     from repro_torch.roofline.op_cost import OpCost
-    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.loop import TrainSharding, make_train_step
     from repro_torch.train.optimizer import OptConfig, init_opt_state
 
-    if seq_shard:
-        raise NotImplementedError(SEQ_SHARD_REFUSAL)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     shape = SHAPES[shape_name]
     mesh = _make_mesh(mesh_name)
-    ctx = make_ctx(mesh, channel_shard=channel_shard)
+    ctx = make_ctx(mesh, seq_shard=seq_shard, channel_shard=channel_shard)
     model = build_model(cfg, system=system, device="meta")
     prepare = system in ("rns", "sdrns") and shape.kind != "train"
     B, S = shape.global_batch, shape.seq_len
@@ -150,22 +152,26 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "single", *,
         extra["cache_bytes_dev"] = sharded_bytes(cache, cspecs, mesh)
     t_build = time.time() - t0
 
-    with shard_ctx(ctx):
-        local = shard_params(params, ctx)
+    if shape.kind == "train":
+        sh = TrainSharding.of(params, ctx)
+        state = sh.place_state({"params": params, "opt_state": opt_state})
+        del params, opt_state
+        step = make_train_step(model, opt_cfg, max(cfg.microbatch, 1), sh)
         with OpCost() as oc:
-            if shape.kind == "train":
-                step = make_train_step(model, opt_cfg,
-                                       max(cfg.microbatch, 1))
-                step(local, opt_state, batch)
-            elif shape.kind == "prefill":
-                kw = {k: batch[k] for k in ("patches", "frames")
-                      if k in batch}
-                model.prefill(local, batch["tokens"], s_max=S, **kw)
-            else:
-                # the audio family's self cache holds dec_len rows; its
-                # S-long cache is the encoder memory
-                pos = cfg.dec_len - 1 if cfg.is_encdec else S - 1
-                model.decode(local, batch["token"], cache, pos)
+            step(state["params"], state["opt_state"], batch)
+    else:
+        with shard_ctx(ctx):
+            local = shard_params(params, ctx)
+            with OpCost() as oc:
+                if shape.kind == "prefill":
+                    kw = {k: batch[k] for k in ("patches", "frames")
+                          if k in batch}
+                    model.prefill(local, batch["tokens"], s_max=S, **kw)
+                else:
+                    # the audio family's self cache holds dec_len rows;
+                    # its S-long cache is the encoder memory
+                    pos = cfg.dec_len - 1 if cfg.is_encdec else S - 1
+                    model.decode(local, batch["token"], cache, pos)
     t_step = time.time() - t0 - t_build
 
     counts = param_counts(cfg)
@@ -233,7 +239,9 @@ def main(argv=None):
                     help="number system; rns / sdrns serving cells run "
                          "residue-resident (ResidueTensor-leaf) params")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="refused: sequence-sharded layouts are not ported")
+                    help="sequence-parallel train cells (Megatron-SP: "
+                         "norms and residual adds on sequence shards over "
+                         "the model axis)")
     ap.add_argument("--channel-shard", action="store_true",
                     help="C-split residue-plane layout (moduli channels "
                          "over the model axis)")
@@ -246,15 +254,14 @@ def main(argv=None):
                          "subprocess a cell; existing JSONs are kept")
     ap.add_argument("--timeout", type=int, default=3600)
     args = ap.parse_args(argv)
-    if args.seq_shard:
-        print(SEQ_SHARD_REFUSAL, file=sys.stderr)
-        return 2
 
     if args.all:
-        from repro_torch.configs import all_cells
+        from repro_torch.configs import SHAPES, all_cells, get_config
 
         jobs = []
         for arch, shape, runnable, reason in all_cells():
+            if SHAPES[shape].kind == "train" and get_config(arch).is_encdec:
+                runnable, reason = False, AUDIO_TRAIN
             for mesh_name in ("single", "multi"):
                 if not runnable:
                     _record_skip(args.out_dir, arch, shape, mesh_name,
@@ -271,6 +278,8 @@ def main(argv=None):
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--shape", shape, "--mesh", mesh_name,
                    "--system", args.system, "--out-dir", args.out_dir]
+            if args.seq_shard:
+                cmd.append("--seq-shard")
             if args.channel_shard:
                 cmd.append("--channel-shard")
             if args.reduced:
@@ -289,6 +298,7 @@ def main(argv=None):
         ap.error("--arch and --shape are required (or --all)")
     try:
         rec = run_cell(args.arch, args.shape, args.mesh, system=args.system,
+                       seq_shard=args.seq_shard,
                        channel_shard=args.channel_shard,
                        reduced=args.reduced, out_dir=args.out_dir,
                        tag=args.tag)

@@ -116,13 +116,17 @@ def abstract_production_mesh(*, multi_pod: bool = False,
     return AbstractMesh((16, 16), ("data", "model"))
 
 
-def make_ctx(mesh, *, channel_shard: bool = False) -> ShardCtx:
-    """ShardCtx with dp = every axis but ``"model"``; ``channel_shard``
-    selects the channel-split plane layout (parallel/sharding.py)."""
+def make_ctx(mesh, *, seq_shard: bool = False,
+             channel_shard: bool = False) -> ShardCtx:
+    """ShardCtx with dp = every axis but ``"model"``; ``seq_shard`` puts the
+    training forward's norms and residual adds on sequence shards over the
+    model axis (Megatron-SP), ``channel_shard`` selects the channel-split
+    plane layout (parallel/sharding.py)."""
     names = (mesh.axis_names if hasattr(mesh, "axis_names")
              else mesh.mesh_dim_names)
     dp = tuple(a for a in names if a != "model")
-    return ShardCtx(mesh, dp=dp, tp=("model",), channel_shard=channel_shard)
+    return ShardCtx(mesh, dp=dp, tp=("model",), seq_shard=seq_shard,
+                    channel_shard=channel_shard)
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"),

@@ -14,7 +14,10 @@ and the audio encoder-decoder (``models/encdec.py``):
   per-call path);
 * ``loss(params, batch)`` -- ``(ce + 0.01 * aux, ce)`` of the training
   forward on a float tree: mean cross entropy over labels >= 0 (-1 is
-  ignored) and the moe layers' load-balance loss.  ``batch`` holds
+  ignored) and the moe layers' load-balance loss (in the sharded train
+  step, ``train/loop.py``, the tree holds this rank's blocks as
+  ``ShardedParam`` weights and the global batch's loss comes out on every
+  rank).  ``batch`` holds
   ``tokens`` and ``labels`` (B, S), and ``patches`` (vlm: the labels cover
   the patch positions too) or ``frames`` (audio);
 * ``prepare_params(params)`` -- the quantize-once / convert-once pass over a
@@ -79,7 +82,7 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SsmCache
 from repro_torch.numerics.tensor import ResidueTensor
-from repro_torch.parallel import sharding
+from repro_torch.parallel import collectives, sharding
 from repro_torch.quant import residency
 
 __all__ = ["Model", "build_model", "cross_entropy", "resolve_device",
@@ -91,11 +94,19 @@ MOE_AUX_WEIGHT = 0.01
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean cross entropy in f32 over the positions whose label is >= 0
-    (-1 marks a position to ignore)."""
+    (-1 marks a position to ignore).  In the sharded train step, whose dp
+    ranks hold their own rows, the sum and the count are the global
+    batch's (all-reduced over dp; the same value on every rank)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     valid = (labels >= 0).to(torch.float32)
-    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
+    num, den = -(ll * valid).sum(), valid.sum()
+    rows = sharding.dp_rows()
+    if rows is not None:
+        mesh, dp, _ = rows
+        num = collectives.diff_all_reduce(num, mesh, dp)
+        den = collectives.all_reduce(den, mesh, dp)
+    return num / den.clamp(min=1.0)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -2,9 +2,14 @@
 (port of models/layers.py)."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (ShardedParam, get_shard_ctx,
+                                           shard_ctx)
 from repro_torch.quant.quant import true_divide
 
 __all__ = ["rmsnorm", "init_rmsnorm", "rope", "sinusoidal_positions",
@@ -71,15 +76,43 @@ def embed(params: dict[str, torch.Tensor], tokens: torch.Tensor,
     backward's accumulating scatter does not on the CPU), so a step is
     reproducible bit for bit."""
     table = params["table"]
+    if isinstance(table, ShardedParam):
+        return _embed_sharded(table, tokens, compute_dtype)
     if torch.is_grad_enabled() and table.requires_grad:
         return torch.nn.functional.embedding(tokens, table.to(compute_dtype))
     return table[tokens].to(compute_dtype)
 
 
+def _embed_sharded(table: ShardedParam, tokens: torch.Tensor,
+                   compute_dtype) -> torch.Tensor:
+    """The train step's lookup in a table of this rank's block: the FSDP
+    split gathered; a vocabulary split over tp looked up where it lies
+    (the other ranks' rows read as zeros) and summed over tp, so the table
+    is never gathered whole (Megatron's vocabulary-parallel embedding)."""
+    t = table.gather_dp().to(compute_dtype)
+    d = table.tp_dim()
+    if d is None:
+        return torch.nn.functional.embedding(tokens, t)
+    mesh, tp = table.ctx.mesh, table.ctx.tp
+    if d != 0:
+        t = coll.diff_all_gather(t, d, mesh, tp, "slice")
+        return torch.nn.functional.embedding(tokens, t)
+    v_loc = t.shape[0]
+    rows = tokens - coll.axis_index(mesh, tp) * v_loc
+    mine = (rows >= 0) & (rows < v_loc)
+    e = torch.nn.functional.embedding(torch.where(mine, rows, 0), t)
+    return coll.diff_all_reduce(e * mine[..., None].to(e.dtype), mesh, tp)
+
+
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``; under ``remat`` its activations are not kept but
     recomputed in the backward (``torch.utils.checkpoint``, the reference's
-    ``jax.checkpoint``)."""
+    ``jax.checkpoint``).  The recompute runs under the shard context of the
+    forward: a CUDA backward runs on the autograd engine's own thread,
+    which does not see the caller's context variables."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        ctx = get_shard_ctx()
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              shard_ctx(ctx)))
     return fn(*args)

@@ -33,6 +33,18 @@ term, comes with the output under ``moe(..., with_aux=True)`` (the training
 forward) and alone from :func:`load_balance_loss`.  Under ``rns`` /
 ``sdrns`` a float expert stack (training) goes through the per-call path of
 ``linear.stacked_qmatmul``, with its straight-through backward.
+
+In the sharded train step (``ShardCtx.rows_local``) each dp rank routes its
+own rows as the reference's GSPMD step routes the global batch: the
+capacity follows the global token count, each rank's positions inside an
+expert are offset by the lower dp ranks' counts (the global batch's token
+order: dp block 0's rows first), and both means of the aux loss are taken
+over the global batch.  Each rank keeps its own slots of the ``(E, C, d)``
+buffers (the others' rows are zeros, which the experts map to zeros).
+Expert stacks split on E over tp (EP, where E divides the tensor axes) run
+each rank's experts on its block of the buffers and all-gather the
+outputs; stacks split inside each expert run ``linear``'s column and row
+plans.
 """
 from __future__ import annotations
 
@@ -44,6 +56,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import linear
 from repro_torch.numerics.tensor import ResidueTensor
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import ShardedParam
 
 __all__ = ["init_moe", "load_balance_loss", "moe", "moe_capacity"]
 
@@ -95,21 +110,34 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
-def place(expert_idx: torch.Tensor, n_experts: int, capacity: int):
+def place(expert_idx: torch.Tensor, n_experts: int, capacity: int,
+          rows=None):
     """Each (token, slot)'s expert and position inside it, flattened to
-    ``(T·k,)``, and which of them fit the capacity."""
+    ``(T·k,)``, and which of them fit the capacity; with ``rows``
+    (``sharding.dp_rows()``) the positions follow the lower dp ranks' slots."""
     flat_e = expert_idx.reshape(-1)
     onehot = _one_hot(flat_e, n_experts).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    if rows is not None:
+        mesh, dp, _ = rows
+        counts = coll.all_gather(onehot.sum(0, dtype=torch.int32)[None], 0,
+                                 mesh, dp)
+        below = counts[:coll.axis_index(mesh, dp)].sum(0, dtype=torch.int32)
+        pos_in_e = pos_in_e + below[flat_e]
     return flat_e, pos_in_e, pos_in_e < capacity
 
 
 def _switch_aux(probs: torch.Tensor, expert_idx: torch.Tensor,
-                n_experts: int) -> torch.Tensor:
-    frac_prob = probs.mean(dim=0)
-    frac_tok = _one_hot(expert_idx, n_experts).to(torch.float32).sum(
-        1).mean(0)
+                n_experts: int, rows=None) -> torch.Tensor:
+    tok = _one_hot(expert_idx, n_experts).to(torch.float32).sum(1)
+    if rows is None:
+        frac_prob, frac_tok = probs.mean(dim=0), tok.mean(0)
+    else:               # the global batch's means, the same on every rank
+        mesh, dp, n = rows
+        T = probs.shape[0] * n
+        frac_prob = coll.diff_all_reduce(probs.sum(0), mesh, dp) / T
+        frac_tok = coll.all_reduce(tok.sum(0), mesh, dp) / T
     return n_experts * (frac_prob * frac_tok).sum()
 
 
@@ -138,7 +166,8 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     qkw = {k: dkw[k] for k in ("bits", "mset") if k in dkw}
 
     def expert_einsum(subscripts, operand, w, out_dtype):
-        if system in ("rns", "sdrns") or isinstance(w, ResidueTensor):
+        if system in ("rns", "sdrns") or isinstance(w, (ResidueTensor,
+                                                        ShardedParam)):
             out = linear.stacked_qmatmul(subscripts, operand, w,
                                          system=system, **qkw)
         else:
@@ -151,8 +180,9 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     E, K = n_experts, top_k
     xt = x.reshape(T, d)
     probs, gates, expert_idx = route(params["router"]["w"], xt, K)
-    C = moe_capacity(T, E, K, capacity_factor)
-    flat_e, pos_in_e, keep = place(expert_idx, E, C)
+    rows = sharding.dp_rows()
+    C = moe_capacity(T * (rows[2] if rows else 1), E, K, capacity_factor)
+    flat_e, pos_in_e, keep = place(expert_idx, E, C, rows)
     # slot row in the flattened (E * C, d) buffer; dropped slots go to the
     # spare row E * C, which is cut off
     slot = torch.where(keep, flat_e * C + pos_in_e,
@@ -161,15 +191,27 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((slot,), src)[:E * C].view(E, C, d)
 
-    g = expert_einsum("ecd,edf->ecf", buf, params["w_gate"], torch.float32)
-    u = expert_einsum("ecd,edf->ecf", buf, params["w_up"], torch.float32)
-    h = (F.silu(g) * u).to(x.dtype)
-    out_buf = expert_einsum("ecf,efd->ecd", h, params["w_down"], x.dtype)
+    def experts(buf, w_gate, w_up, w_down):
+        g = expert_einsum("ecd,edf->ecf", buf, w_gate, torch.float32)
+        u = expert_einsum("ecd,edf->ecf", buf, w_up, torch.float32)
+        h = (F.silu(g) * u).to(x.dtype)
+        return expert_einsum("ecf,efd->ecd", h, w_down, x.dtype)
+
+    stacks = [params[k] for k in ("w_gate", "w_up", "w_down")]
+    if isinstance(stacks[0], ShardedParam) and stacks[0].tp_dim() == 0:
+        # EP: this rank's experts on its block of the buffers
+        mesh, tp = stacks[0].ctx.mesh, stacks[0].ctx.tp
+        local = [w.gather_dp() for w in stacks]
+        with sharding.shard_ctx(None):
+            out = experts(coll.diff_slice(buf, 0, mesh, tp), *local)
+        out_buf = coll.diff_all_gather(out, 0, mesh, tp)
+    else:
+        out_buf = experts(buf, *stacks)
 
     out_tok = out_buf.reshape(E * C, d)[torch.where(keep, slot, 0)]
     out_tok = torch.where(keep[:, None], out_tok, torch.zeros_like(out_tok))
     y = (out_tok.reshape(T, K, d)
          * gates.reshape(T, K, 1).to(x.dtype)).sum(dim=1).reshape(B, S, d)
     if with_aux:
-        return y, _switch_aux(probs, expert_idx, E)
+        return y, _switch_aux(probs, expert_idx, E, rows)
     return y

@@ -23,7 +23,16 @@ differentiable: attention on materialized scores, weights on the per-call
 path under ``rns`` / ``sdrns``; with ``cfg.remat`` each layer's body (and
 the hybrid family's group of Mamba2 layers with its shared block) is
 recomputed in the backward (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``).
+``jax.checkpoint``).  In the sharded train step under ``ShardCtx.seq_shard``
+the dense, moe and vlm families take the reference's Megatron-SP
+boundaries (its ``_sp`` constraints): the embedding output goes to
+sequence shards over tp, the norms and residual adds run there, the
+sequence is all-gathered before each matmul block, and the row-parallel
+partial sums of ``wo`` and ``w_down`` are reduce-scattered back onto the
+shards (the moe output, whole, is cut to them); the final norm runs on the
+shards before the logits' gather.  A norm scale used on a shard gets a
+gradient partial over tp, summed there.  The ssm and hybrid families run
+with no SP, as in the reference.
 
 Caches (stacked over layers on axis 0, updated in place by decode):
 
@@ -49,6 +58,8 @@ from repro_torch.models.layers import (embed, init_embedding, init_rmsnorm,
                                        remat_call, rmsnorm)
 from repro_torch.models.ssm import Mamba2Dims, SsmCache
 from repro_torch.numerics import kv_pages as kvp
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import ShardedParam, get_shard_ctx
 
 __all__ = ["init_lm", "init_lm_cache", "lm_forward", "lm_prefill",
            "lm_decode", "lm_decode_paged", "lm_verify_paged", "ssm_dims",
@@ -178,13 +189,24 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
     ``sdrns`` they run through ``linear.dense`` like every other weight: on
     the resident ``embed.logits_w`` planes of a prepared tree, else on
     ``table.T`` per call."""
-    x = rmsnorm(params["final_norm"], x)
+    return _head(params, rmsnorm(params["final_norm"], x), dense_kw)
+
+
+def _head(params, x: torch.Tensor, dense_kw: dict[str, Any]
+          ) -> torch.Tensor:
+    """The tied-embedding logits matmul of the normed ``x``; a sharded
+    table (the train step) runs as a column plan over its vocabulary."""
+    table = params["embed"]["table"]
     if dense_kw.get("system", "bns") in ("rns", "sdrns"):
         w = params["embed"].get("logits_w")
         if w is None:
-            w = params["embed"]["table"].to(torch.float32).T
+            w = table.T if isinstance(table, ShardedParam) else \
+                table.to(torch.float32).T
         return linear.dense({"w": w}, x, **dense_kw).to(x.dtype)
-    return torch.matmul(x, params["embed"]["table"].to(x.dtype).T)
+    if isinstance(table, ShardedParam):
+        return linear.dense({"w": table.T}, x,
+                            **{**dense_kw, "compute_dtype": x.dtype})
+    return torch.matmul(x, table.to(x.dtype).T)
 
 
 def _mlp_block(lp, x, cfg: ArchConfig, dense_kw):
@@ -268,17 +290,81 @@ def _read_logits(params, cfg, x, logits_at, dense_kw):
 # ---------------------------------------------------------------------------
 
 
+def _sp_ctx(cfg: ArchConfig):
+    """The shard context when the training forward runs sequence-parallel
+    (``seq_shard``, an attention family, a tensor axis), else None."""
+    ctx = get_shard_ctx()
+    if (ctx is None or not ctx.seq_shard or cfg.family not in _ATTN_FAMILIES
+            or coll.axis_size(ctx.mesh, ctx.tp) == 1):
+        return None
+    return ctx
+
+
+def _to_seq(x, ctx):
+    """A replicated (B, S, ·) activation -> this rank's sequence shard."""
+    n = coll.axis_size(ctx.mesh, ctx.tp)
+    if x.shape[1] % n:
+        raise ValueError(f"seq_shard: S {x.shape[1]} does not divide the "
+                         f"tensor axes ({n})")
+    return coll.diff_slice(x, 1, ctx.mesh, ctx.tp)
+
+
+def _from_seq(x, ctx):
+    """Sequence shards -> the whole sequence before a matmul block; its
+    consumers' gradients come back whole on every rank (the column plans
+    sum their input's), so the backward keeps this rank's shard."""
+    return coll.diff_all_gather(x, 1, ctx.mesh, ctx.tp, "slice")
+
+
+def _seq_norm(p, x, ctx):
+    """RMSNorm on sequence shards: the scale's gradient, partial over tp,
+    is summed there."""
+    return rmsnorm({"scale": coll.diff_identity(p["scale"], ctx.mesh,
+                                                ctx.tp)}, x)
+
+
+def _residual(x, h):
+    """The residual add of the training forward (on sequence shards under
+    SP)."""
+    return x + h
+
+
+def _train_layer_sp(lp, x, cfg: ArchConfig, dense_kw, ctx):
+    """:func:`_train_layer` on sequence shards (module docstring)."""
+    def back(h):                # a row plan's output, or a whole one
+        return h if h.shape[1] == x.shape[1] else _to_seq(h, ctx)
+
+    hn = _from_seq(_seq_norm(lp["attn_norm"], x, ctx), ctx)
+    with linear.seq_scatter():
+        x = _residual(x, back(attn_mod.attention(
+            lp["attn"], hn, flash=False, **_attn_kw(cfg, dense_kw))))
+    hn = _from_seq(_seq_norm(lp["mlp_norm"], x, ctx), ctx)
+    if cfg.family == "moe":
+        h, aux = moe_mod.moe(lp["moe"], hn, n_experts=cfg.n_experts,
+                             top_k=cfg.top_k, capacity_factor=cfg.moe_cf,
+                             dense_kw=dense_kw, with_aux=True)
+        return _residual(x, _to_seq(h, ctx)), aux
+    with linear.seq_scatter():
+        fn = mlp_mod.gelu_mlp if cfg.mlp_type == "gelu" else mlp_mod.swiglu
+        return _residual(x, back(fn(lp["mlp"], hn, dense_kw))), None
+
+
 def _train_layer(lp, x, cfg: ArchConfig, dense_kw):
     """One attention layer of the training forward: ``(x, aux)``."""
-    x = x + attn_mod.attention(lp["attn"], rmsnorm(lp["attn_norm"], x),
-                               flash=False, **_attn_kw(cfg, dense_kw))
+    ctx = _sp_ctx(cfg)
+    if ctx is not None:
+        return _train_layer_sp(lp, x, cfg, dense_kw, ctx)
+    x = _residual(x, attn_mod.attention(lp["attn"],
+                                        rmsnorm(lp["attn_norm"], x),
+                                        flash=False,
+                                        **_attn_kw(cfg, dense_kw)))
     if cfg.family == "moe":
         h, aux = moe_mod.moe(lp["moe"], rmsnorm(lp["mlp_norm"], x),
                              n_experts=cfg.n_experts, top_k=cfg.top_k,
                              capacity_factor=cfg.moe_cf, dense_kw=dense_kw,
                              with_aux=True)
-        return x + h, aux
-    return x + _mlp_block(lp, x, cfg, dense_kw), None
+        return _residual(x, h), aux
+    return _residual(x, _mlp_block(lp, x, cfg, dense_kw)), None
 
 
 def _train_mamba(lp, x, cfg: ArchConfig, dense_kw):
@@ -314,10 +400,16 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x = torch.cat([patches.to(device=x.device, dtype=cd), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     r = cfg.remat
+    sp = _sp_ctx(cfg)
+    if sp is not None:
+        x = _to_seq(x, sp)
     if cfg.family in _ATTN_FAMILIES:
         for lp in params["layers"]:
             x, a = remat_call(r, _train_layer, lp, x, cfg, dense_kw)
             aux = aux if a is None else aux + a
+        if sp is not None:
+            x = _from_seq(_seq_norm(params["final_norm"], x, sp), sp)
+            return _head(params, x, dense_kw), aux
     elif cfg.family == "ssm":
         for lp in params["layers"]:
             x = remat_call(r, _train_mamba, lp, x, cfg, dense_kw)

@@ -103,9 +103,9 @@ def merge_decode_partials(o_p: torch.Tensor, m_p: torch.Tensor,
 def _batch_plan(B: int):
     """``(mesh, dp)`` when a shard context splits the batch over dp (B
     divides), else None: the kernel then runs on every rank's whole
-    batch."""
+    batch (under ``rows_local`` the batch is this rank's rows already)."""
     ctx = _sh.get_shard_ctx()
-    if ctx is None:
+    if ctx is None or ctx.rows_local:
         return None
     dp = ctx.resolve("dp")
     if not dp or ctx.axis_size(dp) <= 1 or B % ctx.axis_size(dp):
@@ -119,7 +119,7 @@ def _per_rows(plan, fn, *batched):
     if plan is None:
         return fn(*batched)
     mesh, dp = plan
-    local = [None if x is None else _sh.local_block(x, 0, dp, mesh)
+    local = [None if x is None else collectives.block_of(x, 0, mesh, dp)
              for x in batched]
     return collectives.all_gather(fn(*local), 0, mesh, dp)
 

@@ -141,7 +141,9 @@ def tp_shard_plan(M: int, N: int, *, mset: ModuliSet | None = None):
     moduli channels over ``tp`` (needs ``mset``, ``C % tp_size == 0`` and
     :attr:`ModuliSet.supports_partial_decode`; else a warning, a counted
     fallback and None).  ``dp`` is ``()`` when M does not divide it (the
-    rows then run whole on every rank).
+    rows then run whole on every rank) and under ``ctx.rows_local`` (the
+    train step: each dp rank's rows are its own already, and gathering
+    them would mix ranks that hold different rows).
     """
     ctx = _sh.get_shard_ctx()
     if ctx is None:
@@ -151,7 +153,7 @@ def tp_shard_plan(M: int, N: int, *, mset: ModuliSet | None = None):
     if not tp or tp_size <= 1:
         return None
     dp = ctx.resolve("dp")
-    if not dp or M % ctx.axis_size(dp):
+    if not dp or ctx.rows_local or M % ctx.axis_size(dp):
         dp = ()
     if ctx.channel_shard:
         if mset is None:
@@ -217,7 +219,7 @@ def _mapped(a: torch.Tensor, shard, body) -> torch.Tensor:
     then the rows gathered over dp."""
     kind, mesh, dp, tp = shard
     if dp:
-        a = _sh.local_block(a, a.dim() - 2, dp, mesh)
+        a = collectives.block_of(a, a.dim() - 2, mesh, dp)
     out = body(a)
     if kind == "col":
         out = collectives.all_gather(out, out.dim() - 1, mesh, tp)

@@ -25,6 +25,26 @@ as HBM traffic.
 sent or received since :func:`reset_moved_bytes`: an all-gather the blocks
 of the other members, an all-reduce its tensor, a reduce-scatter its input,
 a broadcast, send or recv its tensor.
+
+The differentiable collectives (:func:`diff_all_gather`,
+:func:`diff_all_reduce`, :func:`diff_reduce_scatter`,
+:func:`diff_identity`, :func:`diff_slice`) are the training step's: each is
+one of the plain collectives (or a local block) with its conjugate as the
+backward, for activations that are whole and replicated on every rank of
+the axes:
+
+* an all-gather whose consumers are replicated: backward takes the local
+  block (``grad="slice"``); of an FSDP weight block over ``dp``, whose
+  consumers run on other rows on every rank: backward reduce-scatters,
+  summing the gradient over the axes (``grad="sum"``);
+* an all-reduce of partial sums: backward is the identity;
+* a reduce-scatter onto blocks: backward all-gathers;
+* the input of a column-plan product (replicated in, partial gradients
+  out): identity forward, all-reduce backward (:func:`diff_identity`);
+* a rank's block of a replicated tensor (:func:`diff_slice`): backward
+  all-gathers.
+
+Each passes its input through as it is where every axis has size 1.
 """
 from __future__ import annotations
 
@@ -37,7 +57,9 @@ import torch.distributed as dist
 
 __all__ = ["axis_index", "axis_size", "all_gather", "all_reduce",
            "reduce_scatter", "broadcast", "send", "recv", "moved_bytes",
-           "reset_moved_bytes"]
+           "reset_moved_bytes", "diff_all_gather", "diff_all_reduce",
+           "diff_reduce_scatter", "diff_identity", "diff_slice",
+           "block_of"]
 
 _MOVED: dict[str, int] = {}
 
@@ -148,7 +170,13 @@ def all_gather(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...]
             _count("all_gather", (n - 1) * x.numel() * x.element_size())
 
             def op(t, group=group, n=n):
+                # gloo: one buffer is faster on dim 0, a list and a cat
+                # on the others (no transposing copies)
                 t = t.contiguous()
+                if dim == 0:
+                    out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+                    dist.all_gather_into_tensor(out, t, group=group)
+                    return out
                 bufs = [torch.empty_like(t) for _ in range(n)]
                 dist.all_gather(bufs, t, group=group)
                 return torch.cat(bufs, dim=dim)
@@ -182,11 +210,13 @@ def all_reduce(x: torch.Tensor, mesh, axes: tuple[str, ...],
     return x
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axes: tuple[str, ...]
-                   ) -> torch.Tensor:
-    """The sum over ``axes`` of every rank's ``x``, cut on dim 0 into
+def reduce_scatter(x: torch.Tensor, mesh, axes: tuple[str, ...],
+                   dim: int = 0) -> torch.Tensor:
+    """The sum over ``axes`` of every rank's ``x``, cut on ``dim`` into
     ``axis_size`` blocks: this rank keeps block ``axis_index`` (the major
     axis first)."""
+    if dim % x.dim():
+        return reduce_scatter(x.movedim(dim, 0), mesh, axes).movedim(0, dim)
     for a in axes:
         n = _size(mesh, a)
         if n == 1:
@@ -265,3 +295,130 @@ def recv(like: torch.Tensor, src: int, mesh, axis: str) -> torch.Tensor:
         return buf
 
     return _to(_staged(like, group, fn), like)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def block_of(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...]
+             ) -> torch.Tensor:
+    """This rank's block of ``x`` on ``dim`` split over ``axes`` (a view;
+    the major axis first)."""
+    n = axis_size(mesh, axes)
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(mesh, axes) * size, size)
+
+
+def _trivial(mesh, axes) -> bool:
+    return not axes or axis_size(mesh, axes) == 1
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes, grad):
+        ctx.args = (dim, mesh, axes, grad)
+        return all_gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axes, grad = ctx.args
+        if grad == "sum":
+            return reduce_scatter(g, mesh, axes, dim), None, None, None, None
+        return block_of(g, dim, mesh, axes).contiguous(), None, None, None, \
+            None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axes = ctx.args
+        return all_gather(g, dim, mesh, axes), None, None, None
+
+
+class _Identity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return all_reduce(g, mesh, axes), None, None
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes):
+        ctx.args = (dim, mesh, axes)
+        return block_of(x, dim, mesh, axes).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, axes = ctx.args
+        return all_gather(g, dim, mesh, axes), None, None, None
+
+
+def diff_all_gather(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...],
+                    grad: str = "slice") -> torch.Tensor:
+    """:func:`all_gather` whose backward takes this rank's block of the
+    gradient (``grad="slice"``: the consumers are replicated, so every
+    rank holds the whole gradient) or sums it over ``axes`` and keeps the
+    block (``grad="sum"``: an FSDP weight block)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be 'slice' or 'sum', got {grad!r}")
+    if _trivial(mesh, axes):
+        return x
+    return _AllGather.apply(x, dim % x.dim(), mesh, tuple(axes), grad)
+
+
+def diff_all_reduce(x: torch.Tensor, mesh, axes: tuple[str, ...]
+                    ) -> torch.Tensor:
+    """The sum of partials over ``axes``; backward the identity."""
+    if _trivial(mesh, axes):
+        return x
+    return _AllReduce.apply(x, mesh, tuple(axes))
+
+
+def diff_reduce_scatter(x: torch.Tensor, dim: int, mesh,
+                        axes: tuple[str, ...]) -> torch.Tensor:
+    """The sum of partials over ``axes``, this rank's block on ``dim``;
+    backward all-gathers."""
+    if _trivial(mesh, axes):
+        return x
+    return _ReduceScatter.apply(x, dim % x.dim(), mesh, tuple(axes))
+
+
+def diff_identity(x: torch.Tensor, mesh, axes: tuple[str, ...]
+                  ) -> torch.Tensor:
+    """``x`` itself; backward sums the gradient over ``axes`` (a
+    replicated input whose consumers make partial gradients)."""
+    if _trivial(mesh, axes):
+        return x
+    return _Identity.apply(x, mesh, tuple(axes))
+
+
+def diff_slice(x: torch.Tensor, dim: int, mesh, axes: tuple[str, ...]
+               ) -> torch.Tensor:
+    """This rank's block of a replicated ``x`` on ``dim``; backward
+    all-gathers the blocks' gradients."""
+    if _trivial(mesh, axes):
+        return x
+    return _Slice.apply(x, dim % x.dim(), mesh, tuple(axes))

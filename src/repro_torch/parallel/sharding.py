@@ -2,8 +2,9 @@
 ``repro/parallel/sharding.py``).
 
 * :class:`ShardCtx` -- the mesh and the axis names of the roles: ``"dp"``
-  (batch and FSDP axes), ``"tp"`` (tensor axes); ``"seq"`` resolves to no
-  axis (the port keeps no sequence-sharded layout).  Launchers install it
+  (batch and FSDP axes), ``"tp"`` (tensor axes); ``"seq"`` resolves to the
+  tensor axes under ``seq_shard`` (Megatron-SP in the training forward,
+  ``models/transformer.py``), else to none.  Launchers install it
   with :func:`shard_ctx`;
   the planners read it with :func:`get_shard_ctx`.  With no context every
   path runs on one device.
@@ -21,17 +22,26 @@
   ``NamedSharding``).  On an :class:`AbstractMesh` this process is rank 0
   (the dry run costs rank 0's program): its blocks, on the meta device in
   the dry run.
+* :func:`place_tree` / :func:`gather_tree` -- a float tree (a train
+  state's parameters, ``m`` and ``v``) as this rank's blocks on its
+  :func:`param_specs` specs, and back whole; :class:`ShardedParam` is
+  such a block in the training forward, which the model code gathers and
+  multiplies by the plans its spec implies (``models/linear.py``).
 
 The port runs explicit SPMD over ``torch.distributed``: one process a rank,
 each holding its block of every sharded leaf, and every sharded op a
 per-rank body with named collectives (``parallel/collectives.py``), as the
 reference's ``shard_map`` bodies are.  There is no GSPMD propagation, so
 the reference's layout hints (``constrain``) have no counterpart: a layout
-is the runner's.  Activations between ops are whole on every rank; the runners (``numerics/runners.py``) and the attention
-dispatchers (``numerics/attention.py``) take their rows over ``dp`` and
-their columns or channels over ``tp`` and gather the result.  The float
-leaves (the embedding table the gather reads, the norms, the moe router)
-stay whole on every rank: the model code consumes them whole.
+is the runner's.  Serving, activations between ops are whole on every
+rank; the runners (``numerics/runners.py``) and the attention dispatchers
+(``numerics/attention.py``) take their rows over ``dp`` and their columns
+or channels over ``tp`` and gather the result, and the float leaves (the
+embedding table the gather reads, the norms, the moe router) stay whole on
+every rank.  Training (``train/loop.py``), each ``dp`` rank holds its own
+rows (``ShardCtx.rows_local``: the planners split no rows again) and
+every float leaf as its block; activations are whole over ``tp`` (on
+sequence shards between the matmul blocks under ``seq_shard``).
 
 A spec (:class:`Spec`) is a tuple of entries ``None``, an axis name or a
 tuple of names, as a ``PartitionSpec`` is.  ``ShardCtx.mesh`` is a
@@ -50,13 +60,15 @@ from typing import Any, NamedTuple, Sequence
 import torch
 
 from repro_torch.parallel import collectives
+from repro_torch.train.tree import tree_map
 
 __all__ = ["Spec", "AbstractMesh", "mesh_shape", "Roles", "ShardCtx",
            "shard_ctx", "get_shard_ctx", "param_specs", "rule_roles", "batch_spec_train",
            "logical_to_spec", "ResidueSpecs", "residue_specs",
            "specs_from_roles", "ResidueSharding", "shard_residue_tensor",
            "shard_params", "unshard_residue_tensor", "relayout",
-           "local_block", "spec_axes"]
+           "spec_axes", "ShardedParam", "place_tree",
+           "gather_tree", "spec_axes_of", "dp_rows"]
 
 
 class Spec(tuple):
@@ -132,6 +144,12 @@ class ShardCtx:
     # cannot (C % tp_size, no moduli set, a set past the int32 bound) the
     # planner warns and counts a fallback (runners.fallback_gather_count).
     channel_shard: bool = False
+    # SP: the training forward's norms and residual adds run on sequence
+    # shards over tp (``resolve("seq")`` is then the tensor axes)
+    seq_shard: bool = False
+    # the activations' rows are this rank's block over dp already (the
+    # train step): the planners split no rows over dp
+    rows_local: bool = False
 
     def axis_size(self, roles) -> int:
         shape = mesh_shape(self.mesh)
@@ -142,8 +160,8 @@ class ShardCtx:
 
     def resolve(self, role) -> tuple[str, ...]:
         """``"dp"`` / ``"tp"`` / ``"seq"`` / an axis name / a tuple of them
-        -> mesh axis names (``"seq"``: none, as the reference's with
-        ``seq_shard`` off)."""
+        -> mesh axis names (``"seq"``: the tensor axes under
+        ``seq_shard``, else none)."""
         if role is None:
             return ()
         if isinstance(role, str):
@@ -152,7 +170,7 @@ class ShardCtx:
             if role == "tp":
                 return self.tp
             if role == "seq":
-                return ()
+                return self.tp if self.seq_shard else ()
             return (role,)
         out: list[str] = []
         for r in role:
@@ -371,14 +389,6 @@ def _check_ranked(ctx: ShardCtx, x: torch.Tensor) -> None:
         raise ValueError("this rank is not a member of the context's mesh")
 
 
-def local_block(x: torch.Tensor, dim: int, axes: tuple[str, ...], mesh
-           ) -> torch.Tensor:
-    """This rank's block of ``x`` on ``dim`` split over ``axes`` (a view)."""
-    n = collectives.axis_size(mesh, axes)
-    size = x.shape[dim] // n
-    return x.narrow(dim, collectives.axis_index(mesh, axes) * size, size)
-
-
 def relayout(x: torch.Tensor, mesh, have: Sequence, want: Sequence
              ) -> torch.Tensor:
     """This rank's block of ``want`` from its block of ``have`` (two specs
@@ -391,7 +401,7 @@ def relayout(x: torch.Tensor, mesh, have: Sequence, want: Sequence
             x = collectives.all_gather(x, d, mesh, h)
     for d, (h, w) in enumerate(zip(have, want)):
         if h != w and w:
-            x = local_block(x, d, w, mesh)
+            x = collectives.block_of(x, d, mesh, w)
     return x
 
 
@@ -457,3 +467,111 @@ def shard_params(params: Any, ctx: ShardCtx, **kw: Any) -> Any:
                              **kw), ctx)
 
     return _tree_map(place, params)
+
+
+# ---------------------------------------------------------------------------
+# Float trees on their blocks (the train state) and the training forward's
+# sharded parameters.
+# ---------------------------------------------------------------------------
+
+
+def spec_axes_of(spec: Sequence) -> set[str]:
+    """Every axis name a spec splits a dim over."""
+    return {a for e in spec for a in spec_axes(e)}
+
+
+def place_tree(tree: Any, specs: Any, ctx: ShardCtx) -> Any:
+    """This rank's block of every leaf of a float tree (dicts and lists of
+    tensors) on its spec: compact copies, so the whole leaves can be
+    freed."""
+    def place(x, spec):
+        _check_ranked(ctx, x)
+        return _own(relayout(x, ctx.mesh, (None,) * x.dim(), spec))
+
+    return tree_map(place, tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any, ctx: ShardCtx) -> Any:
+    """The whole tree from this rank's blocks (collective: every rank of
+    the mesh calls it)."""
+    return tree_map(lambda x, spec: relayout(x, ctx.mesh, spec,
+                                             (None,) * x.dim()), tree, specs)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedParam:
+    """This rank's block of a float weight in the training forward and
+    where it sits (``spec`` on ``ctx.mesh``).
+
+    :meth:`gather_dp` brings the FSDP split together (backward:
+    reduce-scatter, the gradient summed over the dp ranks' rows), once a
+    forward: the object is made for one micro-batch's forward tree, and
+    every use of the weight in it (the tied table's embedding and logits
+    through :attr:`T`, a remat'd layer's recompute) shares the gathered
+    tensor, so its gradients meet in one reduce-scatter; :meth:`tp_dim`
+    names the dim the tensor axes split, which picks the plan
+    (``models/linear.py``); :meth:`whole` gathers the tensor axes too
+    (backward: the local block, the consumers being replicated over
+    them)."""
+
+    block: torch.Tensor
+    spec: Spec
+    ctx: ShardCtx
+    _memo: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def T(self) -> "ShardedParam":
+        """The transposed weight, sharing this one's dp gather."""
+        if self.block.dim() != 2:
+            raise ValueError("ShardedParam.T takes a 2-D weight")
+        return ShardedParam(self.block.T, Spec(*reversed(self.spec)),
+                            self.ctx, {"dp": self.gather_dp().T})
+
+    def _gathered(self, axes: tuple[str, ...], grad: str) -> torch.Tensor:
+        x = self.block
+        for d, e in enumerate(self.spec):
+            mine = tuple(a for a in spec_axes(e) if a in axes)
+            if mine and mine != spec_axes(e):
+                raise ValueError(f"spec {self.spec} mixes dp and tp axes on "
+                                 f"dim {d}")
+            if mine:
+                x = collectives.diff_all_gather(x, d, self.ctx.mesh, mine,
+                                                grad)
+        return x
+
+    def gather_dp(self) -> torch.Tensor:
+        """The block with its dp split gathered (tp split kept)."""
+        if "dp" not in self._memo:
+            self._memo["dp"] = self._gathered(self.ctx.dp, "sum")
+        return self._memo["dp"]
+
+    def tp_dim(self) -> int | None:
+        """The dim the tensor axes split (None: replicated over them)."""
+        for d, e in enumerate(self.spec):
+            if spec_axes(e) and set(spec_axes(e)) <= set(self.ctx.tp):
+                if spec_axes(e) != tuple(self.ctx.tp):
+                    raise ValueError(f"spec {self.spec}: a dim split over "
+                                     f"part of the tensor axes")
+                return d
+        return None
+
+    def whole(self) -> torch.Tensor:
+        """The whole weight on every rank."""
+        x = self.gather_dp()
+        d = self.tp_dim()
+        if d is None:
+            return x
+        return collectives.diff_all_gather(x, d, self.ctx.mesh, self.ctx.tp,
+                                           "slice")
+
+
+def dp_rows():
+    """``(mesh, dp axes, dp size)`` when the installed context's rows are
+    split over more than one dp rank (``rows_local``: the train step),
+    else None: the global batch's reductions (the loss, the moe routing)
+    then sum over them."""
+    ctx = get_shard_ctx()
+    if ctx is None or not ctx.rows_local or not ctx.dp:
+        return None
+    n = collectives.axis_size(ctx.mesh, ctx.dp)
+    return (ctx.mesh, ctx.dp, n) if n > 1 else None

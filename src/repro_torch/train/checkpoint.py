@@ -24,6 +24,12 @@ rebuilds it from a prepared template, taking ``mset``, ``layout``,
 ``qbits`` and ``max_abs`` from the template; the planes are exact integer
 encodings, so the float <-> integer refusal guards them too.  A sharded
 tensor is saved whole; a template must be whole.
+
+A sharded train state (``train/loop.py``'s ``TrainSharding``) saves in the
+same layout, gathered whole (``ft.py`` gathers it on every rank and the
+mesh's first rank writes), so it restores onto one process or onto any
+mesh: :func:`restore` with ``sharding`` fills a template of this rank's
+blocks, cutting each block from the whole leaf it reads.
 """
 from __future__ import annotations
 
@@ -105,15 +111,34 @@ def _leaf(key: str, arr: np.ndarray, tmpl: torch.Tensor) -> torch.Tensor:
         device=tmpl.device, dtype=tmpl.dtype)
 
 
+def _block(arr: np.ndarray, spec, ctx) -> np.ndarray:
+    """This rank's block of a whole leaf on ``spec``."""
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import spec_axes
+
+    for d, e in enumerate(spec):
+        axes = spec_axes(e)
+        if axes:
+            n = collectives.axis_size(ctx.mesh, axes)
+            size = arr.shape[d] // n
+            i = collectives.axis_index(ctx.mesh, axes)
+            arr = arr.take(range(i * size, (i + 1) * size), axis=d)
+    return arr
+
+
 def _rebuild(node: Any, key: str, flat: dict[str, np.ndarray],
-             index: tuple[int, ...], lens: tuple[int, ...]) -> Any:
+             index: tuple[int, ...], lens: tuple[int, ...],
+             specs: Any = None, ctx: Any = None) -> Any:
     """``index``: the position in the enclosing layer lists, ``lens``:
-    their lengths (the stacked axes the leaf must have)."""
+    their lengths (the stacked axes the leaf must have); ``specs``: the
+    blocks' specs on ``ctx`` (a template of blocks)."""
     if isinstance(node, dict):
         return {k: _rebuild(v, f"{key}/{k}" if key else str(k), flat, index,
-                            lens) for k, v in node.items()}
+                            lens, None if specs is None else specs[k], ctx)
+                for k, v in node.items()}
     if isinstance(node, list):
-        return [_rebuild(v, key, flat, index + (i,), lens + (len(node),))
+        return [_rebuild(v, key, flat, index + (i,), lens + (len(node),),
+                         None if specs is None else specs[i], ctx)
                 for i, v in enumerate(node)]
     if isinstance(node, ResidueTensor):
         if node.sharding is not None:
@@ -129,16 +154,24 @@ def _rebuild(node: Any, key: str, flat: dict[str, np.ndarray],
     if arr.shape[:len(lens)] != lens:
         raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
                          f"layer stacks of {lens}")
-    return _leaf(key, arr[index], node)
+    arr = arr[index]
+    if specs is not None:
+        arr = _block(arr, specs, ctx)
+    return _leaf(key, arr, node)
 
 
-def restore(directory: str, template: Any, step: int | None = None) -> Any:
+def restore(directory: str, template: Any, step: int | None = None, *,
+            sharding: Any = None) -> Any:
     """Rebuild ``template`` from the checkpoint at ``step`` (default: the
-    latest)."""
+    latest).  With ``sharding`` (a ``TrainSharding``) the template is a
+    train state ``{"params", "opt_state"}`` of this rank's blocks."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {directory}")
     with np.load(os.path.join(directory, _FMT.format(step=step))) as data:
         flat = {k: data[k] for k in data.files}
-    return _rebuild(template, "", flat, (), ())
+    if sharding is None:
+        return _rebuild(template, "", flat, (), ())
+    return _rebuild(template, "", flat, (), (), sharding.state_specs(),
+                    sharding.ctx)

@@ -10,6 +10,13 @@ simulated failures (port of ``repro/train/ft.py``; host code).
   restarted run continues on the same batches;
 * ``failure_at`` raises :class:`SimulatedFailure` before that step, to
   test the path; :func:`run_with_restarts` relaunches after it.
+
+With ``sharding`` (``train/loop.py``'s ``TrainSharding``, the step made
+with it) the state is each rank's blocks: ``init_state`` returns them
+(``TrainSharding.place_state``), a restore cuts them from the whole
+checkpoint, and a save gathers the state whole on every rank, which the
+mesh's first rank writes.  So a checkpoint of one mesh restores onto
+another or onto one process.
 """
 from __future__ import annotations
 
@@ -47,10 +54,19 @@ def _heartbeat(cfg: FtConfig, step: int):
             f.write(f"{step} {time.time()}\n")
 
 
+def _save(cfg: FtConfig, step: int, state: dict[str, Any],
+          sharding: Any) -> None:
+    if sharding is not None:
+        state = sharding.gather_state(state)
+        if sharding.ctx.mesh.get_rank() != int(sharding.ctx.mesh.mesh.min()):
+            return
+    checkpoint.save(cfg.ckpt_dir, step, state, keep=cfg.keep)
+
+
 def run_training(*, init_state: Callable[[], dict[str, Any]],
                  train_step: Callable[..., tuple[Any, Any, dict]],
                  batch_at: Callable[[int], dict[str, np.ndarray]],
-                 cfg: FtConfig) -> dict[str, Any]:
+                 cfg: FtConfig, sharding: Any = None) -> dict[str, Any]:
     """Run (or resume) training to ``total_steps``.
 
     ``init_state() -> {"params", "opt_state"}`` builds fresh state (and the
@@ -60,7 +76,8 @@ def run_training(*, init_state: Callable[[], dict[str, Any]],
     """
     start = checkpoint.latest_step(cfg.ckpt_dir)
     if start is not None:
-        state = checkpoint.restore(cfg.ckpt_dir, init_state(), start)
+        state = checkpoint.restore(cfg.ckpt_dir, init_state(), start,
+                                   sharding=sharding)
         cfg.log_fn(f"[ft] restored checkpoint at step {start}")
         step0 = start
     else:
@@ -82,9 +99,8 @@ def run_training(*, init_state: Callable[[], dict[str, Any]],
             cfg.log_fn(f"[train] step={step} loss={loss:.4f} "
                        f"lr={float(metrics['lr']):.2e}")
         if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.total_steps:
-            checkpoint.save(cfg.ckpt_dir, step + 1,
-                            {"params": params, "opt_state": opt_state},
-                            keep=cfg.keep)
+            _save(cfg, step + 1, {"params": params, "opt_state": opt_state},
+                  sharding)
     return {"params": params, "opt_state": opt_state,
             "step": cfg.total_steps, "history": history}
 

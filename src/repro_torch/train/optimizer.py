@@ -7,6 +7,11 @@ bias corrections use the step as f32.  Weight decay applies to leaves of
 two or more dimensions, counting a layer stack's axis as the reference's
 stacked leaves do: a per-layer norm scale (the reference's ``(L, d)``
 leaf) is decayed, the final norm's ``(d,)`` is not.
+
+On a sharded state (``train/loop.py``'s ``TrainSharding``) the update runs
+on each rank's blocks, elementwise as on whole leaves; the global norm
+sums each leaf's squares over the mesh axes its spec splits it on, so a
+leaf counts once whether it is split or replicated.
 """
 from __future__ import annotations
 
@@ -65,19 +70,36 @@ def init_opt_state(params: Any, cfg: OptConfig) -> dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(x.to(torch.float32).square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree: Any, sharding: Any = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.  With
+    ``sharding`` the leaves are this rank's blocks: the squares of the
+    leaves split over the same axes are summed locally, then over those
+    axes (one all-reduce a set of axes), a replicated leaf's locally."""
+    if sharding is None:
+        return torch.sqrt(sum(x.to(torch.float32).square().sum()
+                              for x in tree_leaves(tree)))
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import mesh_shape, spec_axes_of
+
+    ctx = sharding.ctx
+    order = list(mesh_shape(ctx.mesh))
+    sums: dict[tuple[str, ...], torch.Tensor] = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(sharding.specs)):
+        axes = tuple(a for a in order if a in spec_axes_of(spec))
+        sq = x.to(torch.float32).square().sum()
+        sums[axes] = sq if axes not in sums else sums[axes] + sq
+    return torch.sqrt(sum(collectives.all_reduce(v, ctx.mesh, axes)
+                          for axes, v in sums.items()))
 
 
 def adamw_update(params: Any, grads: Any, state: dict[str, Any],
-                 cfg: OptConfig) -> tuple[Any, dict[str, Any],
-                                          dict[str, Any]]:
-    """One AdamW step: ``(params', state', {"lr", "grad_norm"})``."""
+                 cfg: OptConfig, sharding: Any = None
+                 ) -> tuple[Any, dict[str, Any], dict[str, Any]]:
+    """One AdamW step: ``(params', state', {"lr", "grad_norm"})``; with
+    ``sharding`` on this rank's blocks (module docstring)."""
     step = state["step"] + 1
     dev = step.device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharding)
     scale = torch.clamp(_f32(cfg.clip_norm, dev)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(cfg, step)

@@ -4,7 +4,8 @@ reference's committed records, its CLI and the report it feeds.
 Each reduced record of ``experiments/dryrun/`` is reproduced field for
 field (``tests/torch_dryrun_records.py``); the full-width ones are in
 ``test_torch_dryrun_full.py`` and, for qwen3-8b decode_32k under rns,
-here through the CLI."""
+here through the CLI.  The train cells' sharded step and ``--seq-shard`` are
+``test_torch_dryrun_train.py``."""
 from __future__ import annotations
 
 import json
@@ -69,10 +70,3 @@ def test_cli_writes_records_the_report_renders(tmp_path):
                 if ln.startswith("| qwen3-8b | decode_32k")]
         assert len(rows) == 1 and "fits 80G" in res.stdout, res.stdout
 
-
-def test_cli_refuses_seq_shard(tmp_path):
-    res = _cli("repro_torch.launch.dryrun", "--arch", "qwen3-8b", "--shape",
-               "decode_32k", "--seq-shard", "--out-dir", str(tmp_path))
-    assert res.returncode != 0
-    assert "ROADMAP" in res.stderr
-    assert not os.listdir(tmp_path)

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["RankRun", "dense_case_keys", "dense_inputs", "random_tree",
-           "tiny_cfg"]
+           "tiny_cfg", "train_body", "coll_grad_body", "COLL_GROUPS",
+           "ckpt_body"]
 
 
 @contextlib.contextmanager
@@ -404,4 +405,158 @@ def card_plan_body(rank, n, layout, shapes):
         out[(K, N, M)] = dict(equal=bool(torch.equal(one, y)),
                               launches=(n_one, n_mesh),
                               block=tuple(ts.planes.shape))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step: each case on its own sub-mesh of the first ranks.
+# ---------------------------------------------------------------------------
+
+
+def train_body(rank, cases, n_micro, opt_kw):
+    """Per case ``(label, cfg, system, mesh shape, seq_shard, tree, batch,
+    steps)``: the sharded step from the whole tree (numpy, the reference's
+    layout) on the mesh, ``steps`` AdamW steps; returns per case the
+    metrics of each step, the first step's gradients and the state after
+    the first step gathered whole, and the forward's logits on this rank's
+    rows.  A rank outside a case's mesh returns nothing for it."""
+    import dataclasses as dc
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import shard_ctx
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             init_opt_state)
+
+    out = {}
+    for label, cfg, system, shape, seq_shard, tree, batch, steps in cases:
+        n = shape[0] * shape[1]
+        mesh = make_test_mesh(shape, ranks=range(n))
+        if rank >= n:
+            continue
+        ctx = make_ctx(mesh, seq_shard=seq_shard)
+        model = build_model(cfg, system=system, device="cpu")
+        params = from_jax_params(tree, cfg, "cpu")
+        ocfg = OptConfig(**opt_kw, moment_dtype=cfg.opt_state_dtype)
+        sh = loop.TrainSharding.of(params, ctx)
+        state = sh.place_state({"params": params,
+                                "opt_state": init_opt_state(params, ocfg)})
+        p, st = state["params"], state["opt_state"]
+        collectives.reset_moved_bytes()
+        (loss, ce), g = loop.make_grad_fn(model, n_micro, sh)(p, batch)
+        p1, st1, met = adamw_update(p, g, st, ocfg, sharding=sh)
+        rec = {"loss": float(loss), "ce": float(ce),
+               "grad_norm": float(met["grad_norm"]),
+               "moved": collectives.moved_bytes(),
+               "grads": sh.gather(g),
+               "state": sh.gather_state({"params": p1, "opt_state": st1}),
+               "block_bytes": sum(x.numel() * x.element_size()
+                                  for x in loop.tree_leaves(p1))}
+        step = loop.make_train_step(model, ocfg, n_micro, sh)
+        losses = [rec["loss"]]
+        for _ in range(steps - 1):
+            p1, st1, m = step(p1, st1, batch)
+            losses.append(float(m["loss"]))
+        rec["losses"] = losses
+        rows = loop.local_rows({"tokens": torch.as_tensor(
+            batch["tokens"])}, n_micro, ctx)["tokens"].long()
+        kw = {"system": system, "compute_dtype": torch.float32}
+        with torch.no_grad(), shard_ctx(dc.replace(ctx, rows_local=True)):
+            fwd = loop.forward_tree(p, sh.specs, ctx)
+            rec["logits"] = transformer.lm_forward(fwd, cfg, rows,
+                                                   dense_kw=kw)[0]
+        rec["rows"] = rows
+        out[label] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The differentiable collectives on (2, 2).
+# ---------------------------------------------------------------------------
+
+# axes -> the groups of ranks (by index along the axes, major to minor)
+COLL_GROUPS = {("model",): [[0, 1], [2, 3]], ("data",): [[0, 2], [1, 3]],
+               ("data", "model"): [[0, 1, 2, 3]]}
+
+
+def coll_grad_body(rank, inputs, cots):
+    """Each differentiable collective on this rank's input (per ``(name,
+    axes)`` case), its output and the gradient of ``<out, cot>`` with
+    respect to the input."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import collectives as c
+
+    mesh = make_test_mesh((2, 2))
+    fns = {"gather_slice": lambda x, a: c.diff_all_gather(x, 1, mesh, a),
+           "gather_sum": lambda x, a: c.diff_all_gather(x, 1, mesh, a,
+                                                        "sum"),
+           "all_reduce": lambda x, a: c.diff_all_reduce(x, mesh, a),
+           "reduce_scatter": lambda x, a: c.diff_reduce_scatter(x, 1, mesh,
+                                                                a),
+           "identity": lambda x, a: c.diff_identity(x, mesh, a),
+           "slice": lambda x, a: c.diff_slice(x, 1, mesh, a)}
+    out = {}
+    for (name, axes), xs in inputs.items():
+        x = torch.as_tensor(xs[rank]).requires_grad_(True)
+        y = fns[name](x, axes)
+        (gx,) = torch.autograd.grad(y, x, torch.as_tensor(
+            cots[(name, axes)][rank]))
+        out[(name, axes)] = (y.detach(), gx, c.axis_index(mesh, axes))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded checkpoints: saved on (2, 2), restored onto (1, 2).
+# ---------------------------------------------------------------------------
+
+
+def ckpt_body(rank, cfg, system, tree, ckpt_dir, n_micro, opt_kw):
+    """Step 0 on (2, 2) through ``ft.run_training`` (checkpointed gathered
+    at step 1), then on (1, 2) (ranks 0-1) a restart that restores it and
+    runs step 1; returns the restored run's loss and its state after step
+    1, gathered whole."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.train import loop
+    from repro_torch.train.ft import FtConfig, run_training
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    model = build_model(cfg, system=system, device="cpu")
+    ocfg = OptConfig(**opt_kw, moment_dtype=cfg.opt_state_dtype)
+    pipe = TokenPipeline(cfg.vocab, 8, 4, seed=1)
+    out = {}
+    meshes = {"save": make_test_mesh((2, 2)),
+              "load": make_test_mesh((1, 2), ranks=range(2))}
+    for phase, steps in (("save", 1), ("load", 2)):
+        mesh = meshes[phase]
+        if phase == "load" and rank >= 2:
+            break
+        sh = loop.TrainSharding.of(from_jax_params(tree, cfg, "cpu"),
+                                   make_ctx(mesh, seq_shard=True))
+
+        def init_state(sh=sh):
+            params = from_jax_params(tree, cfg, "cpu")
+            return sh.place_state({"params": params, "opt_state":
+                                   init_opt_state(params, ocfg)})
+
+        res = run_training(
+            init_state=init_state,
+            train_step=loop.make_train_step(model, ocfg, n_micro, sh),
+            batch_at=pipe.batch_at, sharding=sh,
+            cfg=FtConfig(ckpt_dir=ckpt_dir, total_steps=steps, ckpt_every=1,
+                         log_fn=lambda s: None))
+        dist.barrier(group=mesh.get_group("model") if phase == "load"
+                     else None)
+        out[phase] = {"history": res["history"],
+                      "state": sh.gather_state({"params": res["params"],
+                                                "opt_state":
+                                                    res["opt_state"]})}
     return out
