@@ -1,0 +1,6 @@
+"""B1 (rns_matmul): counted work at the peaks over its device time, %."""
+from harness import readers
+
+
+def read(run):
+    return readers.roofline(run, "rns_matmul")
