@@ -54,6 +54,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.moduli import P21, ModuliSet
 from repro_torch.numerics import api as nx
 from repro_torch.numerics.tensor import ResidueTensor
@@ -117,7 +118,8 @@ def _qmatmul_resident(x: torch.Tensor, w: ResidueTensor, bits: int,
     qx, sx = quantize_symmetric(x, bits, axis=-1)       # per-token scales
     acc = (nx.matmul(qx, w, max_abs_a=qmax) if subscripts is None
            else nx.einsum(subscripts, qx, w, max_abs_a=qmax))
-    return acc.to(torch.float32) * sx * w.whole_scale()
+    with tracing.span("numerics.decode"):
+        return acc.to(torch.float32) * sx * w.whole_scale()
 
 
 def _split_subscripts(subscripts: str) -> tuple[str, str, str]:
@@ -138,7 +140,9 @@ class _QMatmul(torch.autograd.Function):
     def forward(ctx, x, w, subscripts, system, bits, mset):
         ctx.save_for_backward(x, w)
         ctx.subscripts = subscripts
-        t = residency.prepare_weight(w, system=system, bits=bits, mset=mset)
+        with tracing.span("numerics.weight_encode"):
+            t = residency.prepare_weight(w, system=system, bits=bits,
+                                         mset=mset)
         return _qmatmul_resident(x, t, bits, subscripts)
 
     @staticmethod

@@ -68,6 +68,7 @@ import warnings
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import sd, sdrns
 from repro_torch.core.moduli import ModuliSet
 from repro_torch.kernels.rns_matmul import (rns_matmul_cuda, rns_matmul_meta,
@@ -399,14 +400,16 @@ def _rns_local(a: torch.Tensor, b_res: torch.Tensor,
     decode = mset.corrected_decode if (verify and mset.redundant >= 2) \
         else mset.from_residues
     # (C, [S,] M, K); a stack is seen as (S, C, M, K), not copied
-    a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
+    with tracing.span("numerics.encode"):
+        a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
     if stacked:
         a_res = a_res.movedim(0, 1)
     total = None
     for lo, hi in segs:
         out_res = impl(a_res[..., lo:hi], b_res[..., lo:hi, :], mset.moduli)
-        part = decode(out_res.movedim(-3, 0))
-        total = part if total is None else total + part
+        with tracing.span("numerics.decode"):
+            part = decode(out_res.movedim(-3, 0))
+            total = part if total is None else total + part
     return total
 
 
@@ -423,16 +426,18 @@ def _rns_channel_body(a: torch.Tensor, b_res: torch.Tensor,
     moduli = [mset.moduli[c] for c in cid]
     witness = verify and mset.redundant >= 2
     impl = get_impl("rns_matmul", a.device)
-    a_res = mset.to_residues(a, channel_ids=cid).to(_res_dtype(mset))
+    with tracing.span("numerics.encode"):
+        a_res = mset.to_residues(a, channel_ids=cid).to(_res_dtype(mset))
     if a.dim() == 3:
         a_res = a_res.movedim(0, 1)
     parts = []
     for lo, hi in segs:
         cf = impl(a_res[..., lo:hi], b_res[..., lo:hi, :],
                   moduli).movedim(-3, 0)
-        rows = mset.partial_decode(cf, cid)[None]
-        if witness:
-            rows = torch.cat([rows, mset.partial_witnesses(cf, cid)])
+        with tracing.span("numerics.decode"):
+            rows = mset.partial_decode(cf, cid)[None]
+            if witness:
+                rows = torch.cat([rows, mset.partial_witnesses(cf, cid)])
         parts.append(rows)
     return _fold_segments(parts, mset, mesh, tp, witness)
 
@@ -504,15 +509,17 @@ def _sdrns_local(a: torch.Tensor, b_dig: torch.Tensor,
     matvec = force_matvec or M <= DECODE_M
     impl = get_impl("sdrns_matvec" if matvec else "sdrns_matmul", a.device)
     ws = [sdrns.WRAP_SIGNS[kind] for kind, _ in mset.kinds]
-    a_dig = sd.from_int(mset.to_residues(a.to(torch.int32)), n)
+    with tracing.span("numerics.encode"):
+        a_dig = sd.from_int(mset.to_residues(a.to(torch.int32)), n)
     rows = DECODE_M if matvec else M
     total = None
     for lo, hi in segs:
         outs = [impl(a_dig[:, r:r + rows, lo:hi], b_dig[:, lo:hi], ws)
                 for r in range(0, M, rows)]
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-        part = sdrns.sdrns_decode(out, mset)
-        total = part if total is None else total + part
+        with tracing.span("numerics.decode"):
+            part = sdrns.sdrns_decode(out, mset)
+            total = part if total is None else total + part
     return total
 
 
@@ -530,14 +537,16 @@ def _sdrns_channel_body(a: torch.Tensor, b_dig: torch.Tensor,
     matvec = force_matvec or M <= DECODE_M
     impl = get_impl("sdrns_matvec" if matvec else "sdrns_matmul", a.device)
     ws = [sdrns.WRAP_SIGNS[mset.kinds[c][0]] for c in cid]
-    a_dig = sd.from_int(mset.to_residues(a, channel_ids=cid), n)
+    with tracing.span("numerics.encode"):
+        a_dig = sd.from_int(mset.to_residues(a, channel_ids=cid), n)
     rows = DECODE_M if matvec else M
     parts = []
     for lo, hi in segs:
         outs = [impl(a_dig[:, r:r + rows, lo:hi], b_dig[:, lo:hi], ws)
                 for r in range(0, M, rows)]
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-        parts.append(mset.partial_decode(sd.to_int(out), cid)[None])
+        with tracing.span("numerics.decode"):
+            parts.append(mset.partial_decode(sd.to_int(out), cid)[None])
     return _fold_segments(parts, mset, mesh, tp, witness=False)
 
 

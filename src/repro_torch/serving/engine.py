@@ -81,6 +81,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.api import Model, resolve_device
 from repro_torch.numerics import api as nx
 from repro_torch.numerics import kv_pages as kvp
@@ -260,8 +261,9 @@ class ServingEngine:
 
     def _scatter(self, k_dense: torch.Tensor, v_dense: torch.Tensor,
                  tab: torch.Tensor) -> None:
-        kvp.scatter_prefill(self.pool.kv, k_dense, v_dense, tab,
-                            self.page_size)
+        with tracing.span("engine.scatter"):
+            kvp.scatter_prefill(self.pool.kv, k_dense, v_dense, tab,
+                                self.page_size)
 
     @staticmethod
     def _sample(logits: torch.Tensor, temperature: float,
@@ -835,34 +837,46 @@ class ServingEngine:
         """
         if not self.paged:
             raise ValueError("admit_prefill needs paged serving")
+        with tracing.span("engine.admit_prefill"):
+            return self._admit_prefill(slot_tokens, slot_total)
+
+    def _admit_prefill(self, slot_tokens: dict[int, np.ndarray],
+                       slot_total: dict[int, int]):
         pool, dev = self.pool, self.device
-        infos = {s: pool.admit(np.asarray(slot_tokens[s]), slot_total[s])
-                 for s in sorted(slot_tokens)}
-        out = {s: (inf.cached_logits, inf) for s, inf in infos.items()
-               if inf.cached_logits is not None}
-        need = [s for s, inf in infos.items() if inf.cached_logits is None]
-        prompts = tabs = None
-        S = 0
+        with tracing.span("engine.pages"):
+            infos = {s: pool.admit(np.asarray(slot_tokens[s]),
+                                   slot_total[s])
+                     for s in sorted(slot_tokens)}
+            out = {s: (inf.cached_logits, inf) for s, inf in infos.items()
+                   if inf.cached_logits is not None}
+            need = [s for s, inf in infos.items()
+                    if inf.cached_logits is None]
+            prompts = tabs = None
+            S = 0
+            if need:
+                lens = np.array([len(slot_tokens[s]) for s in need])
+                S = int(lens.max())
+                if S > self.n_pmax * self.page_size:
+                    raise ValueError(f"prompt of {S} tokens exceeds the "
+                                     f"{self.n_pmax * self.page_size} "
+                                     f"positions of a slot")
+                prompts_np = np.zeros((len(need), S), np.int64)
+                tabs = np.zeros((len(need), self.n_pmax), np.int32)
+                for i, s in enumerate(need):
+                    prompts_np[i, : lens[i]] = slot_tokens[s]
+                    row = pool.tab_row(infos[s].pages, self.n_pmax)
+                    row[infos[s].shared] = 0
+                    tabs[i] = row
         if need:
-            lens = np.array([len(slot_tokens[s]) for s in need])
-            S = int(lens.max())
-            if S > self.n_pmax * self.page_size:
-                raise ValueError(f"prompt of {S} tokens exceeds the "
-                                 f"{self.n_pmax * self.page_size} positions "
-                                 f"of a slot")
-            prompts_np = np.zeros((len(need), S), np.int64)
-            tabs = np.zeros((len(need), self.n_pmax), np.int32)
-            for i, s in enumerate(need):
-                prompts_np[i, : lens[i]] = slot_tokens[s]
-                row = pool.tab_row(infos[s].pages, self.n_pmax)
-                row[infos[s].shared] = 0
-                tabs[i] = row
-            prompts = torch.as_tensor(prompts_np, device=dev)
-            logits, (k, v) = self.model.prefill(
-                self.params, prompts, s_max=S,
-                logits_at=torch.as_tensor(lens - 1, device=dev),
-                cache_dtype=self.cache_dtype)
-            logits = logits.to(torch.float32).cpu().numpy()
+            tracing.count("engine.prefill_rows", len(need) * S)
+            tracing.count("engine.prompt_tokens", int(lens.sum()))
+            with tracing.span("engine.prefill"):
+                prompts = torch.as_tensor(prompts_np, device=dev)
+                logits, (k, v) = self.model.prefill(
+                    self.params, prompts, s_max=S,
+                    logits_at=torch.as_tensor(lens - 1, device=dev),
+                    cache_dtype=self.cache_dtype)
+                logits = logits.to(torch.float32).cpu().numpy()
             self._scatter(k, v, torch.as_tensor(tabs, device=dev))
             del k, v
             for i, s in enumerate(need):
