@@ -33,7 +33,7 @@ Phases (each prints its lines; any failure raises and the exit code is not
    one ``verify_paged`` of k + 1 = 5 tokens a slot equal to 5
    ``decode_paged`` steps bit for bit (logits rows and page bytes), then
    ``spec="ngram:4"`` for 64 new tokens and ``spec="rns:4"`` (the draft
-   derived from the target's planes, P16 at 3 bits) for 16: 0 tokens
+   derived from the target's planes, P16 at 3 bits) for 12: 0 tokens
    differ from phase 4's, and the launch counts are exact per verify and
    per draft step.
    serve-sched -- continuous serving on that model and weights
@@ -170,7 +170,9 @@ Phases (each prints its lines; any failure raises and the exit code is not
    3), 1 layer, batch 2, 16-token prompts, 4 new, beside its rns twin.
    Gates: prefill logits and tokens bit for bit against the single
    process on every rank; every rank's B1 / B2 / B5 / B6 / B7 launches
-   equal to the single process's and its plane bytes 1 / n of the whole;
+   equal to the single process's, B9's one a B1 launch on P21 (the single
+   process, the column and row plans) and none under the channel plan,
+   and its plane bytes 1 / n of the whole;
    no plane block gathered by a plan (the collective bytes a decode step
    are printed); rank 0's first decode step's B1 and B5 launches, and in
    (d) its every B6 and B7 launch, held against the plain versions; (c)
@@ -199,7 +201,15 @@ granite-20b's heads; B2 at whisper's encoder and cross-attention (hd 64,
 non-causal) and at pixtral's prefill, B5 at whisper's self cache and cross
 memory, and B1 at both models' shapes, whisper's logits shape (N 51865, an
 odd row stride) included; B1 at the CNN's conv1 (K 27: an odd A row
-stride), VGG-16's conv2 (M 65536) and fc shapes, and B6 at that conv2.
+stride), VGG-16's conv2 (M 65536) and fc shapes, and B6 at that conv2;
+B9 (the reverse conversion after B1, the port's own kernel) bit for bit
+against the eager ``from_residues`` on every set it takes, written and
+added into a sum (unstacked, odd-length, stacked, [serve-moe]'s expert
+stack, more stacks than a grid row, 5 K segments added in place), and at
+the prefill (M 16384, N 12288) and decode (M 8) shapes, where it is timed
+beside the eager decode and its bound.  Every exact launch-count gate
+counts B9 too: one a B1 launch wherever the rns runner decodes without
+the witness check.
 Every phase prints its command time ([time]).
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
@@ -229,8 +239,15 @@ LOGITS = (4096, 151936)
 QWEN3_STEP = [((K, N), 36 * n) for (K, N), n in LAYER_MATMULS] + [(LOGITS, 1)]
 KERNELS = ("rns_matmul", "flash_attention", "paged_decode",
            "paged_decode_syndrome", "flash_decode", "sdrns_matmul",
-           "sdrns_matvec", "sd_add")
+           "sdrns_matvec", "sd_add", "rns_decode")
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def with_b9(want):
+    """``want`` with B9's launches: one a B1 launch wherever the rns runner
+    decodes without the witness check (every path on P21 or P16)."""
+    return dict(want, rns_decode=want["rns_matmul"])
+
 # [serve-sd]: qwen3-8b at full width, depth cut to 8 of 36 layers for time
 # and memory (21 B of digit planes per weight: 4.05 GB a layer, 13.07 GB
 # for the tied logits weight)
@@ -252,9 +269,10 @@ SERVE_LAYERS, R_LAYERS = 18, 12
 # [serve-spec]: k draft tokens a verify (V = k + 1 rows a slot), and the new
 # tokens of each drafter's run.  The rns drafter runs k + 1 host-bound draft
 # steps a verify (3.6 s a verify on random weights, where it accepts
-# nothing): 16 new tokens, not 64, keep the smoke near half its time limit
+# nothing): 12 new tokens, not 64, keep the smoke near half its time limit
+# (16 until the reverse conversion's check joined [kernels])
 SPEC_K = 4
-SPEC_NEW = {"ngram:4": SERVE_NEW, "rns:4": 16}
+SPEC_NEW = {"ngram:4": SERVE_NEW, "rns:4": 12}
 # moonshot-v1-16b-a3b's expert einsums: 64 experts, top-6; (K, N) and their
 # count per layer (gate and up, then down)
 MOE_E, MOE_TOPK = 64, 6
@@ -1362,6 +1380,112 @@ def check_sd_add(torch, timer):
                    f"weights; no PyTorch call computes SD sums")
 
 
+# B9's sets: every set the reverse conversion takes (P21R2 decodes its
+# information channels with the witness channels present in the input)
+DECODE_SETS = ("P16", "P21", "P24", "P33", "CRT40", "KV8", "KV4", "P21R2")
+DECODE_TIMED = [(16384, 12288), (8, 12288)]    # prefill (8 x 2048), decode
+# B9's checked shapes beside DECODE_TIMED: 16-byte planes, an odd length
+# (the scalar path), a small stack, [serve-moe]'s stacked expert einsum
+# (S 64, M 240: the grid cap splits each plane over the blocks of its
+# stack, so the grid-stride loop runs), and more stacks than a grid's y
+# dimension takes (the stack loop runs)
+DECODE_SHAPES = [(None, 512, 1000), (None, 61, 999), (3, 64, 1000),
+                 (64, 240, 2048), (70000, 2, 8)]
+
+
+def check_rns_decode(torch, timer, gen):
+    """B9 bit for bit against the eager decode (``from_residues`` on the
+    card) on random int32 representatives, every other row centred (B1's
+    own), at every set of DECODE_SETS and shape of DECODE_SHAPES, and 5 K
+    segments added in place; at DECODE_TIMED on P21 the same, written and
+    added into a sum of random int32 values, and on B1's centred residues.
+    Then B9 (written, and added into a sum), the eager decode and the bound
+    at DECODE_TIMED on P21."""
+    from repro_torch.core import moduli as mm
+    from repro_torch.kernels import rns_decode as rd
+    from repro_torch.roofline import op_cost
+
+    def draw(shape, mset):
+        """Random int32 representatives; every other row centred."""
+        x = torch.randint(-2**31, 2**31, shape, generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        cen = mset.center(x[..., ::2, :].movedim(-3, 0)).movedim(0, -3)
+        x[..., ::2, :] = cen.to(torch.int32)
+        return x
+
+    def eager(res, info):
+        return info.from_residues(
+            res.narrow(-3, 0, info.num_channels).movedim(-3, 0))
+
+    def same(res, info, what):
+        """B9 written and added into a random sum, against the eager
+        decode and the eager add."""
+        want = eager(res, info)
+        if not torch.equal(rd.rns_decode_cuda(res, info), want):
+            raise AssertionError(f"rns_decode[{what}]: differs from the "
+                                 f"eager decode")
+        total = torch.randint(-2**31, 2**31, want.shape, generator=gen,
+                              device="cuda", dtype=torch.int64
+                              ).to(torch.int32)
+        want = total + want
+        if not torch.equal(rd.rns_decode_cuda(res, info, total), want):
+            raise AssertionError(f"rns_decode[{what}]: added into a sum, "
+                                 f"differs from the eager add")
+
+    checked = []
+    for name in DECODE_SETS:
+        mset = getattr(mm, name)
+        info = mset.info
+        C = mset.num_channels
+        for S, M, N in DECODE_SHAPES:
+            shape = (C, M, N) if S is None else (S, C, M, N)
+            same(draw(shape, mset), info, f"{name} {shape}")
+        segs = [draw((C, 257, 1000), mset) for _ in range(5)]
+        total, want = None, None
+        for res in segs:
+            total = rd.rns_decode_cuda(res, info, total)
+            part = info.from_residues(res[:info.num_channels])
+            want = part if want is None else want + part
+        if not torch.equal(total, want):
+            raise AssertionError(f"rns_decode[{name}]: 5 segments added in "
+                                 f"place differ from the eager sum")
+        checked.append(name)
+    del segs, total, want
+    torch.cuda.synchronize()
+    mset = mm.P21
+    times = {}
+    for M, N in DECODE_TIMED:
+        same(draw((3, M, N), mset), mset, f"P21 (3, {M}, {N})")
+        res = torch.randint(-64, 65, (3, M, N), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        same(res, mset, f"P21 (3, {M}, {N}) centred")
+        total = torch.zeros((M, N), dtype=torch.int32, device="cuda")
+        ms = timer(lambda: rd.rns_decode_cuda(res, mset), 10)
+        ms_acc = timer(lambda: rd.rns_decode_cuda(res, mset, total), 10)
+        eager_ms = timer(lambda: mset.from_residues(res), 3)
+        bms, by = bound_ms(op_cost.COSTS["rns_decode"](res, mset))
+        bms_acc, _ = bound_ms(op_cost.COSTS["rns_decode"](res, mset, total))
+        times[f"{M},{N}"] = dict(
+            ms=ms, ms_accumulate=ms_acc, eager_ms=eager_ms, bound_ms=bms,
+            bound_accumulate_ms=bms_acc, bound_by=by,
+            hbm_share=bms / ms, hbm_share_accumulate=bms_acc / ms_acc)
+        print(f"[kernels] rns_decode[P21] M={M} N={N}: kernel_ms={ms:.4f} "
+              f"(bound {bms:.4f}, {by}: {100 * bms / ms:.1f} %), adding "
+              f"into a sum {ms_acc:.4f} (bound {bms_acc:.4f}: "
+              f"{100 * bms_acc / ms_acc:.1f} %); eager from_residues "
+              f"{eager_ms:.3f} ms", flush=True)
+        del res, total
+    shapes = ", ".join(f"{s} x {m} x {n}" if s else f"{m} x {n}"
+                       for s, m, n in DECODE_SHAPES)
+    print(f"[kernels] rns_decode: bit-exact against the eager decode, "
+          f"written and added into a sum, on {', '.join(checked)} at "
+          f"{shapes} (stacks x M x N), and 5 segments added in place; on "
+          f"P21 at DECODE_TIMED's shapes, on random representatives and on "
+          f"centred residues", flush=True)
+    return dict(sets=checked, max_abs_err=0, shapes=times,
+                checked_shapes=[list(x) for x in DECODE_SHAPES])
+
+
 def check_flash_decode(torch, timer, gen, cases=None):
     """B5 against its plain version, partial by partial (o, m, l) and
     merged: at the shapes the two serves launch it with (T 321; [serve-dense]
@@ -1606,9 +1730,9 @@ def serve_full_width(torch):
           flush=True)
     print(f"[serve] launches {json.dumps(counts)}", flush=True)
     per_step = 7 * cfg.n_layers + 1
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                flash_attention=cfg.n_layers,
-                paged_decode=cfg.n_layers * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                        flash_attention=cfg.n_layers,
+                        paged_decode=cfg.n_layers * steps))
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if res.tokens.shape != (B, max_new):
@@ -1688,7 +1812,7 @@ def serve_spec(torch, model, params, prompts, plain):
     torch.cuda.synchronize()
     t_verify = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = dict(NO_LAUNCHES, rns_matmul=per_step, paged_decode=L)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step, paged_decode=L))
     if counts != want:
         raise AssertionError(f"verify launch counts {counts}, expected "
                              f"{want}")
@@ -1736,6 +1860,7 @@ def serve_spec(torch, model, params, prompts, plain):
             want["rns_matmul"] += d_step * (1 + V * steps)
             want["flash_attention"] += L
             want["paged_decode"] += L * V * steps
+        want = with_b9(want)
         print(f"[serve-spec] spec={spec} new={new}: {sp}; acceptance="
               f"{sp.acceptance_rate:.3f} mean_block={sp.mean_accepted_len:.2f}"
               f"; prefill_s={st.prefill_s:.3f} decode_s={st.decode_s:.3f} "
@@ -1993,8 +2118,9 @@ def serve_sched(torch, model, params):
     if pool._ref.any() or set(pool._free) | set(pool._page_key) != set(
             range(1, pool.num_pages)):
         raise AssertionError("serve-sched: pages still held at the end")
-    want = dict(NO_LAUNCHES, rns_matmul=per_fwd * (prefills + steps),
-                flash_attention=L * prefills, paged_decode=L * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_fwd * (prefills + steps),
+                        flash_attention=L * prefills,
+                        paged_decode=L * steps))
     if counts != want:
         raise AssertionError(f"serve-sched: launch counts {counts}, "
                              f"expected {want}")
@@ -2043,8 +2169,9 @@ def serve_sched(torch, model, params):
           f"differ from the plain run: {differ}", flush=True)
     if differ:
         raise AssertionError(f"serve-sched: spec tokens differ for {differ}")
-    s_want = dict(NO_LAUNCHES, rns_matmul=per_fwd * (s_pre + s_steps),
-                  flash_attention=L * s_pre, paged_decode=L * s_steps)
+    s_want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_fwd * (s_pre + s_steps),
+                          flash_attention=L * s_pre,
+                          paged_decode=L * s_steps))
     if s_counts != s_want:
         raise AssertionError(f"serve-sched spec: launch counts {s_counts}, "
                              f"expected {s_want}")
@@ -2101,6 +2228,7 @@ def serve_redundant(torch):
     print(f"[serve-r] launches {json.dumps(counts)}; faults "
           f"{json.dumps(dataclasses.asdict(f))}", flush=True)
     per_step = 7 * cfg.n_layers + 1
+    # P21R2's products are checked and corrected at their decode: no B9
     want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
                 flash_attention=cfg.n_layers,
                 paged_decode_syndrome=cfg.n_layers * steps)
@@ -2535,8 +2663,8 @@ def serve_dense(torch, model, params):
           f"{cache_bytes} max_memory_allocated={peak}", flush=True)
     print(f"[serve-dense] launches {json.dumps(counts)}", flush=True)
     per_step = 7 * L + 1
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                flash_attention=L, flash_decode=L * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                        flash_attention=L, flash_decode=L * steps))
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     same_logits = np.array_equal(res.prefill_logits, twin.prefill_logits)
@@ -2732,8 +2860,8 @@ def serve_hybrid(torch, smi):
           f"max_memory_allocated={peak}", flush=True)
     print(f"[serve-hybrid] launches {json.dumps(counts)}", flush=True)
     per_step = 2 * cfg.n_layers + 8 * G + 1
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                flash_attention=G, flash_decode=G * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                        flash_attention=G, flash_decode=G * steps))
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     check_first_decode(first, G, plen + 1, "serve-hybrid")
@@ -2823,8 +2951,8 @@ def serve_configs(torch, smi):
         _serve_line(label, res.stats, B, steps, t_init, rb, peak,
                     f" kv pool bytes={engine.pool.pool_bytes()}")
         print(f"[{label}] launches {json.dumps(counts)}", flush=True)
-        want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                    flash_attention=L, paged_decode=L * steps)
+        want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                            flash_attention=L, paged_decode=L * steps))
         if counts != want:
             raise AssertionError(f"{label}: launch counts {counts}, expected "
                                  f"{want}")
@@ -2902,7 +3030,7 @@ def serve_ssm(torch, smi):
     _serve_line("serve-ssm", res.stats, B, steps, t_init, rb, peak,
                 f" SSM state + conv bytes={ssm_bytes}")
     print(f"[serve-ssm] launches {json.dumps(counts)}", flush=True)
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps))
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps)))
     if counts != want:
         raise AssertionError(f"serve-ssm: launch counts {counts}, expected "
                              f"{want}")
@@ -2983,8 +3111,8 @@ def serve_moe(torch, smi):
           f"expert's planes are read) at {hw.HBM_BW / 1e12:.2f} TB/s = "
           f"{1e3 * rb / hw.HBM_BW:.2f} ms", flush=True)
     print(f"[serve-moe] launches {json.dumps(counts)}", flush=True)
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                flash_attention=L, paged_decode=L * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                        flash_attention=L, paged_decode=L * steps))
     if counts != want:
         raise AssertionError(f"serve-moe: launch counts {counts}, expected "
                              f"{want}")
@@ -3137,8 +3265,8 @@ def serve_vlm(torch, smi):
     _serve_line(label, res.stats, B, steps, t_init, rb, peak,
                 f" kv pool bytes={engine.pool.pool_bytes()}")
     print(f"[{label}] launches {json.dumps(counts)}", flush=True)
-    want = dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
-                flash_attention=L, paged_decode=L * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step * (1 + steps),
+                        flash_attention=L, paged_decode=L * steps))
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, expected "
                              f"{want}")
@@ -3239,8 +3367,9 @@ def serve_audio(torch, smi):
     _serve_line(label, res.stats, B, steps, t_init, rb, peak,
                 f" cache bytes {json.dumps(kv_bytes)}")
     print(f"[{label}] launches {json.dumps(counts)}", flush=True)
-    want = dict(NO_LAUNCHES, rns_matmul=pre_b1 + step_b1 * steps,
-                flash_attention=Le + 2 * Ld, flash_decode=2 * Ld * steps)
+    want = with_b9(dict(NO_LAUNCHES, rns_matmul=pre_b1 + step_b1 * steps,
+                        flash_attention=Le + 2 * Ld,
+                        flash_decode=2 * Ld * steps))
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, expected "
                              f"{want}")
@@ -3363,8 +3492,8 @@ def train_full_width(torch):
         if system == "rns":
             enc_ms = _train_encode_and_gate(torch, params, M)
         step = make_train_step(model, opt, n)
-        want = dict(NO_LAUNCHES, rns_matmul=per_step if system == "rns"
-                    else 0)
+        want = with_b9(dict(NO_LAUNCHES, rns_matmul=per_step
+                            if system == "rns" else 0))
         losses, times, b1_ms, total = [], [], [], dict(NO_LAUNCHES)
         for i in range(TRAIN_STEPS):
             batch = pipe.batch_at(i)
@@ -3712,7 +3841,7 @@ def cnn_launches(spec, batch, system):
                 want["sdrns_matvec"] += segs * -(-M // runners.DECODE_M)
             else:
                 want["sdrns_matmul"] += segs
-    return want
+    return with_b9(want)
 
 
 def cnn_bounds(spec, batch, system):
@@ -4037,7 +4166,7 @@ MESH_WORLD = 5
 # (c): the information-channel element of layer 0's wq that rank 0 corrupts
 MESH_FAULT = (0, 3, 5)
 MESH_KERNELS = ("rns_matmul", "flash_attention", "flash_decode",
-                "sdrns_matmul", "sdrns_matvec")
+                "sdrns_matmul", "sdrns_matvec", "rns_decode")
 # [mesh]'s train cases, in the same spawned ranks: (label, mesh shape) of
 # the sharded train step (train/loop.py's TrainSharding, seq_shard on) of
 # qwen3-8b at full width cut to MESH_TRAIN_LAYERS, under rns, batch
@@ -4614,10 +4743,19 @@ def serve_mesh(torch, smi):
                 raise AssertionError(f"mesh ({label}) rank {r}: prefill "
                                      f"logits or tokens differ from the "
                                      f"single-process run")
-            if got["counts"] != one["counts"]:
+            # B9 decodes each B1 product on P21: the single process's, and
+            # the column and row plans'; the channel plan folds CRT
+            # partials instead, and P21R2's decode checks its witnesses
+            on_p21 = system == "rns" and mset == "P21"
+            b9 = got["counts"]["rns_matmul"] if on_p21 and layout == "col" \
+                else 0
+            b9_one = one["counts"]["rns_matmul"] if on_p21 else 0
+            if dict(got["counts"], rns_decode=b9_one) != one["counts"] \
+                    or got["counts"]["rns_decode"] != b9:
                 raise AssertionError(f"mesh ({label}) rank {r}: launches "
                                      f"{got['counts']}, the single process "
-                                     f"{one['counts']}")
+                                     f"{one['counts']}; B9 expected {b9}, "
+                                     f"{b9_one} in the single process")
             if got["plane_bytes"] * n != one["plane_bytes"]:
                 raise AssertionError(f"mesh ({label}) rank {r}: "
                                      f"{got['plane_bytes']} plane bytes, "
@@ -4695,7 +4833,8 @@ def main() -> int:
     build.library()
     print(f"[build] kernels from {build.CSRC} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for source in ("rns_matmul.cu", "flash_attn.cu", "sdrns_matmul.cu"):
+    for source in ("rns_matmul.cu", "flash_attn.cu", "sdrns_matmul.cu",
+                   "rns_decode.cu"):
         for line in ptxas_lines(build.log_path(), source):
             print(f"[build] ptxas {line}", flush=True)
     smi = nvidia_smi()
@@ -4772,6 +4911,9 @@ def main() -> int:
     # [cnn]'s new shapes: B1 at conv1 / VGG conv2 / fc, B6 at VGG conv2
     cnn_b1, cnn_b6 = check_cnn_kernels(
         torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 8))
+    # B9, the reverse conversion after B1, on every set it takes
+    b9 = check_rns_decode(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 9))
     del timer
     torch.cuda.empty_cache()
     print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
@@ -4934,6 +5076,19 @@ def main() -> int:
     # [roofline]: the counted work of one prefill and one decode step of
     # [serve]'s model (card == meta), its terms and the measured steps
     line["roofline"] = roof
+    # B9: the port's own kernel (no pallas_call), held and timed in
+    # [kernels]; it follows B1's launches wherever rns_run decodes
+    line["rns_decode"] = dict(
+        b9, source=src_dir + "rns_decode.cu", replaces=None,
+        launches=counts["rns_decode"], launches_serve_r=counts_r["rns_decode"],
+        launches_serve_dense=counts_dense["rns_decode"],
+        launches_serve_hybrid=counts_hy["rns_decode"],
+        launches_serve_ssm=counts_ssm["rns_decode"],
+        launches_serve_moe=counts_moe["rns_decode"],
+        launches_serve_sched=sched["counts"]["rns_decode"],
+        launches_train=train["rns"]["counts"]["rns_decode"],
+        launches_cnn=cnn["counts"]["rns_decode"],
+        mesh={label: v["counts"]["rns_decode"] for label, v in mesh.items()})
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

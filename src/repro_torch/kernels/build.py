@@ -43,6 +43,9 @@ _SIGNATURES = {
                         _L, _I, _P],
     # x, y, out, B, n, kind (1 pow2m1, 0 pow2, -1 pow2p1, 2 plain), stream
     "sd_add_s8": [_P, _P, _P, _L, _I, _I, _P],
+    # res, out, tables (host uint32[]), C, S, M x N, res channel stride,
+    # res stack stride, accumulate, stream
+    "rns_decode_s32": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _P],
     # q, k, v, kv_len, o, B, Sq, T, H, Kv, hd, causal, scale, dtype, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],

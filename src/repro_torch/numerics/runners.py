@@ -2,9 +2,11 @@
 
 * :func:`rns_run` -- activation forward conversion, K segmentation and the
   channel-wise modular matmul over pre-encoded residue planes, then the
-  per-segment reverse conversion.  Segments are strided views of the
-  operands, so nothing is padded or copied per call (the reference pads
-  both operands into fresh tile-aligned buffers on every call).  A stack
+  per-segment reverse conversion (kernel B9, each segment added into the
+  sum in place; the witness check of a redundant set stays eager).
+  Segments are strided views of the operands, so nothing is padded or
+  copied per call (the reference pads both operands into fresh
+  tile-aligned buffers on every call).  A stack
   of S matmuls (the MoE expert einsums) runs as one: one forward
   conversion, one kernel launch a K segment and one reverse conversion
   over the whole stack (the reference scans the runner over the slices).
@@ -71,6 +73,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import sd, sdrns
 from repro_torch.core.moduli import ModuliSet
+from repro_torch.kernels import rns_decode
 from repro_torch.kernels.rns_matmul import (rns_matmul_cuda, rns_matmul_meta,
                                             rns_matmul_ref)
 from repro_torch.kernels.sd_add import sd_add_cuda, sd_add_meta, sd_add_ref
@@ -100,6 +103,9 @@ register_impl("rns_matmul", "meta", rns_matmul_meta)
 register_impl("sdrns_matmul", "meta", sdrns_matmul_meta)
 register_impl("sdrns_matvec", "meta", sdrns_matmul_meta)
 register_impl("sd_add", "meta", sd_add_meta)
+register_impl("rns_decode", "cuda", rns_decode.rns_decode_cuda)
+register_impl("rns_decode", "ref", rns_decode.rns_decode_ref)
+register_impl("rns_decode", "meta", rns_decode.rns_decode_meta)
 
 # At or below this M the sd path takes the matvec schedule (kernel B7).
 DECODE_M = 8
@@ -397,8 +403,15 @@ def _rns_local(a: torch.Tensor, b_res: torch.Tensor,
         raise ValueError(f"activation on {a.device}, planes on "
                          f"{b_res.device}")
     impl = get_impl("rns_matmul", a.device)
-    decode = mset.corrected_decode if (verify and mset.redundant >= 2) \
-        else mset.from_residues
+    # The reverse conversion: B9 (the "ref" impl on the CPU) decodes each
+    # segment in place into the sum wherever the decode is from_residues;
+    # only the witness check stays eager.  The choice follows the set alone,
+    # so a step's work counts the same on every device.
+    checked = verify and mset.redundant >= 2
+    decode = mset.corrected_decode if checked \
+        else get_impl("rns_decode", a.device)
+    counter = "numerics.decode_kernel" if not checked and a.is_cuda \
+        else "numerics.decode_eager"
     # (C, [S,] M, K); a stack is seen as (S, C, M, K), not copied
     with tracing.span("numerics.encode"):
         a_res = mset.to_residues(a.to(torch.int32)).to(_res_dtype(mset))
@@ -408,8 +421,12 @@ def _rns_local(a: torch.Tensor, b_res: torch.Tensor,
     for lo, hi in segs:
         out_res = impl(a_res[..., lo:hi], b_res[..., lo:hi, :], mset.moduli)
         with tracing.span("numerics.decode"):
-            part = decode(out_res.movedim(-3, 0))
-            total = part if total is None else total + part
+            if checked:
+                part = decode(out_res.movedim(-3, 0))
+                total = part if total is None else total + part
+            else:
+                total = decode(out_res, mset.info, total)
+            tracing.count(counter, total.numel())
     return total
 
 

@@ -190,6 +190,14 @@ def rns_matmul_cost(a_res, b_res, moduli, **_) -> Work:
                            b_bytes=b_res.element_size())
 
 
+def rns_decode_cost(res, mset, out=None, **_) -> Work:
+    """B9: C int32 residues in and one int32 value out an element (the
+    value read too where it is added into ``out``)."""
+    elements = res.numel() // max(res.shape[-3], 1)
+    words = mset.num_channels + 1 + (out is not None)
+    return Work(0, 4 * words * elements, "int8")
+
+
 def sdrns_cost(a_dig, b_dig, ws, **_) -> Work:
     C, M, K, n = a_dig.shape
     return sdrns_work(C, M, K, b_dig.shape[2], n)
@@ -270,6 +278,7 @@ COSTS: dict[str, Callable[..., Work]] = {
     "sdrns_matmul": sdrns_cost,
     "sdrns_matvec": sdrns_cost,
     "sd_add": sd_add_cost,
+    "rns_decode": rns_decode_cost,
 }
 
 

@@ -45,6 +45,8 @@ SPANS = frozenset({
 COUNTERS = frozenset({
     "engine.prefill_rows",      # B x S of each admission prefill
     "engine.prompt_tokens",     # the real prompt tokens among them
+    "numerics.decode_kernel",   # elements rns_run decoded through B9
+    "numerics.decode_eager",    # elements it decoded in eager ops
 })
 
 _OFF = contextlib.nullcontext()

@@ -537,7 +537,8 @@ def test_flash_decode_equals_paged_decode_at_page_size(gen):
 def test_hybrid_serving_card_matches_cpu(gen):
     """Reduced zamba2 (4 Mamba2 layers, 2 shared-block applications) under
     rns over the dense cache: the card's prefill logits agree with the
-    CPU's and its greedy tokens are equal; the card ran B1, B2 and B5."""
+    CPU's and its greedy tokens are equal; the card ran B1, B2 and B5,
+    and B9 once a B1 launch."""
     from repro_torch import kernels
 
     cfg = get_config("zamba2-7b").reduced()
@@ -557,6 +558,7 @@ def test_hybrid_serving_card_matches_cpu(gen):
     assert counts["flash_decode"] == 2 * 5
     assert counts["flash_attention"] == 2
     assert counts["rns_matmul"] == 6 * (4 * 2 + 2 * 8 + 1)
+    assert counts["rns_decode"] == counts["rns_matmul"]
     assert counts["paged_decode"] == 0
     np.testing.assert_allclose(res["cuda"].prefill_logits,
                                res["cpu"].prefill_logits, rtol=0, atol=1e-3)
@@ -595,10 +597,44 @@ def test_rns_matmul_kernel_stack_mode(gen, S, M, K, N):
                                                           P21.moduli))
 
 
+@pytest.mark.parametrize("name", ["P16", "P21", "P24", "P33", "CRT40",
+                                  "KV8", "KV4", "P21R2"])
+@pytest.mark.parametrize("M,N", [(37, 130), (8, 4096), (15, 1001),
+                                 (512, 4096)])
+def test_rns_decode_kernel_bit_exact(gen, name, M, N):
+    """B9 against its plain version (``from_residues``) on random int32
+    representatives and centred residues: each slice alone, a stack of 3
+    (one launch), and the stack added twice into a sum in place.  Planes of
+    37 x 130 and 15 x 1001 elements are no whole number of 16 bytes (the
+    scalar path); 8 x 4096 take the 16-byte one; 512 x 4096 take more
+    blocks than the grid holds, so the grid-stride loop runs."""
+    from repro_torch.core import moduli as mm
+    from repro_torch.kernels import rns_decode as rd
+
+    mset = getattr(mm, name)
+    info = mset.info
+    res = torch.randint(-2**31, 2**31, (3, mset.num_channels, M, N),
+                        generator=gen, device="cuda",
+                        dtype=torch.int64).to(torch.int32)
+    res[:, :, ::2] = mset.center(res[:, :, ::2].movedim(1, 0)).movedim(0, 1)
+    for s in range(3):
+        assert torch.equal(rd.rns_decode_cuda(res[s], info).cpu(),
+                           rd.rns_decode_ref(res[s].cpu(), info))
+    before = rd.launches
+    stacked = rd.rns_decode_cuda(res, info)
+    assert rd.launches == before + 1
+    assert torch.equal(stacked.cpu(), rd.rns_decode_ref(res.cpu(), info))
+    total = torch.zeros((3, M, N), dtype=torch.int32, device="cuda")
+    for _ in range(2):
+        assert rd.rns_decode_cuda(res, info, total) is total
+    assert torch.equal(total, 2 * stacked)
+
+
 def test_moe_serving_card_matches_cpu(gen):
     """Reduced moonshot (2 layers, 4 experts, top-2) under rns on rns8
     pages: the card's prefill logits agree with the CPU's and its greedy
-    tokens are equal; every stacked expert einsum is one B1 launch."""
+    tokens are equal; every stacked expert einsum is one B1 launch, and
+    one B9 launch decodes it."""
     from repro_torch import kernels
 
     cfg = get_config("moonshot-v1-16b-a3b").reduced()
@@ -617,6 +653,7 @@ def test_moe_serving_card_matches_cpu(gen):
     # per forward: 2 layers x (q, k, v, o + 3 stacked expert einsums) and
     # the logits; 1 prefill + 5 decode steps
     assert counts["rns_matmul"] == 6 * (2 * 7 + 1)
+    assert counts["rns_decode"] == counts["rns_matmul"]
     assert counts["flash_attention"] == 2
     assert counts["paged_decode"] == 2 * 5
     np.testing.assert_allclose(res["cuda"].prefill_logits,
@@ -626,7 +663,8 @@ def test_moe_serving_card_matches_cpu(gen):
 
 def test_ssm_serving_card_matches_cpu(gen):
     """Reduced mamba2 (2 Mamba2 layers, no attention) under rns from its
-    SSM state: card == CPU, and only B1 ran."""
+    SSM state: card == CPU, and only B1 ran, each product decoded by
+    B9."""
     from repro_torch import kernels
 
     cfg = get_config("mamba2-780m").reduced()
@@ -642,7 +680,7 @@ def test_ssm_serving_card_matches_cpu(gen):
         if dev == "cuda":
             counts = kernels.launch_counts()
     assert counts == dict.fromkeys(counts, 0) | {
-        "rns_matmul": 6 * (2 * 2 + 1)}
+        "rns_matmul": 6 * (2 * 2 + 1), "rns_decode": 6 * (2 * 2 + 1)}
     np.testing.assert_allclose(res["cuda"].prefill_logits,
                                res["cpu"].prefill_logits, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(res["cuda"].tokens, res["cpu"].tokens)

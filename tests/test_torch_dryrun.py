@@ -54,7 +54,9 @@ def test_cli_writes_records_the_report_renders(tmp_path):
                            "qwen3-8b_decode_32k_single_rns.json")) as f:
         ref = json.load(f)
     assert {k: got[k] for k in FIELDS} == {k: ref[k] for k in FIELDS}
+    # B9 decodes each B1 launch's residues: one launch each
     assert got["op_cost"]["launches"] == {"rns_matmul": 253,
+                                          "rns_decode": 253,
                                           "flash_decode": 36}
     with open(os.path.join(out, name)) as f:
         chan = json.load(f)

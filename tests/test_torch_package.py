@@ -194,4 +194,4 @@ def test_launch_counters_stay_zero_on_cpu():
                                        "paged_decode_syndrome": 0,
                                        "flash_decode": 0,
                                        "sdrns_matmul": 0, "sdrns_matvec": 0,
-                                       "sd_add": 0}
+                                       "sd_add": 0, "rns_decode": 0}

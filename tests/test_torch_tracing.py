@@ -6,8 +6,9 @@
   CNN forwards leave their spans in the trace as user annotations (the
   numerics spans inside ``engine.prefill``), one ``numerics.decode`` a K
   segment run and one a product's rescale, one ``numerics.weight_encode``
-  a per-call product, and the engine's counters equal to the prefill's
-  rows and prompt tokens.
+  a per-call product, the engine's counters equal to the prefill's rows
+  and prompt tokens, and ``numerics.decode_eager`` to the elements the rns
+  runner decoded (each K segment's; the CPU has no B9).
 * Outputs are bit-identical with tracing on and off, and a session read
   after it ends is not mixed into the next one.
 """
@@ -52,9 +53,10 @@ def _profiled(fn):
 
 @pytest.fixture
 def counted(monkeypatch):
-    """Counts the K segments the runners cut and the quantized products
-    (``linear._qmatmul_resident``) and per-call ``dense`` calls made."""
-    n = {"segments": 0, "products": 0, "dense": 0}
+    """Counts the K segments the runners cut, the quantized products
+    (``linear._qmatmul_resident``) and per-call ``dense`` calls made, and
+    the output elements ``runners._rns_local`` decodes (each segment's)."""
+    n = {"segments": 0, "products": 0, "dense": 0, "decoded": 0}
 
     def wrap(mod, name, key, size=None):
         fn = getattr(mod, name)
@@ -69,6 +71,13 @@ def counted(monkeypatch):
     wrap(runners, "sdrns_segments", "segments", len)
     wrap(linear, "_qmatmul_resident", "products")
     wrap(linear, "dense", "dense")
+    local = runners._rns_local
+
+    def decoding(a, b_res, segs, *rest):
+        out = local(a, b_res, segs, *rest)
+        n["decoded"] += len(segs) * out.numel()
+        return out
+    monkeypatch.setattr(runners, "_rns_local", decoding)
     return n
 
 
@@ -147,7 +156,12 @@ def test_cnn_spans(system, counted):
     for rec in s.values():
         assert 0 <= rec["self_s"] <= rec["host_s"] + 1e-9
         assert rec["stream_s"] == pytest.approx(rec["host_s"])
-    assert snap["counters"] == {}
+    # the rns products' decodes, all eager on the CPU (the plain B9)
+    decoded = counted["decoded"] // 2
+    assert decoded == (2 * 32 * 32 * 8 + 2 * 2 * 16 + 2 * 10
+                       if system == "rns" else 0)
+    assert snap["counters"] == ({"numerics.decode_eager": decoded}
+                                if decoded else {})
 
 
 def test_admission_spans_and_counters(counted):
@@ -178,7 +192,9 @@ def test_admission_spans_and_counters(counted):
     children = sum(s[n]["host_s"] for n in ENGINE[1:])
     assert adm["self_s"] == pytest.approx(adm["host_s"] - children)
     assert snap["counters"] == {"engine.prefill_rows": 3 * max(LENS),
-                                "engine.prompt_tokens": sum(LENS)}
+                                "engine.prompt_tokens": sum(LENS),
+                                "numerics.decode_eager":
+                                    counted["decoded"] // 2}
 
 
 def test_a_new_session_starts_over():
@@ -193,6 +209,24 @@ def test_a_new_session_starts_over():
     assert second["counters"] == {"engine.prompt_tokens": 4}
     assert tracing.snapshot() == second
     assert first["spans"]["numerics.weight_encode"]["calls"] == 3
+
+
+def test_decode_counters():
+    """The reverse conversion's two counters: in ``COUNTERS``, nothing
+    while tracing is off, in the snapshot while it is on."""
+    names = ("numerics.decode_kernel", "numerics.decode_eager")
+    assert set(names) <= tracing.COUNTERS
+    _, _, before = _profiled(lambda: None)
+    for n in names:
+        tracing.count(n, 5)
+    assert tracing.snapshot() == before
+
+    def both():
+        tracing.count(names[0], 6)
+        tracing.count(names[1], 7)
+        tracing.count(names[0], 1)
+    _, _, snap = _profiled(both)
+    assert snap["counters"] == {names[0]: 7, names[1]: 7}
 
 
 def test_names_are_a_fixed_set():
