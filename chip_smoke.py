@@ -277,6 +277,22 @@ SPEC_NEW = {"ngram:4": SERVE_NEW, "rns:4": 12}
 # count per layer (gate and up, then down)
 MOE_E, MOE_TOPK = 64, 6
 MOE_EINSUMS = [((2048, 1408), 2), ((1408, 2048), 1)]
+# Moonlight-16B-A3B has the same expert einsums; the benchmark's admission
+# holds 8 prompts of 512-2048 tokens, log-uniform (mean (2048 - 512) / ln 4
+# = 1108), and the capacity follows the real tokens: the expert stack's M
+# is moe_capacity(T, 64, 6) at all 8 prompts at 2048 (T 16384, M 1920) and
+# at the mix's mean (T 8864, M 1040)
+MLA_ADMIT_T = {"moonlight prefill 8x2048": 8 * 2048,
+               "moonlight prefill mean": 8 * 1108}
+# its dense products (label, K, N), B1 then B9 through rns_run at M 8 and
+# at the admission's padded 8 x 2048 rows: q, kv_a (latent 512 + rope 64),
+# kv_b (16 x (128 + 128)), o, layer 0's gate and up, its down, the shared
+# experts' gate and up, their down; the untied head at M 8 alone
+MLA_MATMULS = [("q", 2048, 3072), ("kv_a", 2048, 576), ("kv_b", 512, 4096),
+               ("o", 2048, 2048), ("dense_up", 2048, 11264),
+               ("dense_down", 11264, 2048), ("shared_up", 2048, 2816),
+               ("shared_down", 2816, 2048)]
+MLA_HEAD, MLA_PREFILL_M = ("head", 2048, 163840), 8 * 2048
 # [serve-moe]: depth cut to 38 of 48 layers for memory (1.711 GB of P21
 # planes a layer; 48 layers and the logits planes would need ~84 GB; at 40
 # the serve's peak, 79.28 GB, left 5.74 GB of the card's 85.02 GB free,
@@ -764,8 +780,10 @@ def check_rns_matmul_moe(torch, timer, gen):
     """B1 in stack mode at moonshot-v1-16b-a3b's expert einsums: E = 64
     slices of P21 planes in one launch, at the decode capacity (M =
     moe_capacity(8, 64, 6) = 8) and the prefill's (M = moe_capacity(2048,
-    64, 6) = 240), (K, N) (2048, 1408) for gate and up and (1408, 2048) for
-    down, operands over the full centred range of the widest modulus.  Each
+    64, 6) = 240), then at Moonlight-16B-A3B's admissions (``MLA_ADMIT_T``:
+    M 1920 and 1040, the capacity over the real tokens), (K, N) (2048,
+    1408) for gate and up and (1408, 2048) for down, operands over the
+    full centred range of the widest modulus.  Each
     is one launch, bit for bit its plain version (a loop over the slices)
     and 64 launches of one slice each; timed with the L2 flushed beside the
     plain version, the 64 launches, ``torch._int_mm`` per slice and channel
@@ -779,7 +797,8 @@ def check_rns_matmul_moe(torch, timer, gen):
 
     E, C, h = MOE_E, P21.num_channels, max(P21.moduli) // 2
     res = {}
-    for phase, T in (("decode", SERVE_B), ("prefill", SERVE_B * SERVE_PROMPT)):
+    for phase, T in (("decode", SERVE_B), ("prefill", SERVE_B * SERVE_PROMPT),
+                     *MLA_ADMIT_T.items()):
         M = moe_capacity(T, E, MOE_TOPK)
         per = {}
         for (K, N), _ in MOE_EINSUMS:
@@ -840,6 +859,80 @@ def check_rns_matmul_moe(torch, timer, gen):
                           launches_per_layer=sum(c for _, c in MOE_EINSUMS),
                           shapes=per)
     return res
+
+
+def check_rns_run_mla(torch, timer, gen):
+    """B1 then B9 as the serve runs them (``numerics.runners.rns_run`` on
+    P21: the activation's residues, one B1 launch a K segment, each decoded
+    by B9 in place into the sum) at Moonlight-16B-A3B's dense products
+    (``MLA_MATMULS``) at M 8 and at the admission's 8 x 2048 rows, and at
+    the untied head's M 8 x N 163840; int4 operands over [-7, 7] (the
+    serve's bounds).  Each result bit for bit the float64 product (exact:
+    |sum| <= 11264 x 49 < 2^53), with one B1 and one B9 launch a segment;
+    timed with the L2 flushed: the whole chain, its B1 launches alone and
+    its B9 launches alone, beside the sum of their bounds."""
+    from repro_torch.core.moduli import P21
+    from repro_torch.kernels import rns_decode as rd
+    from repro_torch.kernels import rns_matmul as rmk
+    from repro_torch.numerics import runners
+    from repro_torch.roofline import op_cost
+
+    shapes = [(label, M, K, N) for M in (8, MLA_PREFILL_M)
+              for label, K, N in MLA_MATMULS]
+    shapes.append((MLA_HEAD[0], 8, *MLA_HEAD[1:]))
+    rows = {}
+    for label, M, K, N in shapes:
+        a = torch.randint(-7, 8, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        w = torch.randint(-7, 8, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        planes = runners.encode_rns_planes(w, P21)
+        want = torch.matmul(a.double(), w.double()).to(torch.int32)
+        del w
+        segs = runners.rns_segments(K, 7, 7, P21)
+        what = f"rns_run[mla {label}] M={M} K={K} N={N}"
+        b1, b9 = rmk.launches, rd.launches
+
+        def chain():
+            return runners.rns_run(a, planes, mset=P21, max_abs_a=7,
+                                   max_abs_b=7)
+
+        got = chain()
+        n1, n9 = rmk.launches - b1, rd.launches - b9
+        if (n1, n9) != (len(segs), len(segs)):
+            raise AssertionError(f"{what}: {n1} B1 and {n9} B9 launches, "
+                                 f"expected {len(segs)} of each")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: B1 then B9 differ from the exact "
+                                 f"product")
+        del got, want
+        a_res = P21.to_residues(a).to(planes.dtype)
+        parts = [(a_res[:, :, lo:hi].contiguous(),
+                  planes[:, lo:hi, :].contiguous()) for lo, hi in segs]
+        outs = [rmk.rns_matmul_cuda(x, y, P21.moduli) for x, y in parts]
+        total = torch.zeros((M, N), dtype=torch.int32, device="cuda")
+        ms = timer(chain, 10)
+        b1_ms = sum(timer(lambda x=x, y=y: rmk.rns_matmul_cuda(
+            x, y, P21.moduli), 10) for x, y in parts)
+        b9_ms = sum(timer(lambda r=r: rd.rns_decode_cuda(r, P21.info, total),
+                          10) for r in outs)
+        b1_bound = sum(bound_ms(op_cost.COSTS["rns_matmul"](
+            x, y, P21.moduli))[0] for x, y in parts)
+        b9_bound = sum(bound_ms(op_cost.COSTS["rns_decode"](
+            r, P21.info, total))[0] for r in outs)
+        print(f"[kernels] {what} P21, {len(segs)} K segment(s): bit-exact "
+              f"against the float64 product; chain_ms={ms:.4f} (B1 "
+              f"{b1_ms:.4f}, bound {b1_bound:.4f}; B9 adding into the sum "
+              f"{b9_ms:.4f}, bound {b9_bound:.4f}; the rest is the "
+              f"activation's residues) bound_ms={b1_bound + b9_bound:.4f}",
+              flush=True)
+        rows[f"{label},{M},{K},{N}"] = dict(
+            ms=ms, b1_ms=b1_ms, b9_ms=b9_ms, b1_bound_ms=b1_bound,
+            b9_bound_ms=b9_bound, bound_ms=b1_bound + b9_bound,
+            segments=len(segs), max_abs_err=0)
+        del a, planes, a_res, parts, outs, total
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_paged_verify(torch, timer, gen):
@@ -1018,6 +1111,85 @@ def check_flash_attention(torch, timer, gen, cases=None):
         del q, k, v, qt, kt, vt, out, ref, mask
         torch.cuda.empty_cache()
     return out_rows
+
+
+def check_flash_attention_mla(torch, timer, gen):
+    """B2's (192, 128) instance at Moonlight-16B-A3B's prefill: q and k of
+    192 (128 + 64 rotary) a head, v of 128, B 8, S 2048, H 16 (every head
+    its own k and v after the latent's expansion), causal; then a ragged
+    shape (S 200, kv_len < S) and a decode-like one (Sq 1 against kv_len
+    rows, non-causal, as the MLA decode step runs it).  Held within the
+    reference's bf16 tolerance (``check_flash_attention``'s), timed beside
+    the plain version and SDPA; the bound counts 2 x 192 operations a
+    (query head, key) pair for the scores and 2 x 128 for the product with
+    v, and each input and output byte once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                                flash_attention_ref)
+    from repro_torch.roofline import op_cost
+
+    rows = {}
+    for label, B, Sq, T, H, causal, ragged in (
+            ("moonlight", 8, 2048, 2048, 16, True, False),
+            ("ragged", 8, 200, 200, 16, True, True),
+            ("decode", 8, 1, 300, 16, False, True)):
+        q = torch.randn(B, Sq, H, 192, generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn(B, T, H, 192, generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn(B, T, H, 128, generator=gen,
+                        device="cuda").bfloat16()
+        kv_len = None
+        if ragged:
+            kv_len = torch.randint(1, T, (B,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            kv_len[0] = 7
+        out = flash_attention_cuda(q, k, v, kv_len, causal=causal)
+        ref = flash_attention_ref(q, k, v, kv_len, causal=causal)
+        if out.shape != (B, Sq, H, 128):
+            raise AssertionError(f"flash_attention_mla[{label}]: shape "
+                                 f"{tuple(out.shape)}")
+        err = float((out.float() - ref.float()).abs().max())
+        ref_max = float(ref.float().abs().max())
+        tol = min(2e-2, 1e-2 * ref_max)
+        if not err <= tol:
+            raise AssertionError(f"flash_attention_mla[{label}]: max error "
+                                 f"{err} > {tol} (max |ref| {ref_max})")
+        ms = timer(lambda: flash_attention_cuda(q, k, v, kv_len,
+                                                causal=causal), 20)
+        plain = timer(lambda: flash_attention_ref(q, k, v, kv_len,
+                                                  causal=causal), 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if kv_len is None:
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), 20)
+        else:
+            pos = torch.arange(T, device="cuda")
+            mask = (pos[None, :] < kv_len[:, None])[:, None, None, :]
+            if causal:
+                mask = mask & (pos[None, None, :] <= pos[:Sq, None])[None]
+            lib = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 20)
+        lens = [T] * B if kv_len is None else kv_len.tolist()
+        pairs = H * sum(
+            (min(n, Sq) * (min(n, Sq) + 1) // 2 + max(Sq - n, 0) * n)
+            if causal else Sq * n for n in lens)
+        nbytes = 2 * (B * Sq * H * (192 + 128) + sum(lens) * H * (192 + 128))
+        bms, by = op_cost.bound_ms(nbytes, 2 * (192 + 128) * pairs, "bf16")
+        print(f"[kernels] flash_attention_mla[{label}] B={B} Sq={Sq} T={T} "
+              f"H={H} dk=192 dv=128 bf16 {'causal' if causal else 'non-causal'}"
+              f"{'' if kv_len is None else ' ragged kv_len'}: max_abs_err="
+              f"{err:.3e} (tol {tol:.3e}, max |ref| {ref_max:.3e}); "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa)="
+              f"{lib:.4f} bound_ms={bms:.4f} ({by})", flush=True)
+        rows[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=by, max_abs_err=err,
+                           tol=tol, at=f"B={B} Sq={Sq} T={T} H={H} dk=192 "
+                                       f"dv=128 bf16")
+        del q, k, v, qt, kt, vt, out, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_paged_decode(torch, timer, gen, H=32, Kv=8,
@@ -2475,9 +2647,38 @@ def hold_launches(checks, run):
 # (tests/test_flash_attn.py: assert_allclose, rtol = atol = 2e-2), as the
 # serves' outputs reach |o| >= 4, where one bf16 ulp of output rounding on
 # either side is 2^-5; B3 on rns8 pages as in [kernels]
-HELD_TOL = {"rns_matmul": 0.0, "flash_attention": 2e-2, "paged_decode": 1e-4}
+HELD_TOL = {"rns_matmul": 0.0, "flash_attention": 2e-2, "paged_decode": 1e-4,
+            "rns_decode": 0.0}
 HELD_ERR = {"rns_matmul": "max_abs_err", "paged_decode": "max_abs_err",
-            "flash_attention": "max |out - ref| / (1 + |ref|)"}
+            "flash_attention": "max |out - ref| / (1 + |ref|)",
+            "rns_decode": "max_abs_err"}
+
+
+def hold_decode(run):
+    """``run()`` with B9's card implementation wrapped so that every launch
+    is held bit for bit against its plain version (the eager decode, added
+    into a copy of the sum the launch was given) as it returns.  Returns
+    ``run()``'s result and ``(launches, worst error)``, as
+    ``hold_launches`` gives them."""
+    from repro_torch.kernels.rns_decode import rns_decode_ref
+    from repro_torch.numerics import registry
+
+    kernel = registry.get_impl("rns_decode", "cuda")
+    rec = [0, 0.0]
+
+    def launch(res, mset, out=None):
+        before = None if out is None else out.clone()
+        got = kernel(res, mset, out)
+        want = rns_decode_ref(res, mset, before)
+        rec[0] += 1
+        rec[1] = max(rec[1], float((got.long() - want.long()).abs().max()))
+        return got
+
+    registry.register_impl("rns_decode", "cuda", launch)
+    try:
+        return run(), tuple(rec)
+    finally:
+        registry.register_impl("rns_decode", "cuda", kernel)
 
 
 def held_checks(*names):
@@ -3044,6 +3245,121 @@ def serve_ssm(torch, smi):
     print(f"[serve-ssm] every logit finite; seq0 tokens "
           f"{res.tokens[0, :16].tolist()}", flush=True)
     return counts
+
+
+MLA_LENS = (256, 320, 384, 448, 512, 640, 768, 1024)   # [serve-mla] prompts
+MLA_STEPS = 4
+
+
+def serve_mla(torch, smi):
+    """Phase: Moonlight-16B-A3B uncut (27 layers: latent attention, a dense
+    layer 0, 26 layers of 64 experts top-6 with shared experts; vocab
+    163840 and an untied head) under system="rns" on rns8 latent pages: one
+    admission of 8 ragged prompts (``MLA_LENS``: right-padded, the padding
+    kept out of the experts' capacity) through ``ServingEngine.admit_prefill``,
+    then MLA_STEPS greedy decode steps through ``decode_paged`` over the
+    latent pages.  Gates: every logit finite; B2 once a layer at the
+    admission and once a layer a step (the (192, 128) instance), B9 one a
+    B1 launch; the peak device memory with every weight resident; then the
+    admission's prefill again, untimed, with each B1 launch (the expert
+    stacks at the real tokens' capacity among them), each B2 and each B9
+    launch held against its plain version on its own inputs."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model, resident_bytes
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("moonlight-16b-a3b")
+    L, B, ps = cfg.n_layers, len(MLA_LENS), 64
+    s_max = max(MLA_LENS) + MLA_STEPS + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, system="rns", device="cuda")
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rb = resident_bytes(params)
+    engine = ServingEngine(model, params, batch=B, s_max=s_max,
+                           page_size=ps, kv_format="rns8", device="cuda")
+    del params
+    rng = np.random.default_rng(SEED)
+    prompts = {s: rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for s, n in enumerate(MLA_LENS)}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.admit_prefill(prompts, {s: s_max for s in prompts})
+    torch.cuda.synchronize()
+    t_admit = time.perf_counter() - t0
+    admit_counts = kernels.launch_counts()
+    logits0 = np.stack([out[s][0] for s in range(B)])
+    tabs = torch.as_tensor(np.stack([engine.pool.tab_row(
+        out[s][1].pages, engine.n_pmax) for s in range(B)]), device="cuda")
+    tok = torch.as_tensor(logits0.argmax(-1), device="cuda")[:, None]
+    pos = torch.as_tensor(MLA_LENS, dtype=torch.int32, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    kernels.reset_launch_counts()
+    step_s = []
+    for _ in range(MLA_STEPS):
+        t0 = time.perf_counter()
+        logits, _ = model.decode_paged(engine.params, tok, engine.pool.kv,
+                                       tabs, pos, page_size=ps)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite.logical_and_(torch.isfinite(logits).all())
+        tok, pos = logits.argmax(-1)[:, None].long(), pos + 1
+    step_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[serve-mla] moonlight-16b-a3b uncut ({L} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, q/k {cfg.hd} v "
+          f"{cfg.v_head_dim}, latent {cfg.kv_lora_rank} + rope "
+          f"{cfg.qk_rope_dim}, {cfg.n_experts} experts of {cfg.d_ff} top-"
+          f"{cfg.top_k} + {cfg.n_shared} shared, vocab {cfg.vocab}); "
+          f"system=rns kv=rns8 B={B} prompts {list(MLA_LENS)}, "
+          f"{MLA_STEPS} decode steps; {smi}", flush=True)
+    print(f"[serve-mla] init {t_init:.1f}s, resident bytes {rb}, admission "
+          f"{t_admit:.3f}s, decode steps {[round(t, 4) for t in step_s]}s, "
+          f"kv pool bytes {engine.pool.pool_bytes()}, peak {peak} of "
+          f"{total} (free at the peak {total - peak})", flush=True)
+    print(f"[serve-mla] launches: admission {json.dumps(admit_counts)}; "
+          f"decode {json.dumps(step_counts)}", flush=True)
+    want_b2 = {"admission": L, "decode": L * MLA_STEPS}
+    for name, c in (("admission", admit_counts), ("decode", step_counts)):
+        if c["flash_attention"] != want_b2[name] or \
+                c["rns_decode"] != c["rns_matmul"] or c["paged_decode"]:
+            raise AssertionError(f"serve-mla: {name} launches {c}")
+    if not (bool(finite) and np.isfinite(logits0).all()):
+        raise AssertionError("serve-mla: a logit is not finite")
+
+    # the admission's prefill again, untimed, each B1, B2 and B9 launch
+    # held against its plain version on its own inputs as it returns: B1 in
+    # stack mode at the expert buffers of the real tokens' capacity, B1 and
+    # B9 at every latent-attention, dense and shared product and the head
+    lens = np.array(MLA_LENS)
+    padded = np.zeros((B, int(lens.max())), np.int64)
+    for s, n in enumerate(MLA_LENS):
+        padded[s, :n] = prompts[s]
+    del out, tabs, tok, logits
+    gc.collect()
+    (_, held), b9 = hold_decode(lambda: hold_launches(
+        held_checks("rns_matmul", "flash_attention"),
+        lambda: model.prefill(
+            engine.params, torch.as_tensor(padded, device="cuda"),
+            s_max=int(lens.max()),
+            logits_at=torch.as_tensor(lens - 1, device="cuda"),
+            cache_dtype=engine.cache_dtype, lengths=lens.tolist())[0]))
+    held = dict(held, rns_decode=b9)
+    n_b1 = admit_counts["rns_matmul"]
+    check_held(held, {"rns_matmul": n_b1, "flash_attention": L,
+                      "rns_decode": n_b1}, "serve-mla",
+               "the admission's prefill")
+    return dict(admission=admit_counts, decode=step_counts,
+                admit_s=t_admit, step_s=step_s, init_s=t_init,
+                resident_bytes=rb, peak_bytes=peak,
+                held={k: dict(launches=n, max_err=e, tol=HELD_TOL[k])
+                      for k, (n, e) in held.items()})
 
 
 def serve_moe(torch, smi):
@@ -4914,6 +5230,13 @@ def main() -> int:
     # B9, the reverse conversion after B1, on every set it takes
     b9 = check_rns_decode(
         torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 9))
+    # B2's (192, 128) instance, latent attention's widths
+    fa_mla = check_flash_attention_mla(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 10))
+    # B1 then B9 at latent attention's, layer 0's and the shared experts'
+    # products and at the untied head (Moonlight-16B-A3B)
+    rr_mla = check_rns_run_mla(
+        torch, timer, torch.Generator(device="cuda").manual_seed(SEED + 11))
     del timer
     torch.cuda.empty_cache()
     print(f"[time] kernels: {time.perf_counter() - t_kernels:.1f}s",
@@ -4934,6 +5257,7 @@ def main() -> int:
     counts_cfg = phase("serve-configs", serve_configs, torch, smi)
     counts_ssm = phase("serve-ssm", serve_ssm, torch, smi)
     counts_moe = phase("serve-moe", serve_moe, torch, smi)
+    mla = phase("serve-mla", serve_mla, torch, smi)
     counts_vlm = phase("serve-vlm", serve_vlm, torch, smi)
     counts_audio = phase("serve-audio", serve_audio, torch, smi)
     train = phase("train", train_full_width, torch)
@@ -5002,7 +5326,8 @@ def main() -> int:
     line["kernels"][2]["spec"] = dict(
         pv, launches={k: v["counts"]["paged_decode"] for k, v in spec.items()})
     # B1 in stack mode at moonshot's expert einsums (decode and prefill
-    # capacity), with [serve-moe]'s launches; B3 at granite-20b's heads
+    # capacity; Moonlight's admissions beside them), with [serve-moe]'s
+    # launches; B3 at granite-20b's heads
     line["kernels"][0]["moe"] = dict(rm_moe,
                                      launches=counts_moe["rns_matmul"])
     line["kernels"][2]["granite"] = dict(
@@ -5071,6 +5396,16 @@ def main() -> int:
             for label, v in mesh.items()}
     line["mesh"] = {label: {k: v[k] for k in v if k != "counts"}
                     for label, v in mesh.items()}
+    # B2 at latent attention's widths, with [serve-mla]'s launches
+    line["kernels"][1]["mla"] = dict(
+        fa_mla, launches=mla["admission"]["flash_attention"]
+        + mla["decode"]["flash_attention"])
+    line["serve_mla"] = mla
+    # B1 then B9 at Moonlight-16B-A3B's dense products, with [serve-mla]'s
+    # launches (its expert stacks are under "moe")
+    line["kernels"][0]["mla"] = dict(
+        shapes=rr_mla, launches=mla["admission"]["rns_matmul"]
+        + mla["decode"]["rns_matmul"])
     # [serve-sched]: the spec run's launches and the serve's end-to-end rates
     line["serve_sched"] = {k: v for k, v in sched.items() if k != "counts"}
     # [roofline]: the counted work of one prefill and one decode step of

@@ -9,6 +9,11 @@ reference is ported: the dense ``qwen3-8b``, ``yi-6b``, ``phi3-medium-14b``
 and ``granite-20b``, the hybrid ``zamba2-7b``, the ssm ``mamba2-780m``, the
 moe ``moonshot-v1-16b-a3b`` and ``grok-1-314b``, the audio (encoder-decoder)
 ``whisper-small`` and the vlm ``pixtral-12b``.
+
+The port also serves configurations the reference has no counterpart of
+(:data:`PORT_ARCH_IDS`, resolved by the same :func:`get_config`): their
+fields live on :class:`MlaMoeConfig`, a subclass, so ``ArchConfig`` stays
+the reference's copy.
 """
 from __future__ import annotations
 
@@ -16,8 +21,8 @@ import dataclasses
 import importlib
 from typing import Iterator
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ARCH_IDS", "get_config",
-           "cells_for", "all_cells"]
+__all__ = ["ArchConfig", "MlaMoeConfig", "ShapeConfig", "SHAPES", "ARCH_IDS",
+           "PORT_ARCH_IDS", "get_config", "is_mla", "cells_for", "all_cells"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +113,51 @@ class ArchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MlaMoeConfig(ArchConfig):
+    """A DeepSeek-V3-style decoder (the port's own; the reference has none):
+    multi-head latent attention and sigmoid-routed experts with shared
+    experts after ``first_dense`` leading dense layers.
+
+    Attention: q maps ``d_model`` to ``n_heads x head_dim`` (``head_dim =
+    qk_nope_dim + qk_rope_dim``; no query LoRA); ``kv_a`` maps it to the
+    latent ``c_kv`` (``kv_lora_rank``, RMS-normed) and one rotary key
+    ``k_pe`` (``qk_rope_dim``) shared by every head; ``kv_b`` maps the
+    normed latent to each head's ``k_nope`` and value (``v_head_dim``).
+    Rotary positions cover the rope parts alone, in DeepSeek-V3's pairing.
+    The cache holds the normed latent and the roped ``k_pe`` a token.
+
+    Experts: ``n_experts`` routed SwiGLUs of width ``d_ff``, ``top_k`` a
+    token chosen on sigmoid scores plus a per-expert correction bias, the
+    chosen scores normalised and scaled by ``routed_scale``; ``n_shared``
+    shared experts, one SwiGLU of ``n_shared * d_ff``, see every token.
+    The leading layers are dense SwiGLUs of ``dense_d_ff``.
+    """
+
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    first_dense: int = 1
+    dense_d_ff: int = 11264
+    n_shared: int = 2
+    routed_scale: float = 2.446
+
+    def reduced(self) -> "MlaMoeConfig":
+        """A tiny config of the same kinds of layers: one dense layer and
+        two expert layers, 8 experts of which 3 a token."""
+        return dataclasses.replace(
+            self, n_layers=3, d_model=64, n_heads=4, n_kv=4, d_ff=32,
+            vocab=512, head_dim=24, kv_lora_rank=32, qk_nope_dim=16,
+            qk_rope_dim=8, v_head_dim=16, dense_d_ff=96, n_experts=8,
+            top_k=3, moe_cf=8.0, compute_dtype="float32", remat=False)
+
+
+def is_mla(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` is a latent-attention decoder (:class:`MlaMoeConfig`)."""
+    return isinstance(cfg, MlaMoeConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -135,12 +185,19 @@ ARCH_IDS: tuple[str, ...] = (
     "mamba2-780m",
 )
 
-_MODULES = {a: "repro_torch.configs." + a.replace("-", "_") for a in ARCH_IDS}
+# the port's own configurations, which the reference does not have
+PORT_ARCH_IDS: tuple[str, ...] = (
+    "moonlight-16b-a3b",
+)
+
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_")
+            for a in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def get_config(arch: str) -> ArchConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     return importlib.import_module(_MODULES[arch]).get_config()
 
 

@@ -25,6 +25,12 @@
 //    staged in K's second stage, so 68 KB of shared memory and 168
 //    registers at hd 128 let three blocks share an SM; the q tile is the
 //    slowest grid index, last first.  head_dim a multiple of 16, <= 128.
+//    The kernel is templated on q/k's width DK and v's width DV: latent
+//    attention (MLA) runs q and k of 192 (128 + 64 rotary) against v of
+//    128, so V is neither padded to 192 nor its PV product widened.  At
+//    (192, 128) K and V take 84 KB of shared memory a block, so two blocks
+//    share an SM (launch bound 2, registers to 255); instances with DK ==
+//    DV compile to the code of the single-width kernel.
 //    On the H100 it issues mma.sync at about 200 TFLOP/s at hd 128, half
 //    of SDPA's rate: 12 warps an SM leave the softmax unhidden behind the
 //    MMAs, and each K/V fragment read from shared memory feeds one 16-row
@@ -318,22 +324,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // block; the A operand holds the same rows at k 2c, 2c + 1 (regs 0, 1) and
 // 2c + 8, 2c + 9 (regs 2, 3).  So two n8 blocks of S are one k16 A operand
 // of PV, with no trip through shared memory.
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 3)
+// The register budget is set for three blocks an SM at equal widths, two
+// where K and V rows differ (shared memory admits no more at 192 / 128).
+template <int DK, int DV>
+__global__ void __launch_bounds__(TC_THREADS, (DK == DV ? 3 : 2))
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const int* __restrict__ kv_len,
                             __nv_bfloat16* __restrict__ out, int Sq, int T_,
                             int H, int Kv, int causal, float scale) {
-  constexpr int LD = HD + 8;    // padded row: 16 bytes of skew a row
-  constexpr int CH = HD / 8;    // 16-byte chunks a row
-  constexpr int NKD = HD / 16;  // k16 steps of QK^T over the head dim
-  constexpr int NO = HD / 8;    // n8 blocks of the output
+  constexpr int LD = DK + 8;    // padded q / k row: 16 bytes of skew a row
+  constexpr int LDV = DV + 8;   // padded v row
+  constexpr int CH = DK / 8;    // 16-byte chunks a q / k row
+  constexpr int CHV = DV / 8;   // 16-byte chunks a v row
+  constexpr int NKD = DK / 16;  // k16 steps of QK^T over the head dim
+  constexpr int NO = DV / 8;    // n8 blocks of the output
   constexpr int NS = TC_BK / 8; // n8 blocks of a score tile
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // [2][BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * TC_BK * LD;                        // [2][BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TC_BK * LD;                        // [2][BK][LDV]
   __nv_bfloat16* Qs = Ks + TC_BK * LD;  // [BQ][LD], staged in K's stage 1
 
   // the q tile is the slowest grid index, last tile first: under causal the
@@ -351,7 +361,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + r;
     const bool ok = qi < Sq;
     const __nv_bfloat16* src =
-        q + (((long long)b * Sq + (ok ? qi : 0)) * H + h) * HD + c * 8;
+        q + (((long long)b * Sq + (ok ? qi : 0)) * H + h) * DK + c * 8;
     cp_async16(smem_addr(Qs + r * LD + c * 8), src, ok);
   }
   auto load_kv = [&](int t, int st) {
@@ -360,11 +370,21 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = i / CH, c = i - r * CH;
       const int tt = k0 + r;
       const bool ok = tt < kvv;  // rows past kv_len load as zeros
-      const long long off =
-          (((long long)b * T_ + (ok ? tt : 0)) * Kv + kh) * HD + c * 8;
+      const long long row = ((long long)b * T_ + (ok ? tt : 0)) * Kv + kh;
       const int so = (st * TC_BK + r) * LD + c * 8;
-      cp_async16(smem_addr(Ks + so), k + off, ok);
-      cp_async16(smem_addr(Vs + so), v + off, ok);
+      cp_async16(smem_addr(Ks + so), k + row * DK + c * 8, ok);
+      if constexpr (DK == DV)
+        cp_async16(smem_addr(Vs + so), v + row * DV + c * 8, ok);
+    }
+    if constexpr (DK != DV) {
+      for (int i = tid; i < TC_BK * CHV; i += TC_THREADS) {
+        const int r = i / CHV, c = i - r * CHV;
+        const int tt = k0 + r;
+        const bool ok = tt < kvv;
+        const long long row = ((long long)b * T_ + (ok ? tt : 0)) * Kv + kh;
+        cp_async16(smem_addr(Vs + (st * TC_BK + r) * LDV + c * 8),
+                   v + row * DV + c * 8, ok);
+      }
     }
   };
   if (n_t > 0) load_kv(0, 0);
@@ -393,7 +413,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait<1>();  // everything but the tile just issued has landed
     __syncthreads();
     const __nv_bfloat16* Kt = Ks + (t & 1) * TC_BK * LD;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * TC_BK * LD;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * TC_BK * LDV;
 
     // S = Q K^T: 16 x 64 a warp, f32 accumulators
     float s[NS][4];
@@ -475,7 +495,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int n2 = 0; n2 < NO / 2; ++n2) {
         uint32_t bf[4];  // keys 16 kc .. + 15, dims 16 n2 .. + 15
         ldsm_x4_trans(smem_addr(Vt + (kc * 16 + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8) * LD +
+                                      ((lane >> 3) & 1) * 8) * LDV +
                                 n2 * 16 + (lane >> 4) * 8),
                       bf);
         mma_bf16(acc[2 * n2], pf[kc], bf[0], bf[1]);
@@ -490,7 +510,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = i ? qb : qa;
     if (qi >= Sq) continue;
     const float den = fmaxf(l_r[i], 1e-30f);
-    __nv_bfloat16* dst = out + (((long long)b * Sq + qi) * H + h) * HD + c2;
+    __nv_bfloat16* dst = out + (((long long)b * Sq + qi) * H + h) * DV + c2;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
@@ -498,31 +518,38 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_flash_bf16(const void* q, const void* k, const void* v,
                       const int* kv_len, void* o, int B, int Sq, int T_,
                       int H, int Kv, int causal, float scale,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)4 * TC_BK * (HD + 8);
-  cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (size_t)2 * TC_BK * ((DK + 8) + (DV + 8));
+  cudaFuncSetAttribute(flash_attention_bf16_kernel<DK, DV>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid(H, B, (Sq + TC_BQ - 1) / TC_BQ);
-  flash_attention_bf16_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+  flash_attention_bf16_kernel<DK, DV><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, kv_len, (__nv_bfloat16*)o, Sq, T_, H, Kv,
       causal, scale);
   return (int)cudaGetLastError();
 }
 
+// (q / k width, v width) pairs beyond the equal ones: _BF16_SPLIT in
+// kernels/flash_attn.py
 int dispatch_flash_bf16(const void* q, const void* k, const void* v,
                         const int* kv_len, void* o, int B, int Sq, int T_,
-                        int H, int Kv, int hd, int causal, float scale,
-                        cudaStream_t s) {
+                        int H, int Kv, int hd, int hdv, int causal,
+                        float scale, cudaStream_t s) {
+  if (hd == 192 && hdv == 128)
+    return launch_flash_bf16<192, 128>(q, k, v, kv_len, o, B, Sq, T_, H, Kv,
+                                       causal, scale, s);
+  if (hd != hdv) return (int)cudaErrorInvalidValue;
 #define FA_BF16_CASE(D)                                                   \
   case D:                                                                 \
-    return launch_flash_bf16<D>(q, k, v, kv_len, o, B, Sq, T_, H, Kv,     \
-                                causal, scale, s);
+    return launch_flash_bf16<D, D>(q, k, v, kv_len, o, B, Sq, T_, H, Kv,  \
+                                   causal, scale, s);
   switch (hd) {
     FA_BF16_CASE(16)
     FA_BF16_CASE(32)
@@ -1032,21 +1059,23 @@ bool decode_hd_ok(int hd) { return hd >= 8 && hd <= PD_MAXD && hd % 8 == 0; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output share it).
 // bf16 takes the tensor-core kernel (head_dim a multiple of 16, pointers
-// 16-byte aligned), f32 the CUDA-core one.
+// 16-byte aligned; q / k of hd, v and the output of hdv), f32 the
+// CUDA-core one (hdv == hd).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* kv_len, void* o,
                                    int B, int Sq, int T, int H, int Kv,
-                                   int hd, int causal, float scale, int dtype,
-                                   void* stream) {
-  if (hd > FA_MAXD || Kv < 1 || H % Kv != 0) return (int)cudaErrorInvalidValue;
+                                   int hd, int hdv, int causal, float scale,
+                                   int dtype, void* stream) {
+  if (Kv < 1 || H % Kv != 0 || (hd == hdv && hd > FA_MAXD))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* kl = (const int*)kv_len;
-  if (dtype == 0)
+  if (dtype == 0 && hd == hdv)
     return launch_flash_f32(q, k, v, kl, o, B, Sq, T, H, Kv, hd, causal,
                             scale, s);
   if (dtype == 1)
-    return dispatch_flash_bf16(q, k, v, kl, o, B, Sq, T, H, Kv, hd, causal,
-                               scale, s);
+    return dispatch_flash_bf16(q, k, v, kl, o, B, Sq, T, H, Kv, hd, hdv,
+                               causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

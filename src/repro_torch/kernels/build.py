@@ -46,9 +46,10 @@ _SIGNATURES = {
     # res, out, tables (host uint32[]), C, S, M x N, res channel stride,
     # res stack stride, accumulate, stream
     "rns_decode_s32": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _P],
-    # q, k, v, kv_len, o, B, Sq, T, H, Kv, hd, causal, scale, dtype, stream
+    # q, k, v, kv_len, o, B, Sq, T, H, Kv, hd (q and k), hdv (v and o),
+    # causal, scale, dtype, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _I, _P],
+                            _I, _F, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, tab, kv_len, o, m, l, B, H, Kv,
     # hd, ps, n_pmax, row_stride, scale, q_dtype, kv_mode, m0, m1, crt_inv,
     # k_wit, v_wit, wit_lane_stride, n_red, red_moduli (host int[n_red]),

@@ -22,10 +22,13 @@
 
 The kernels live in ``csrc/flash_attn.cu``; its header note says what bounds
 each on the H100 and what the design does about it.  The prefill takes the
-tensor-core kernel for bf16 (head_dim a multiple of 16) and the CUDA-core
-kernel for f32; the decodes share one row-parallel chunk body that loads
-each row as vectors (head_dim a multiple of 8).  Both take head_dim <= 128
-and raise for what their kernel does not take.  The plain versions
+tensor-core kernel for bf16 (head_dim a multiple of 16 up to 128, or q and
+k of 192 with v of 128: latent attention's widths) and the CUDA-core
+kernel for f32 (one width up to 128); the decodes share one row-parallel
+chunk body that loads each row as vectors (head_dim a multiple of 8 up to
+128).  Each raises for what its kernel does not take.  The prefill's v
+may be narrower than q and k (``(B, T, Kv, dv)``); its output has v's
+width and its softmax scale is ``1 / sqrt(q's width)``.  The plain versions
 compute the same functions in the same order of operations, tensor-wide:
 masked scores take ``-1e30``, masked KV rows are zeroed, ``p`` is rounded
 to v's dtype before the PV product and the prefill output is
@@ -50,6 +53,9 @@ launches = {"flash_attention": 0, "paged_decode": 0,
             "paged_decode_syndrome": 0, "flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (q/k width, v width) pairs of the bf16 prefill kernel beyond its equal
+# widths (FA_BF16_SPLIT in csrc/flash_attn.cu)
+_BF16_SPLIT = {(192, 128)}
 _DECODE_WARPS = 8      # PD_MAXW in csrc/flash_attn.cu
 _SMEM_BYTES = 227 * 1024
 
@@ -88,9 +94,11 @@ def _full_len(kv_len: torch.Tensor | None, B: int, T: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: torch.Tensor | None = None, *,
                         causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, H, hd), k/v (B, T, Kv, hd) -> (B, Sq, H, hd) in q's dtype."""
+    """q (B, Sq, H, hd), k (B, T, Kv, hd), v (B, T, Kv, dv) -> (B, Sq, H,
+    dv) in q's dtype."""
     B, Sq, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
     G = H // Kv
     kv_len = _full_len(kv_len, B, T, q.device)
     kpos = torch.arange(T, device=q.device)
@@ -109,7 +117,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype).to(torch.float32),
                      vz.to(torch.float32))
     o = o / torch.clamp(lsum, min=1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv).to(
         q.dtype).contiguous()
 
 
@@ -117,7 +125,8 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor | None = None, *,
                          causal: bool = True) -> torch.Tensor:
     """The contract's output, empty (the meta device)."""
-    return torch.empty_like(q)
+    return torch.empty((*q.shape[:-1], v.shape[-1]), dtype=q.dtype,
+                       device=q.device)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,10 +140,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Sq, H, hd = q.shape
     _, T, Kv, hd2 = k.shape
-    if hd2 != hd or v.shape != k.shape or k.shape[0] != B or H % Kv:
+    dv = v.shape[-1]
+    if (hd2 != hd or v.shape[:-1] != k.shape[:-1] or k.shape[0] != B
+            or H % Kv):
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd > 128:
+    if dv != hd and (q.dtype != torch.bfloat16 or (hd, dv) not in
+                     _BF16_SPLIT):
+        raise ValueError(f"q/k width {hd} with v width {dv}: the kernel "
+                         f"takes unequal widths {sorted(_BF16_SPLIT)} in "
+                         f"bf16 only")
+    if dv == hd and hd > 128:
         raise ValueError(f"head_dim {hd} > 128 is not supported")
     if q.dtype == torch.bfloat16 and hd % 16:
         raise ValueError(f"the bf16 tensor-core kernel takes head_dim a "
@@ -145,12 +161,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_aligned("flash_attention_cuda", 16, q.data_ptr(),
                        k.data_ptr(), v.data_ptr())
     kl = _full_len(kv_len, B, T, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),
-        out.data_ptr(), B, Sq, T, H, Kv, hd, int(causal), 1.0 / hd ** 0.5,
-        _DTYPE_CODE[q.dtype], stream)
+        out.data_ptr(), B, Sq, T, H, Kv, hd, dv, int(causal),
+        1.0 / hd ** 0.5, _DTYPE_CODE[q.dtype], stream)
     build.check(err, "flash_attention_fwd")
     launches["flash_attention"] += 1
     return out

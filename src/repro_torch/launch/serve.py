@@ -48,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, PORT_ARCH_IDS, get_config
 from repro_torch.models import frontends
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import ServingEngine
@@ -58,7 +58,8 @@ DEC_PROMPT = 8     # the audio family's decoder prompt (the reference's)
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--system", default="bns", choices=("bns", "rns", "sdrns"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

@@ -26,15 +26,16 @@ and the audio encoder-decoder (``models/encdec.py``):
   bare ``(E, K, N)`` expert stacks ``w_gate`` / ``w_up`` / ``w_down`` (the
   stack kept), the encoder's and decoder's layers of the audio family, and
   the tied logits weight (not for the audio family, whose logits stay a
-  float product, as in the reference);
+  float product, as in the reference), or an untied ``lm_head``;
 * ``prepare_weight(w)`` -- one float ``(K, N)`` weight made resident as
   ``prepare_params`` makes each (the speculative drafter re-encodes the
   target's weights one at a time through it);
 * ``prefill(params, tokens, s_max=None, logits_at=None, patches=None,
-  frames=None)`` -- logits and the family's cache; the vlm family takes
-  ``patches (B, n_img, d)`` put before the tokens, the audio family
-  ``frames (B, S_enc, d)`` for its encoder and ``tokens`` as the decoder
-  prompt;
+  frames=None, lengths=None)`` -- logits and the family's cache; the vlm
+  family takes ``patches (B, n_img, d)`` put before the tokens, the audio
+  family ``frames (B, S_enc, d)`` for its encoder and ``tokens`` as the
+  decoder prompt; ``lengths`` (host ints) are right-padded prompts'
+  lengths, which an MLA model's expert layers read;
 * ``init_cache(batch, s_max)`` -- a zeroed cache of that layout (the ssm
   family's is an ``SsmCache`` alone, no KV; the audio family's ``s_max`` is
   the encoder memory's length);
@@ -194,7 +195,8 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             return node
         out = {k: prepare_tree(v, k, path + (k,), in_list)
                for k, v in node.items()}
-        if name == "embed" and "logits_w" not in out and not encdec:
+        if (name == "embed" and "logits_w" not in out and not encdec
+                and cfg.tie_embeddings):
             # tied-embedding logits matmul; the f32 table stays for the
             # embedding gather
             out["logits_w"] = resident(out["table"].to(torch.float32).T,
@@ -262,7 +264,8 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
 
     @torch.no_grad()
     def prefill(params, tokens, s_max=None, logits_at=None,
-                cache_dtype=torch.bfloat16, patches=None, frames=None):
+                cache_dtype=torch.bfloat16, patches=None, frames=None,
+                lengths=None):
         tokens = torch.as_tensor(tokens, device=dev).long()
         if encdec:
             if frames is None:
@@ -275,7 +278,8 @@ def build_model(cfg: ArchConfig, *, system: str = "bns",
             patches = torch.as_tensor(patches, device=dev)
         return tf_mod.lm_prefill(params, cfg, tokens, s_max=s_max,
                                  dense_kw=dense_kw, cache_dtype=cache_dtype,
-                                 logits_at=logits_at, patches=patches)
+                                 logits_at=logits_at, patches=patches,
+                                 lengths=lengths)
 
     def init_cache(batch: int, s_max: int, dtype=torch.bfloat16):
         if encdec:

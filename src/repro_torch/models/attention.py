@@ -23,6 +23,21 @@ differ from ``d_model`` (pixtral-12b's is 4096 against 5120): ``wq`` maps
 onto it and ``wo`` back.  ``apply_rope=False`` (the audio family, whose
 positions are sinusoidal embeddings added to the input) leaves q and k
 unrotated.
+
+Multi-head latent attention (MLA, the port's
+:class:`~repro_torch.configs.base.MlaMoeConfig`): :func:`mla_prefill_attention`
+projects q (``wq``, ``n_heads x (nope + rope)``), the latent ``c_kv`` and
+the shared rotary key ``k_pe`` (``kv_a``, then ``kv_norm`` on the latent),
+expands the latent into every head's ``k_nope`` and value (``kv_b``),
+rotates the rope parts in DeepSeek-V3's pairing, and runs the flash kernel
+with q and k of ``nope + rope`` and v of ``v_head_dim`` values a head.  Its
+cache is the normed latent and the roped ``k_pe``, ``(B, s_max, 1, r)`` and
+``(B, s_max, 1, rope)``: one latent and one key a token for all heads,
+which the paged pool keeps as its K and V pages.
+:func:`mla_paged_decode_attention` appends the new token's latent and key
+to the pages, reads the slot's pages back, expands them with ``kv_b`` and
+runs the flash kernel over ``kv_len`` rows: the expansion runs in eager
+ops over every row of the slot's pages each step.
 """
 from __future__ import annotations
 
@@ -30,15 +45,18 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import linear
 from repro_torch.models.layers import init_rmsnorm, rmsnorm, rope
 from repro_torch.numerics import attention as nxattn
 from repro_torch.numerics import kv_pages as nxkv
+from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.quant.quant import true_divide
 
 __all__ = ["KVCache", "init_attention", "attention", "core",
            "prefill_attention", "decode_attention", "paged_decode_attention",
-           "paged_verify_attention"]
+           "paged_verify_attention", "init_mla", "mla_prefill_attention",
+           "mla_paged_decode_attention"]
 
 CHUNK_THRESHOLD = 8192   # above this S, scores go over query chunks
 Q_CHUNK = 1024
@@ -273,4 +291,127 @@ def paged_verify_attention(params, x, kv_layer: "nxkv.PagedKV",
     o = nxattn.paged_verify(q, kv_layer, block_tab, positions + 1,
                             page_size=page_size)
     out = o.to(q.dtype).reshape(B, V, n_heads * head_dim)
+    return linear.dense(params["wo"], out, **dense_kw), kv_layer
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg, device="cuda") -> dict[str, Any]:
+    """MLA parameters of a :class:`~repro_torch.configs.base.MlaMoeConfig`:
+    ``wq (d, H (nope + rope))``, ``kv_a (d, r + rope)``, ``kv_norm (r,)``,
+    ``kv_b (r, H (nope + v))``, ``wo (H v, d)``."""
+    d, H = cfg.d_model, cfg.n_heads
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    return {
+        "wq": linear.init_dense(gen, d, H * (dn + dr), device),
+        "kv_a": linear.init_dense(gen, d, r + dr, device),
+        "kv_norm": init_rmsnorm(r, device),
+        "kv_b": linear.init_dense(gen, r, H * (dn + dv), device),
+        "wo": linear.init_dense(gen, H * dv, d, device),
+    }
+
+
+def _mla_q(params, x, positions, cfg, dense_kw):
+    """q (B, S, H, nope + rope), its rope part rotated."""
+    B, S, _ = x.shape
+    dn = cfg.qk_nope_dim
+    q = linear.dense(params["wq"], x, **dense_kw).reshape(
+        B, S, cfg.n_heads, dn + cfg.qk_rope_dim)
+    q_pe = rope(q[..., dn:], positions, theta=cfg.rope_theta,
+                pairing="interleaved")
+    return torch.cat([q[..., :dn], q_pe], dim=-1)
+
+
+def _mla_latent(params, x, positions, cfg, dense_kw):
+    """The cache a token leaves: the normed latent ``c (B, S, r)`` and the
+    roped shared key ``k_pe (B, S, rope)``."""
+    r = cfg.kv_lora_rank
+    ckv = linear.dense(params["kv_a"], x, **dense_kw)
+    c = rmsnorm(params["kv_norm"], ckv[..., :r])
+    k_pe = rope(ckv[..., None, r:], positions, theta=cfg.rope_theta,
+                pairing="interleaved")[..., 0, :]
+    return c, k_pe
+
+
+def _mla_expand(params, c, k_pe, cfg, dense_kw):
+    """Every head's k ``(B, T, H, nope + rope)`` (``k_pe`` broadcast over
+    the heads) and v ``(B, T, H, v)`` from the latent rows."""
+    B, T, _ = c.shape
+    H, dn = cfg.n_heads, cfg.qk_nope_dim
+    kv = linear.dense(params["kv_b"], c, **dense_kw).reshape(
+        B, T, H, dn + cfg.v_head_dim)
+    k = torch.cat([kv[..., :dn],
+                   k_pe[:, :, None, :].expand(B, T, H, k_pe.shape[-1])],
+                  dim=-1)
+    return k, kv[..., dn:]
+
+
+def mla_prefill_attention(params, x, s_max: int, *, cfg, dense_kw=None,
+                          cache_dtype=torch.bfloat16):
+    """MLA over the prompt (module docstring): ``(out (B, S, d), (c, k_pe))``
+    with the latent cache ``(B, s_max, 1, r)`` and ``(B, s_max, 1, rope)``
+    in ``cache_dtype``."""
+    dense_kw = dense_kw or {}
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    q = _mla_q(params, x, positions, cfg, dense_kw)
+    with tracing.span("attn.latent"):
+        c, k_pe = _mla_latent(params, x, positions, cfg, dense_kw)
+        k, v = _mla_expand(params, c, k_pe, cfg, dense_kw)
+    pad = (0, 0, 0, 0, 0, s_max - S)
+    cache = (torch.nn.functional.pad(c[:, :, None].to(cache_dtype), pad),
+             torch.nn.functional.pad(k_pe[:, :, None].to(cache_dtype), pad))
+    out = nxattn.flash_attention(q.contiguous(), k.to(q.dtype).contiguous(),
+                                 v.to(q.dtype).contiguous(), causal=True)
+    out = out.reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+    return linear.dense(params["wo"], out, **dense_kw), cache
+
+
+def _page_rows(leaf, tab: torch.Tensor) -> torch.Tensor:
+    """One layer's pages of every slot, ``(B, n_pmax * ps, hd)`` f32: dense
+    pages as they are, residue pages decoded (lane 0) and scaled."""
+    if not isinstance(leaf, ResidueTensor):
+        rows = leaf[tab]                               # (B, n, ps, 1, hd)
+    else:
+        vals = leaf.mset.packed().decode(leaf.planes[tab][..., 0, :, :]
+                                         .to(torch.int32))
+        rows = vals.to(torch.float32) * leaf.scale[tab]
+    B, n, ps = rows.shape[:3]
+    return rows.reshape(B, n * ps, rows.shape[-1]).to(torch.float32)
+
+
+def mla_paged_decode_attention(params, x, kv_layer: "nxkv.PagedKV",
+                               block_tab: torch.Tensor, pos: torch.Tensor, *,
+                               page_size: int, cfg, dense_kw=None,
+                               cache_dtype=torch.bfloat16):
+    """One MLA decode step over one layer's latent pages (module
+    docstring): the new token's latent and key go into page
+    ``block_tab[b, pos // ps]`` at ``pos % ps`` (cast to ``cache_dtype``
+    first, as the prefill's are), then the slot's pages are read back,
+    expanded and attended over ``kv_len = pos + 1`` rows.  Returns ``(out
+    (B, 1, d), kv_layer)``."""
+    dense_kw = dense_kw or {}
+    B = x.shape[0]
+    pos = pos.to(device=x.device, dtype=torch.int32)
+    q = _mla_q(params, x, pos[:, None], cfg, dense_kw)
+    n_pmax = block_tab.shape[1]
+    page_idx = torch.clamp(pos // page_size, 0, n_pmax - 1).long()
+    pages = torch.gather(block_tab.long(), 1, page_idx[:, None])[:, 0]
+    tab = block_tab.long()
+    with tracing.span("attn.latent"):
+        c, k_pe = _mla_latent(params, x, pos[:, None], cfg, dense_kw)
+        kv_layer = nxkv.append_token(kv_layer, c[:, 0, None].to(cache_dtype),
+                                     k_pe[:, 0, None].to(cache_dtype),
+                                     pages, pos % page_size)
+        cd = x.dtype
+        k, v = _mla_expand(params, _page_rows(kv_layer.k, tab).to(cd),
+                           _page_rows(kv_layer.v, tab).to(cd), cfg, dense_kw)
+    o = nxattn.flash_attention(q.contiguous(), k.to(q.dtype).contiguous(),
+                               v.to(q.dtype).contiguous(), causal=False,
+                               kv_len=pos + 1)
+    out = o.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
     return linear.dense(params["wo"], out, **dense_kw), kv_layer

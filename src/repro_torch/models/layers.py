@@ -42,8 +42,20 @@ def rmsnorm(params: dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *,
-         theta: float = 1e4) -> torch.Tensor:
-    """Rotary embedding.  x: (B, S, H, hd); positions: (B, S) or (S,)."""
+         theta: float = 1e4, pairing: str = "half") -> torch.Tensor:
+    """Rotary embedding.  x: (B, S, H, hd); positions: (B, S) or (S,).
+
+    ``pairing="half"`` rotates dims ``i`` and ``i + hd/2`` together (every
+    model of the reference).  ``"interleaved"`` is DeepSeek-V3's: dims
+    ``2i`` and ``2i + 1`` are a pair, de-interleaved first (evens, then
+    odds) and rotated as halves, so the output keeps that order, as the
+    published model's ``apply_rotary_pos_emb`` does.  Frequency ``i`` is
+    ``theta ** (-2i / hd)`` in both."""
+    if pairing == "interleaved":
+        x = torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1)
+    elif pairing != "half":
+        raise ValueError(f"rope pairing must be 'half' or 'interleaved', "
+                         f"got {pairing!r}")
     hd = x.shape[-1]
     half = hd // 2
     freqs = theta ** true_divide(

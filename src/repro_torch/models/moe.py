@@ -28,6 +28,18 @@ Where the reference's semantics are kept on purpose:
   setting and no summation order moves its logits (one flipped ulp can
   change the top-k), on the card as on the CPU.
 
+DeepSeek-V3's routing (a router with a correction ``bias`` beside its
+weight, :func:`route_sigmoid`; the port's
+:class:`~repro_torch.configs.base.MlaMoeConfig`): sigmoid scores of
+the same f32 logits, the top k of score plus a per-expert correction bias
+(the bias picks the experts and weights nothing), the chosen scores
+normalised and scaled by ``routed_scale``.  Shared experts
+(``params["shared"]``, one SwiGLU) see every row and are added to the
+routed output.  Given ``valid`` (the prompt rows of a right-padded
+prefill) and ``n_tokens`` (their count, which the caller has on the host),
+padded rows take no expert slot and the capacity follows the real rows,
+so one prompt's padding never displaces the next prompt's tokens.
+
 The switch-transformer load-balance loss ``E sum_e f_e p_e``, a training
 term, comes with the output under ``moe(..., with_aux=True)`` (the training
 forward) and alone from :func:`load_balance_loss`.  Under ``rns`` /
@@ -54,13 +66,16 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models import linear
+from repro_torch.models import mlp as mlp_mod
 from repro_torch.numerics.tensor import ResidueTensor
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import ShardedParam
 
-__all__ = ["init_moe", "load_balance_loss", "moe", "moe_capacity"]
+__all__ = ["init_moe", "init_moe_mla", "load_balance_loss", "moe",
+           "moe_capacity", "route", "route_sigmoid", "place"]
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -77,6 +92,17 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
         "w_up": stack(n_experts, d_model, d_ff),
         "w_down": stack(n_experts, d_ff, d_model),
     }
+
+
+def init_moe_mla(gen: torch.Generator, d_model: int, d_ff: int,
+                 n_experts: int, n_shared: int, device="cuda"
+                 ) -> dict[str, Any]:
+    """:func:`init_moe`'s experts, a zero correction bias beside the router
+    weight, and the shared SwiGLU of ``n_shared * d_ff``."""
+    p = init_moe(gen, d_model, d_ff, n_experts, device)
+    p["router"]["bias"] = torch.zeros(n_experts, device=device)
+    p["shared"] = mlp_mod.init_swiglu(gen, d_model, n_shared * d_ff, device)
+    return p
 
 
 def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -102,6 +128,27 @@ def route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int):
     return probs, gates, expert_idx
 
 
+def route_sigmoid(router_w: torch.Tensor, bias: torch.Tensor,
+                  xt: torch.Tensor, top_k: int, routed_scale: float):
+    """(T, d) tokens -> ``(scores (T, E), gates (T, k), expert_idx (T, k))``
+    under DeepSeek-V3's ``noaux_tc`` routing with one group.
+
+    f32 logits (summed in float64, as :func:`route`), sigmoid scores; the
+    experts are the k largest ``score + bias`` (a stable descending sort:
+    ties to the lower index); the gates are the chosen experts' scores
+    over their sum (+ 1e-20) times ``routed_scale``.
+    """
+    logits = torch.matmul(xt.to(torch.float64),
+                          router_w.to(torch.float64)).to(torch.float32)
+    scores = torch.sigmoid(logits)
+    choice = scores + bias.to(torch.float32)
+    expert_idx = torch.sort(choice, dim=-1, descending=True,
+                            stable=True).indices[:, :top_k]
+    w = scores.gather(1, expert_idx)
+    gates = w / (w.sum(-1, keepdim=True) + 1e-20) * routed_scale
+    return scores, gates, expert_idx
+
+
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """``F.one_hot(idx, n)`` as a comparison (int64): the same on every
     device, where ``F.one_hot`` reads its indices back to the host on the
@@ -111,12 +158,17 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def place(expert_idx: torch.Tensor, n_experts: int, capacity: int,
-          rows=None):
+          rows=None, valid: torch.Tensor | None = None):
     """Each (token, slot)'s expert and position inside it, flattened to
     ``(T·k,)``, and which of them fit the capacity; with ``rows``
-    (``sharding.dp_rows()``) the positions follow the lower dp ranks' slots."""
+    (``sharding.dp_rows()``) the positions follow the lower dp ranks' slots.
+    With ``valid (T,)`` the slots of invalid rows (padding) take no
+    position and are not kept."""
     flat_e = expert_idx.reshape(-1)
     onehot = _one_hot(flat_e, n_experts).to(torch.int32)
+    if valid is not None:
+        vs = valid[:, None].expand(expert_idx.shape).reshape(-1)
+        onehot = onehot * vs[:, None].to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
     if rows is not None:
@@ -125,7 +177,10 @@ def place(expert_idx: torch.Tensor, n_experts: int, capacity: int,
                                  mesh, dp)
         below = counts[:coll.axis_index(mesh, dp)].sum(0, dtype=torch.int32)
         pos_in_e = pos_in_e + below[flat_e]
-    return flat_e, pos_in_e, pos_in_e < capacity
+    keep = pos_in_e < capacity
+    if valid is not None:
+        keep = keep & vs
+    return flat_e, pos_in_e, keep
 
 
 def _switch_aux(probs: torch.Tensor, expert_idx: torch.Tensor,
@@ -152,7 +207,9 @@ def load_balance_loss(router_w: torch.Tensor, x: torch.Tensor, *,
 
 def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
         top_k: int, capacity_factor: float = 1.25,
-        dense_kw: dict[str, Any] | None = None, with_aux: bool = False):
+        dense_kw: dict[str, Any] | None = None, with_aux: bool = False,
+        routed_scale: float = 1.0, valid: torch.Tensor | None = None,
+        n_tokens: int | None = None):
     """x: (B, S, d) -> y (B, S, d); with ``with_aux`` ``(y, aux)``, the
     load-balance loss of this routing.
 
@@ -160,6 +217,10 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     ``linear.dense``: ``bns`` float einsums (bf16 operands, f32 sums), or
     ``rns`` / ``sdrns`` on resident expert stacks.  The capacity follows
     the token count, so a prefill must route all its prompts in one call.
+    A router with a ``bias`` routes as :func:`route_sigmoid` (gates scaled
+    by ``routed_scale``); ``valid (B, S)`` bool with ``n_tokens``, its count,
+    keeps padded rows out of the experts (module docstring).  Shared
+    experts run where ``params`` has them.
     """
     dkw = dense_kw or {}
     system = dkw.get("system", "bns")
@@ -179,17 +240,34 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     T = B * S
     E, K = n_experts, top_k
     xt = x.reshape(T, d)
-    probs, gates, expert_idx = route(params["router"]["w"], xt, K)
+    rp = params["router"]
+    with tracing.span("moe.route"):
+        if "bias" in rp:
+            probs, gates, expert_idx = route_sigmoid(
+                rp["w"], rp["bias"], xt, K, routed_scale)
+        else:
+            probs, gates, expert_idx = route(rp["w"], xt, K)
     rows = sharding.dp_rows()
-    C = moe_capacity(T * (rows[2] if rows else 1), E, K, capacity_factor)
-    flat_e, pos_in_e, keep = place(expert_idx, E, C, rows)
-    # slot row in the flattened (E * C, d) buffer; dropped slots go to the
-    # spare row E * C, which is cut off
-    slot = torch.where(keep, flat_e * C + pos_in_e,
-                       torch.full_like(flat_e, E * C))
-    src = xt.repeat_interleave(K, dim=0)                  # (T K, d)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot,), src)[:E * C].view(E, C, d)
+    if valid is not None and (rows is not None or n_tokens is None):
+        raise ValueError("valid= needs n_tokens= and no dp row split")
+    real = T if valid is None else int(n_tokens)
+    C = moe_capacity(real * (rows[2] if rows else 1), E, K, capacity_factor)
+    vt = None if valid is None else valid.reshape(T)
+    with tracing.span("moe.dispatch"):
+        flat_e, pos_in_e, keep = (
+            place(expert_idx, E, C, rows) if vt is None else
+            place(expert_idx, E, C, rows, valid=vt))
+        # slot row in the flattened (E * C, d) buffer; dropped slots go to
+        # the spare row E * C, which is cut off
+        slot = torch.where(keep, flat_e * C + pos_in_e,
+                           torch.full_like(flat_e, E * C))
+        src = xt.repeat_interleave(K, dim=0)                  # (T K, d)
+        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+        buf = buf.index_put((slot,), src)[:E * C].view(E, C, d)
+    if tracing.enabled():
+        tracing.count("moe.slots", real * K)
+        tracing.count("moe.capacity_rows", E * C)
+        tracing.count("moe.dropped", real * K - keep.sum())
 
     def experts(buf, w_gate, w_up, w_down):
         g = expert_einsum("ecd,edf->ecf", buf, w_gate, torch.float32)
@@ -208,10 +286,17 @@ def moe(params: dict[str, Any], x: torch.Tensor, *, n_experts: int,
     else:
         out_buf = experts(buf, *stacks)
 
-    out_tok = out_buf.reshape(E * C, d)[torch.where(keep, slot, 0)]
-    out_tok = torch.where(keep[:, None], out_tok, torch.zeros_like(out_tok))
-    y = (out_tok.reshape(T, K, d)
-         * gates.reshape(T, K, 1).to(x.dtype)).sum(dim=1).reshape(B, S, d)
+    shared = None
+    if "shared" in params:
+        shared = mlp_mod.swiglu(params["shared"], x, dkw)
+    with tracing.span("moe.combine"):
+        out_tok = out_buf.reshape(E * C, d)[torch.where(keep, slot, 0)]
+        out_tok = torch.where(keep[:, None], out_tok,
+                              torch.zeros_like(out_tok))
+        y = (out_tok.reshape(T, K, d) * gates.reshape(T, K, 1).to(x.dtype)
+             ).sum(dim=1).reshape(B, S, d)
+        if shared is not None:
+            y = y + shared
     if with_aux:
         return y, _switch_aux(probs, expert_idx, E, rows)
     return y

@@ -12,6 +12,13 @@ loop over a list of per-layer parameter dicts.
   ``(B, n_img, d)`` prepended to the token embeddings at prefill: the
   prompt is ``n_img + S_text`` positions long.
 * moe -- the same attention + a top-k expert layer (``models/moe.py``).
+  A :class:`~repro_torch.configs.base.MlaMoeConfig` (the port's own)
+  takes latent attention (``attention.mla_prefill_attention`` /
+  ``mla_paged_decode_attention``), leading dense SwiGLU layers, expert
+  layers with sigmoid routing and shared experts, and an untied
+  ``lm_head``; it serves through prefill and paged decode only.  Given the
+  prompts' lengths (``lm_prefill(lengths=...)``, host ints), its expert
+  layers keep padded rows out of their capacity.
 * ssm (mamba2) -- Mamba2 blocks only, attention-free.
 * hybrid (zamba2) -- a Mamba2 backbone; after every ``attn_every`` layers a
   *shared* (weight-tied) attention + SwiGLU block runs on
@@ -37,6 +44,8 @@ with no SP, as in the reference.
 Caches (stacked over layers on axis 0, updated in place by decode):
 
 * dense, moe, vlm: ``KVCache(k, v)`` with leaves (L, B, S_max, Kv, hd);
+  MLA: the latent ``c`` (L, B, S_max, 1, r) and ``k_pe`` (L, B, S_max, 1,
+  rope) in the ``k`` and ``v`` leaves (:func:`kv_dims`);
 * ssm: ``SsmCache(conv (L, B, K-1, conv_dim), state (L, B, H, P, N))``;
 * hybrid: ``{"ssm": SsmCache(...), "attn": KVCache(k, v)}`` with KV leaves
   (G, B, S_max, Kv, hd), G the number of shared-block applications.
@@ -47,7 +56,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, is_mla
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import linear
 from repro_torch.models import mlp as mlp_mod
@@ -63,7 +72,7 @@ from repro_torch.parallel.sharding import ShardedParam, get_shard_ctx
 
 __all__ = ["init_lm", "init_lm_cache", "lm_forward", "lm_prefill",
            "lm_decode", "lm_decode_paged", "lm_verify_paged", "ssm_dims",
-           "hybrid_groups"]
+           "hybrid_groups", "kv_dims"]
 
 
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
@@ -86,6 +95,21 @@ def ssm_dims(cfg: ArchConfig) -> Mamba2Dims:
                       cfg.ssm_expand, cfg.ssm_headdim)
 
 
+def kv_dims(cfg: ArchConfig) -> tuple[int, int, int]:
+    """``(heads, k width, v width)`` of a cache row: ``(n_kv, hd, hd)``, or
+    under MLA one latent of ``kv_lora_rank`` and one key of
+    ``qk_rope_dim`` a token in the ``k`` and ``v`` leaves."""
+    if is_mla(cfg):
+        return 1, cfg.kv_lora_rank, cfg.qk_rope_dim
+    return cfg.n_kv, cfg.hd, cfg.hd
+
+
+def _refuse_mla(cfg: ArchConfig, what: str) -> None:
+    if is_mla(cfg):
+        raise ValueError(f"{cfg.name}: latent attention serves through "
+                         f"prefill and paged decode, not {what}")
+
+
 def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
     """(shared-block applications, tail layers) of the hybrid family."""
     g = cfg.n_layers // cfg.attn_every
@@ -97,8 +121,24 @@ def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def _init_mla_layer(gen: torch.Generator, cfg, i: int,
+                    device) -> dict[str, Any]:
+    p = {"attn_norm": init_rmsnorm(cfg.d_model, device),
+         "attn": attn_mod.init_mla(gen, cfg, device),
+         "mlp_norm": init_rmsnorm(cfg.d_model, device)}
+    if i < cfg.first_dense:
+        p["mlp"] = mlp_mod.init_swiglu(gen, cfg.d_model, cfg.dense_d_ff,
+                                       device)
+    else:
+        p["moe"] = moe_mod.init_moe_mla(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.n_experts, cfg.n_shared, device)
+    return p
+
+
 def _init_layer(gen: torch.Generator, cfg: ArchConfig,
-                device) -> dict[str, Any]:
+                device, i: int = 0) -> dict[str, Any]:
+    if is_mla(cfg):
+        return _init_mla_layer(gen, cfg, i, device)
     if cfg.family in ("ssm", "hybrid"):
         return {"norm": init_rmsnorm(cfg.d_model, device),
                 "mamba": ssm_mod.init_mamba2(gen, ssm_dims(cfg), device)}
@@ -145,10 +185,13 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, *, device="cuda",
     prep = prepare_layer or (lambda p: p)
     params: dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, device),
-        "layers": [prep(_init_layer(gen, cfg, device))
-                   for _ in range(cfg.n_layers)],
+        "layers": [prep(_init_layer(gen, cfg, device, i))
+                   for i in range(cfg.n_layers)],
         "final_norm": init_rmsnorm(cfg.d_model, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = prep(linear.init_dense(gen, cfg.d_model,
+                                                   cfg.vocab, device))
     if cfg.family == "hybrid":
         params["shared"] = prep(_init_shared_block(gen, cfg, device))
     return params
@@ -161,9 +204,12 @@ def init_lm_cache(cfg: ArchConfig, batch: int, s_max: int,
     _check_family(cfg)
     L = cfg.n_layers
     if cfg.family in _ATTN_FAMILIES:
-        shape = (L, batch, s_max, cfg.n_kv, cfg.hd)
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
+        kv, hk, hv = kv_dims(cfg)
+        return KVCache(
+            torch.zeros((L, batch, s_max, kv, hk), dtype=dtype,
+                        device=device),
+            torch.zeros((L, batch, s_max, kv, hv), dtype=dtype,
+                        device=device))
     dims = ssm_dims(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     ssm_cache = SsmCache(
@@ -194,8 +240,11 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor,
 
 def _head(params, x: torch.Tensor, dense_kw: dict[str, Any]
           ) -> torch.Tensor:
-    """The tied-embedding logits matmul of the normed ``x``; a sharded
-    table (the train step) runs as a column plan over its vocabulary."""
+    """The logits matmul of the normed ``x``: the untied ``lm_head`` where
+    the tree has one, else the tied embedding; a sharded table (the train
+    step) runs as a column plan over its vocabulary."""
+    if "lm_head" in params:
+        return linear.dense(params["lm_head"], x, **dense_kw).to(x.dtype)
     table = params["embed"]["table"]
     if dense_kw.get("system", "bns") in ("rns", "sdrns"):
         w = params["embed"].get("logits_w")
@@ -209,10 +258,20 @@ def _head(params, x: torch.Tensor, dense_kw: dict[str, Any]
     return torch.matmul(x, table.to(x.dtype).T)
 
 
-def _mlp_block(lp, x, cfg: ArchConfig, dense_kw):
+def _mlp_block(lp, x, cfg: ArchConfig, dense_kw, valid=None, n_tokens=None):
     """The layer's feed-forward half: SwiGLU or GELU, or the expert layer
-    of the moe family."""
+    of the moe family (an MLA model's: sigmoid routing and shared experts,
+    and with ``valid`` / ``n_tokens`` padded rows kept out of the
+    capacity; its leading dense layers are SwiGLUs)."""
     h = rmsnorm(lp["mlp_norm"], x)
+    if is_mla(cfg):
+        if "mlp" in lp:
+            return mlp_mod.swiglu(lp["mlp"], h, dense_kw)
+        return moe_mod.moe(lp["moe"], h, n_experts=cfg.n_experts,
+                           top_k=cfg.top_k, capacity_factor=cfg.moe_cf,
+                           dense_kw=dense_kw,
+                           routed_scale=cfg.routed_scale, valid=valid,
+                           n_tokens=n_tokens)
     if cfg.family == "moe":
         return moe_mod.moe(lp["moe"], h, n_experts=cfg.n_experts,
                            top_k=cfg.top_k, capacity_factor=cfg.moe_cf,
@@ -393,6 +452,7 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     loss (an f32 zero for the other families).  ``patches`` (vlm): ``(B,
     n_img, d)`` before the tokens, S = n_img + S_text.  Writes no cache."""
     _check_family(cfg)
+    _refuse_mla(cfg, "the training forward")
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)
@@ -433,14 +493,17 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
                s_max: int | None = None, dense_kw=None,
-               cache_dtype=torch.bfloat16, logits_at=None, patches=None):
+               cache_dtype=torch.bfloat16, logits_at=None, patches=None,
+               lengths=None):
     """Process the prompt; return ``(logits (B, vocab), cache)`` with the
     cache of the family's layout (module docstring), KV padded to
     ``s_max`` rows.
 
     ``logits_at``: optional (B,) positions to read logits from instead of
     the last row.  ``patches`` (vlm): ``(B, n_img, d)`` embeddings put
-    before the tokens' (the positions count them).
+    before the tokens' (the positions count them).  ``lengths``: the
+    right-padded prompts' lengths, host ints (an MLA model's expert layers
+    keep the padding out of their capacity; others ignore it).
     """
     _check_family(cfg)
     dense_kw = dense_kw or {}
@@ -453,6 +516,9 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if cfg.family == "hybrid":
         return _hybrid_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
                                logits_at)
+    if is_mla(cfg):
+        return _mla_prefill(params, cfg, x, s_max, dense_kw, cache_dtype,
+                            logits_at, lengths)
     cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
@@ -466,6 +532,28 @@ def lm_prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *,
         cache.k[i], cache.v[i] = kc, vc
         x = x + h
         x = x + _mlp_block(lp, x, cfg, dense_kw)
+    return _read_logits(params, cfg, x, logits_at, dense_kw), cache
+
+
+def _mla_prefill(params, cfg, x, s_max, dense_kw, cache_dtype, logits_at,
+                 lengths):
+    B, S = x.shape[:2]
+    valid = n_tokens = None
+    if lengths is not None:
+        lens = [int(n) for n in lengths]
+        n_tokens = sum(lens)
+        if n_tokens < B * S:
+            valid = (torch.arange(S, device=x.device)[None, :]
+                     < torch.as_tensor(lens, device=x.device)[:, None])
+    cache = init_lm_cache(cfg, B, s_max, cache_dtype, x.device)
+    for i, lp in enumerate(params["layers"]):
+        h, (c, k_pe) = attn_mod.mla_prefill_attention(
+            lp["attn"], rmsnorm(lp["attn_norm"], x), s_max, cfg=cfg,
+            dense_kw=dense_kw, cache_dtype=cache_dtype)
+        cache.k[i], cache.v[i] = c, k_pe
+        x = x + h
+        x = x + _mlp_block(lp, x, cfg, dense_kw, valid=valid,
+                           n_tokens=n_tokens)
     return _read_logits(params, cfg, x, logits_at, dense_kw), cache
 
 
@@ -503,6 +591,7 @@ def lm_decode(params, cfg: ArchConfig, token: torch.Tensor, cache, pos: int,
     decodes at.  The cache (``lm_prefill``'s layout) is updated in place;
     returns ``(logits (B, vocab), cache)``."""
     _check_family(cfg)
+    _refuse_mla(cfg, "the dense-cache decode")
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], token, cd)
@@ -563,6 +652,19 @@ def lm_decode_paged(params, cfg: ArchConfig, token: torch.Tensor,
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], token, cd)
+    if is_mla(cfg):
+        if with_syndrome:
+            raise ValueError(f"{cfg.name}: no syndrome decode over latent "
+                             f"pages")
+        for i, lp in enumerate(params["layers"]):
+            h, lay = attn_mod.mla_paged_decode_attention(
+                lp["attn"], rmsnorm(lp["attn_norm"], x),
+                kvp.layer_slice(kv, i), block_tab, pos, page_size=page_size,
+                cfg=cfg, dense_kw=dense_kw, cache_dtype=cache_dtype)
+            kv = kvp.layer_update(kv, i, lay)
+            x = x + h
+            x = x + _mlp_block(lp, x, cfg, dense_kw)
+        return _logits(params, cfg, x, dense_kw)[:, 0], kv
     akw = dict(_attn_kw(cfg, dense_kw), cache_dtype=cache_dtype,
                with_syndrome=with_syndrome)
     syns = []
@@ -603,6 +705,7 @@ def lm_verify_paged(params, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(f"paged verify supports the dense, moe and vlm "
                          f"families, not {cfg.family!r}")
     _check_family(cfg)
+    _refuse_mla(cfg, "the speculative verify")
     dense_kw = dense_kw or {}
     cd = getattr(torch, cfg.compute_dtype)
     x = embed(params["embed"], tokens, cd)

@@ -5,6 +5,9 @@ a request owns an ordered list of page ids (its block-table row) and writes
 position ``pos`` into page ``tab[pos // ps]`` at offset ``pos % ps``.
 
 * dense pages: ``(L, P, ps, Kv, hd)`` tensors in the cache dtype (bf16);
+  V pages may hold rows of another width than K's (``v_head_dim``: a
+  latent-attention model keeps its latent in the K pages and its rotary
+  key in the V pages, one "head" each);
 * residue pages: each value quantized symmetrically per (token, head) along
   ``hd``, carried as centered residues of a packable 2-channel set and
   bit-packed into uint8 planes ``(L, P, ps, 1 + r, Kv, hd/vpb)`` (the
@@ -109,16 +112,19 @@ def _residue_pool(fmt: KVFormat, shape: tuple[int, ...],
 
 def make_paged_kv(n_layers: int, num_pages: int, page_size: int, n_kv: int,
                   head_dim: int, *, fmt: KVFormat | str = "bf16",
-                  dtype=torch.bfloat16, device="cuda") -> PagedKV:
-    """An all-zeros pool ``(L, P, ps, Kv, hd)`` for K and V."""
+                  dtype=torch.bfloat16, device="cuda",
+                  v_head_dim: int | None = None) -> PagedKV:
+    """An all-zeros pool ``(L, P, ps, Kv, hd)`` for K and V (V's rows of
+    ``v_head_dim`` values where given)."""
     if isinstance(fmt, str):
         fmt = KV_FORMATS[fmt]
     shape = (n_layers, num_pages, page_size, n_kv, head_dim)
+    v_shape = shape[:-1] + (v_head_dim or head_dim,)
     if fmt.is_residue:
         return PagedKV(_residue_pool(fmt, shape, device),
-                       _residue_pool(fmt, shape, device))
+                       _residue_pool(fmt, v_shape, device))
     return PagedKV(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+                   torch.zeros(v_shape, dtype=dtype, device=device))
 
 
 def quantize_to_format(x: torch.Tensor, fmt: KVFormat
@@ -301,15 +307,19 @@ def layer_update(paged: PagedKV, i: int, layer_kv: PagedKV) -> PagedKV:
 
 
 def bytes_per_token(fmt: KVFormat | str, n_kv: int, head_dim: int,
-                    dtype=torch.bfloat16) -> int:
+                    dtype=torch.bfloat16, v_head_dim: int | None = None
+                    ) -> int:
     """KV bytes one resident token occupies (K and V, one layer)."""
     if isinstance(fmt, str):
         fmt = KV_FORMATS[fmt]
-    if fmt.is_residue:
-        vpb = fmt.pack.values_per_byte
-        plane_bytes = n_kv * (head_dim // vpb + fmt.redundant * head_dim)
-        return 2 * (plane_bytes + n_kv * 4)
-    return 2 * n_kv * head_dim * torch.empty((), dtype=dtype).element_size()
+
+    def one(hd: int) -> int:
+        if fmt.is_residue:
+            vpb = fmt.pack.values_per_byte
+            return n_kv * (hd // vpb + fmt.redundant * hd + 4)
+        return n_kv * hd * torch.empty((), dtype=dtype).element_size()
+
+    return one(head_dim) + one(v_head_dim or head_dim)
 
 
 def pool_bytes(paged: PagedKV) -> int:

@@ -83,6 +83,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.models.api import Model, resolve_device
+from repro_torch.models.transformer import kv_dims
 from repro_torch.numerics import api as nx
 from repro_torch.numerics import kv_pages as kvp
 from repro_torch.numerics import runners
@@ -201,10 +202,11 @@ class ServingEngine:
             if num_pages is None:
                 num_pages = 1 + batch * self.n_pmax
             cfg = model.cfg
+            n_kv, hk, hv = kv_dims(cfg)
             self.pool = KVPagePool(cfg.n_layers, num_pages, page_size,
-                                   cfg.n_kv, cfg.hd, fmt=kv_format,
+                                   n_kv, hk, fmt=kv_format,
                                    dtype=cache_dtype, device=dev,
-                                   prefix_cache=prefix_cache)
+                                   prefix_cache=prefix_cache, v_head_dim=hv)
             self.stats.pool = self.pool.stats
 
         self.spec = None
@@ -875,7 +877,7 @@ class ServingEngine:
                 logits, (k, v) = self.model.prefill(
                     self.params, prompts, s_max=S,
                     logits_at=torch.as_tensor(lens - 1, device=dev),
-                    cache_dtype=self.cache_dtype)
+                    cache_dtype=self.cache_dtype, lengths=lens.tolist())
                 logits = logits.to(torch.float32).cpu().numpy()
             self._scatter(k, v, torch.as_tensor(tabs, device=dev))
             del k, v

@@ -58,7 +58,7 @@ class KVPagePool:
     def __init__(self, n_layers: int, num_pages: int, page_size: int,
                  n_kv: int, head_dim: int, *, fmt: str = "bf16",
                  dtype=torch.bfloat16, device="cuda",
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, v_head_dim: int | None = None):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the dump page)")
         self.n_layers = n_layers
@@ -66,12 +66,14 @@ class KVPagePool:
         self.page_size = page_size
         self.n_kv = n_kv
         self.head_dim = head_dim
+        self.v_head_dim = v_head_dim or head_dim
         self.fmt = kvp.KV_FORMATS[fmt] if isinstance(fmt, str) else fmt
         self.dtype = dtype
         self.prefix_enabled = prefix_cache
         self.kv = kvp.make_paged_kv(n_layers, num_pages, page_size, n_kv,
                                     head_dim, fmt=self.fmt, dtype=dtype,
-                                    device=device)
+                                    device=device,
+                                    v_head_dim=self.v_head_dim)
         self.stats = PoolStats()
         self._quarantined: set[int] = set()
         self._fault_counts: dict[int, int] = {}
@@ -232,7 +234,7 @@ class KVPagePool:
     def bytes_per_resident_token(self) -> int:
         """KV bytes one resident token takes across all layers."""
         return self.n_layers * kvp.bytes_per_token(
-            self.fmt, self.n_kv, self.head_dim, self.dtype)
+            self.fmt, self.n_kv, self.head_dim, self.dtype, self.v_head_dim)
 
     def pool_bytes(self) -> int:
         return kvp.pool_bytes(self.kv)

@@ -3,7 +3,8 @@
 Tracing is on while a ``torch.profiler`` session records, and off
 otherwise: there is no other switch.  Off, :func:`span` reads one flag and
 returns a shared no-op context, and :func:`count` reads the same flag and
-returns.
+returns; callers that would compute a device value only to count it ask
+:func:`enabled` first.
 
 On, each span
 
@@ -19,6 +20,10 @@ On, each span
 :func:`snapshot` returns the aggregate of the most recent profiled session.
 A session's aggregate is closed when :func:`snapshot` reads it after the
 profiler stopped; the first span or count after that starts a new one.
+A count may be a 0-d device tensor (a value the device holds, such as the
+slots an expert layer dropped): it is kept on the device and summed when
+:func:`snapshot` reads the aggregate, as the spans' events are read, so
+counting waits on nothing.
 
 Names are a fixed set, :data:`SPANS` and :data:`COUNTERS`; the spans do
 not bracket kernels, which the profiler's device trace names itself.
@@ -31,7 +36,7 @@ import time
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["SPANS", "COUNTERS", "span", "count", "snapshot"]
+__all__ = ["SPANS", "COUNTERS", "span", "count", "enabled", "snapshot"]
 
 SPANS = frozenset({
     "numerics.encode",          # an activation to residues or digits
@@ -41,12 +46,19 @@ SPANS = frozenset({
     "engine.pages",             # page allocation and block tables
     "engine.prefill",           # the forward and the logits' copy out
     "engine.scatter",           # prefill K and V into the KV pages
+    "moe.route",                # router product, scores, top-k, gates
+    "moe.dispatch",             # placement, scatter into (E, C, d)
+    "moe.combine",              # gather back, gates, k-sum, shared add
+    "attn.latent",              # MLA: kv_a, its norm, kv_b, k_pe's rope
 })
 COUNTERS = frozenset({
     "engine.prefill_rows",      # B x S of each admission prefill
     "engine.prompt_tokens",     # the real prompt tokens among them
     "numerics.decode_kernel",   # elements rns_run decoded through B9
     "numerics.decode_eager",    # elements it decoded in eager ops
+    "moe.slots",                # real (token, slot) pairs routed
+    "moe.dropped",              # those past their expert's capacity
+    "moe.capacity_rows",        # E x C of each expert layer's buffers
 })
 
 _OFF = contextlib.nullcontext()
@@ -60,10 +72,17 @@ class _Aggregate:
         self.counters: dict[str, int] = {}
         self.pending: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] \
             = []
+        self.device_counts: dict[str, list[torch.Tensor]] = {}
         self.closed = False
 
     def fold(self) -> None:
-        """Adds the stream seconds of the spans recorded on CUDA."""
+        """Adds the stream seconds of the spans recorded on CUDA and the
+        counts held on the device."""
+        for name, vals in self.device_counts.items():
+            total = torch.stack([v.reshape(()).to(torch.int64)
+                                 for v in vals]).sum()
+            self.counters[name] = self.counters.get(name, 0) + int(total)
+        self.device_counts.clear()
         if not self.pending:
             return
         torch.cuda.synchronize()
@@ -130,14 +149,24 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, n: int) -> None:
+def enabled() -> bool:
+    """Whether spans and counts are recorded now (a profiler session
+    records)."""
+    return _profiler._is_profiler_enabled
+
+
+def count(name: str, n: int | torch.Tensor) -> None:
     """Adds ``n`` to the counter ``name`` (one of :data:`COUNTERS`) while
-    tracing is on."""
+    tracing is on; a tensor ``n`` (one element) is summed on its device
+    when the aggregate is read."""
     if not _profiler._is_profiler_enabled:
         return
     if name not in COUNTERS:
         raise ValueError(f"unknown counter {name!r}")
     agg = _session()
+    if isinstance(n, torch.Tensor):
+        agg.device_counts.setdefault(name, []).append(n.detach())
+        return
     agg.counters[name] = agg.counters.get(name, 0) + int(n)
 
 

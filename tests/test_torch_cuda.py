@@ -703,6 +703,45 @@ def test_flash_attention_kernel_bf16_non_causal_hd64(gen, B, Sq, T, H, Kv,
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("B,Sq,T,H,causal,ragged", [
+    (8, 2048, 2048, 16, True, False), (3, 200, 200, 4, True, True),
+    (2, 65, 150, 4, False, True), (8, 1, 300, 16, False, True)])
+def test_flash_attention_kernel_bf16_mla_widths(gen, B, Sq, T, H, causal,
+                                                ragged):
+    """B2's (192, 128) instance (latent attention: q and k of 128 + 64
+    rotary, v of 128) against its plain version within B2's tolerance,
+    1e-2 of the largest output: Moonlight's prefill (B 8, S 2048, H 16,
+    causal), ragged rows past kv_len (garbage that must not reach the
+    output), Sq != T, and a decode step's one row against kv_len keys."""
+    q = torch.randn(B, Sq, H, 192, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, T, H, 192, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, T, H, 128, generator=gen, device="cuda").bfloat16()
+    kv_len = None
+    if ragged:
+        kv_len = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        kv_len[0] = 7
+        tail = torch.arange(T, device="cuda")[None, :] >= kv_len[:, None]
+        k[tail] = float("nan")
+        v[tail] = float("inf")
+    out = fa.flash_attention_cuda(q, k, v, kv_len, causal=causal)
+    ref = fa.flash_attention_ref(q, k, v, kv_len, causal=causal)
+    assert out.shape == (B, Sq, H, 128) and out.dtype == torch.bfloat16
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max()), err
+
+
+def test_flash_attention_kernel_bf16_rejects_other_widths(gen):
+    """Unequal widths other than (192, 128), or in f32, raise."""
+    q = torch.randn(1, 8, 2, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, 8, 2, 64, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="unequal widths"):
+        fa.flash_attention_cuda(q, q, v, causal=True)
+    q = torch.randn(1, 8, 2, 192, generator=gen, device="cuda")
+    v = torch.randn(1, 8, 2, 128, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="unequal widths"):
+        fa.flash_attention_cuda(q, q, v, causal=True)
+
 @pytest.mark.parametrize("M,K,N", [(8, 768, 51865), (64, 768, 51865),
                                    (8, 3072, 1001), (300, 5120, 4097)])
 def test_rns_matmul_kernel_odd_columns(gen, M, K, N):
